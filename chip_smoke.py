@@ -4,22 +4,41 @@
     python chip_smoke.py
 
 1. Prints the card (torch and nvidia-smi); without a CUDA device it fails.
-2. Builds the render kernels from csrc/ (first use) and prints the seconds.
-3. Holds each kernel against its plain PyTorch version on the card, at
-   ragged R = 4099 and S = 64, 128, 192, with the JAX kernels' test bars
-   (weights 5e-3, rgb and opacity 1e-2, depth 5e-2), and times both at the
-   main path's tile (32768 rays) with CUDA events.
-4. Drives the eval path: random weights from a torch.Generator seed are
-   written as a checkpoint with the JAX package's keys, loaded back with
-   load_ckpt, and 2 frames of 400x400 at 64 + 64 samples are rendered from
-   sphere poses (radius 4, near 2, far 6) through make_render_fn, the
+2. Builds the kernels from csrc/ (first use; one nvcc per source, all at
+   once) and prints the seconds and ptxas's registers and spills.
+3. Eval path. Holds each render kernel against its plain PyTorch version
+   on the card, at ragged R = 4099 and S = 64, 128, 192, with the JAX
+   kernels' test bars (weights 5e-3, rgb and opacity 1e-2, depth 5e-2),
+   and times both at the main path's tile (32768 rays) with CUDA events.
+   Then drives the eval path: random weights from a torch.Generator seed
+   are written as a checkpoint with the JAX package's keys, loaded back
+   with load_ckpt, and 2 frames of 400x400 at 64 + 64 samples are rendered
+   from sphere poses (radius 4, near 2, far 6) through make_render_fn, the
    renderer of the eval CLI. Every output must be finite, opacity within
    [0, 1 + 1e-4], both kernels must have launched, and 4096 rays of frame 0
    must agree with the plain unfused path on the card within 2e-2.
+4. Train path. Holds the training kernel (mse_render) against its plain
+   version at R = 8, 1024, 4104 and S = 64, 128, 192: out8 and weights at
+   the same bars, each gradient leaf within a relative max error of
+   GRAD_TOL = 0.03 (the bar of tests/test_fused_train.py::
+   TestGradientParity: a flipped bf16 rounding or ReLU mask moves every
+   product downstream of it), and two launches bit-identical. Times both
+   at R = 1024, S = 64 and 128 (the coarse and fine passes). Then a
+   teacher (fixed random weights) renders 4 frames of 400x400 through the
+   fused eval path, and a Trainer at the dense bench config (64 + 64,
+   batch 1024, perturb 1, noise 1, white background, adam 5e-4, steplr
+   decay [2, 4, 8] x 0.5) fits that 640,000-ray store: 50 warm-up steps,
+   then three timed segments of 100 steps, each ending in a sync on a
+   parameter. Requires finite metrics, a mean loss over the last 50 steps
+   below the first 50, exactly 2 mse_render launches per step, and on one
+   batch gradients of the fused step pointing the way the plain autograd
+   step's do with the same draws (cosine >= 0.95 per leaf, the bar of
+   test_grad_direction_vs_f32_reference). Prints train rays/s.
 5. Prints one JSON line about the kernels, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 Any failure raises, and the script exits non-zero without those lines.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -37,9 +56,14 @@ from nerf_pl_tpu_torch.datasets.rays import frame_rays, sphere_pose  # noqa: E40
 from nerf_pl_tpu_torch.models import init_nerf_params  # noqa: E402
 from nerf_pl_tpu_torch.ops import _build  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_render as fr  # noqa: E402
-from nerf_pl_tpu_torch.parallel import make_render_fn  # noqa: E402
-from nerf_pl_tpu_torch.rendering import RenderConfig  # noqa: E402
+from nerf_pl_tpu_torch.ops import fused_train as ft  # noqa: E402
+from nerf_pl_tpu_torch.parallel import Trainer, make_render_fn  # noqa: E402
+from nerf_pl_tpu_torch.rendering import (ModelConfig, RenderConfig,  # noqa: E402
+                                         TrainDraws)
+from nerf_pl_tpu_torch.training import (get_lr_schedule,  # noqa: E402
+                                        get_optimizer, loss_dict)
 from nerf_pl_tpu_torch.training.checkpoints import load_ckpt  # noqa: E402
+from nerf_pl_tpu_torch.training.optimizers import tree_leaves  # noqa: E402
 
 TOL = {"weights": 5e-3, "rgb": 1e-2, "opacity": 1e-2, "depth": 5e-2}
 MAIN_PATH_TOL = 2e-2
@@ -47,11 +71,19 @@ CHUNK = 32768            # eval.py's default --chunk: the kernels' main R
 IMG = 400
 N_SAMPLES, N_IMPORTANCE = 64, 64
 CAMERA_ANGLE_X = 0.8575560450553894   # blender scenes' field of view
-KERNELS = {
-    "sigma_render": "nerf_pl_tpu/ops/fused_render.py:194",
-    "render_eval": "nerf_pl_tpu/ops/fused_render.py:153",
+KERNELS = {   # name: (TPU kernel it replaces, source of the port's)
+    "sigma_render": ("nerf_pl_tpu/ops/fused_render.py:194",
+                     "nerf_pl_tpu_torch/csrc/fused_render.cu"),
+    "render_eval": ("nerf_pl_tpu/ops/fused_render.py:153",
+                    "nerf_pl_tpu_torch/csrc/fused_render.cu"),
+    "mse_render": ("nerf_pl_tpu/ops/fused_train.py:362",
+                   "nerf_pl_tpu_torch/csrc/fused_train.cu"),
 }
-SOURCE = "nerf_pl_tpu_torch/csrc/fused_render.cu"
+GRAD_TOL = 0.03
+COS_BAR = 0.95
+TRAIN_BATCH = 1024
+TRAIN_SEED = 7
+WARMUP_STEPS, SEGMENTS, SEGMENT_STEPS = 50, 3, 100
 
 
 def dense_params(seed, device):
@@ -223,6 +255,164 @@ def main_path(dev):
     return launches, secs
 
 
+def mse_inputs(R, S, dev, seed):
+    rays, z = rays_z(R, S, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn((R, S), generator=g, device=dev)
+    gt = torch.rand((R, 3), generator=g, device=dev)
+    return rays, z, noise, gt
+
+
+def compare_mse(mlp, dev):
+    """mse_render vs plain; returns (max abs error of out8 and weights,
+    max relative gradient error)."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for R in (8, 1024, 4104):
+        for S in (64, 128, 192):
+            white = S != 128
+            args = (*mse_inputs(R, S, dev, seed=R + S), white, 1.0 / (R * 3))
+            k1 = ft.fused_mse_render(mlp, *args)
+            k2 = ft.fused_mse_render(mlp, *args)
+            ref8, ref_w, ref_g = ft.fused_mse_render_reference(mlp, *args)
+            torch.cuda.synchronize()
+            same = (torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1])
+                    and all(torch.equal(a, b) for a, b in zip(k1[2], k2[2])))
+            if not same:
+                raise AssertionError(f"mse_render R={R} S={S}: two launches "
+                                     f"differ")
+            out8, w, grads = k1
+            errs = {"rgb": max_err(out8[:, 0:3], ref8[:, 0:3]),
+                    "depth": max_err(out8[:, 3], ref8[:, 3]),
+                    "opacity": max_err(out8[:, 4], ref8[:, 4]),
+                    "weights": max_err(w, ref_w)}
+            rels = [((a - b).abs().max() / b.abs().max()).item()
+                    if b.abs().max() > 0 else float(a.abs().max() > 0)
+                    for a, b in zip(grads, ref_g)]
+            print(f"[compare] mse_render R={R} S={S} white={white}: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f", grad rel max {max(rels):.3e} (tol {GRAD_TOL}); "
+                  f"bit-identical twice")
+            for k, v in errs.items():
+                if not v <= TOL[k]:
+                    raise AssertionError(f"mse_render R={R} S={S} {k}: {v}")
+            for i, v in enumerate(rels):
+                if not v <= GRAD_TOL:
+                    raise AssertionError(f"mse_render R={R} S={S} grad {i}:"
+                                         f" relative error {v}")
+            worst_abs = max(worst_abs, *errs.values())
+            worst_rel = max(worst_rel, *rels)
+            del k1, k2, ref8, ref_w, ref_g
+            torch.cuda.empty_cache()
+    return worst_abs, worst_rel
+
+
+def time_mse(mlp, dev):
+    """Median ms of mse_render and its plain version at the batch's R."""
+    times = {}
+    for S in (64, 128):
+        args = (*mse_inputs(TRAIN_BATCH, S, dev, seed=2000 + S), True,
+                1.0 / (TRAIN_BATCH * 3))
+        t_k = median_ms(lambda: ft.fused_mse_render(mlp, *args))
+        t_p = median_ms(lambda: ft.fused_mse_render_reference(mlp, *args),
+                        reps=5, warmup=1)
+        times[S] = (t_k, t_p)
+        print(f"[time] mse_render R={TRAIN_BATCH} S={S}: kernel {t_k:.3f} "
+              f"ms, plain {t_p:.3f} ms ({t_p / t_k:.2f}x)")
+    return times
+
+
+def train_path(dev):
+    """Teacher renders a store, a Trainer at the dense bench config fits
+    it; returns (mse_render launches, rays/s per timed segment)."""
+    teacher = {"nerf_coarse": dense_params(20, dev),
+               "nerf_fine": dense_params(21, dev)}
+    focal = 0.5 * 800 / np.tan(0.5 * CAMERA_ANGLE_X) * IMG / 800
+    render = make_render_fn(RenderConfig(
+        N_samples=N_SAMPLES, N_importance=N_IMPORTANCE, test_time=True,
+        white_back=True, fused=True), CHUNK, dev, device_out=True)
+    frames = [frame_rays(sphere_pose(theta, np.pi / 5, 4.0), IMG, IMG, focal,
+                         2.0, 6.0, dev) for theta in (0.3, 1.9, 3.5, 5.1)]
+    rgbs = torch.cat([render(teacher, f)["rgb_fine"] for f in frames])
+    rays = torch.cat(frames)
+
+    rcfg = RenderConfig(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+                        perturb=1.0, noise_std=1.0, white_back=True,
+                        fused_train=True, fused_loss=True)
+    sched = get_lr_schedule("steplr", 5e-4, 16, 1000, decay_step=[2, 4, 8],
+                            decay_gamma=0.5)
+    tr = Trainer(ModelConfig(), rcfg, get_optimizer("adam", sched), sched,
+                 loss_dict["mse"], TRAIN_BATCH, dev)
+    tr.set_data(rays.cpu().numpy(), rgbs.cpu().numpy())
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    probe = state.params["nerf_coarse"]["xyz_0"]["w"]
+    torch.cuda.synchronize()
+
+    fr.sigma_render_launches = fr.render_eval_launches = 0
+    ft.mse_render_launches = 0
+    state, m = tr.run_steps(state, TRAIN_SEED, WARMUP_STEPS)
+    losses, rates = [m["loss"]], []
+    for _ in range(SEGMENTS):
+        float(state.params["nerf_coarse"]["xyz_0"]["w"][0, 0])
+        t0 = time.perf_counter()
+        state, m = tr.run_steps(state, TRAIN_SEED, SEGMENT_STEPS)
+        float(state.params["nerf_coarse"]["xyz_0"]["w"][0, 0])  # sync
+        rates.append(SEGMENT_STEPS * TRAIN_BATCH
+                     / (time.perf_counter() - t0))
+        losses.append(m["loss"])
+        for k in ("loss", "psnr", "lr"):
+            if not torch.isfinite(m[k]).all():
+                raise AssertionError(f"train metric {k} not finite")
+    launches = {"sigma_render": fr.sigma_render_launches,
+                "render_eval": fr.render_eval_launches,
+                "mse_render": ft.mse_render_launches}
+    n_steps = WARMUP_STEPS + SEGMENTS * SEGMENT_STEPS
+    losses = torch.cat(losses).cpu()
+    first, last = losses[:50].mean().item(), losses[-50:].mean().item()
+    print(f"[train] {n_steps} steps at batch {TRAIN_BATCH}, "
+          f"{N_SAMPLES}+{N_IMPORTANCE} samples, store of {rays.shape[0]} "
+          f"rays: launches {launches}; mean loss first 50 {first:.5f}, "
+          f"last 50 {last:.5f}; final psnr {m['psnr'][-1].item():.2f}")
+    print(f"[train] rays/s per segment {[round(r, 1) for r in rates]}; "
+          f"best {max(rates):.1f}")
+    if launches["mse_render"] != 2 * n_steps:
+        raise AssertionError(f"mse_render launched {launches['mse_render']}"
+                             f" times in {n_steps} steps, not 2 per step")
+    if launches["sigma_render"] or launches["render_eval"]:
+        raise AssertionError(f"the train path launched eval kernels: "
+                             f"{launches}")
+    if not last < first:
+        raise AssertionError(f"loss did not fall: {first} -> {last}")
+    if torch.equal(probe, state.params["nerf_coarse"]["xyz_0"]["w"]):
+        raise AssertionError("parameters did not change")
+
+    # one batch, same draws: fused step vs plain autograd step
+    rays_b, rgbs_b = tr._sample_batch(state.step)
+    g = torch.Generator(device=dev).manual_seed(11)
+    R, S = TRAIN_BATCH, N_SAMPLES
+    draws = TrainDraws(
+        perturb=torch.rand((R, S), generator=g, device=dev),
+        noise_coarse=torch.randn((R, S), generator=g, device=dev),
+        u=torch.rand((R, N_IMPORTANCE), generator=g, device=dev),
+        noise_fine=torch.randn((R, S + N_IMPORTANCE), generator=g,
+                               device=dev))
+    plain_tr = Trainer(ModelConfig(), dataclasses.replace(
+        rcfg, fused_train=False, fused_loss=False), tr.optimizer, sched,
+        loss_dict["mse"], TRAIN_BATCH, dev)
+    loss_f, _, g_f = tr._loss_and_grads(state.params, rays_b, rgbs_b, None,
+                                        draws)
+    loss_p, _, g_p = plain_tr._loss_and_grads(state.params, rays_b, rgbs_b,
+                                              None, draws)
+    cos = [torch.nn.functional.cosine_similarity(a.reshape(-1),
+                                                 b.reshape(-1), dim=0).item()
+           for a, b in zip(tree_leaves(g_f), tree_leaves(g_p, g_f))]
+    print(f"[train] one batch, fused vs plain autograd step: loss "
+          f"{loss_f.item():.6f} vs {loss_p.item():.6f}; gradient cosine "
+          f"per leaf min {min(cos):.5f} (bar {COS_BAR})")
+    if not min(cos) >= COS_BAR:
+        raise AssertionError(f"gradient direction: cosine {min(cos)}")
+    return launches["mse_render"], rates
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -250,11 +440,19 @@ def main():
     times = time_kernels(mlp, dev)
     launches, _ = main_path(dev)
 
-    main_S = {"sigma_render": N_SAMPLES, "render_eval": N_SAMPLES + N_IMPORTANCE}
-    kernels = [{"name": k, "route": "cuda", "source": SOURCE,
-                "replaces": KERNELS[k], "launches": launches[k],
-                "max_abs_err": errs[k], "ms": times[(k, main_S[k])][0],
-                "plain_ms": times[(k, main_S[k])][1]} for k in KERNELS]
+    errs["mse_render"], _ = compare_mse(mlp, dev)
+    mse_times = time_mse(mlp, dev)
+    launches["mse_render"], _ = train_path(dev)
+
+    fine_S = N_SAMPLES + N_IMPORTANCE
+    times[("mse_render", fine_S)] = mse_times[fine_S]
+    main_S = {"sigma_render": N_SAMPLES, "render_eval": fine_S,
+              "mse_render": fine_S}
+    kernels = [{"name": k, "route": "cuda", "source": src, "replaces": tpu,
+                "launches": launches[k], "max_abs_err": errs[k],
+                "ms": times[(k, main_S[k])][0],
+                "plain_ms": times[(k, main_S[k])][1]}
+               for k, (tpu, src) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,13 +7,19 @@ CUDA C++ kernel written for `sm_90a` (`csrc/`), built with `nvcc` on first
 use and bound with ctypes (`ops/_build.py`). This package never imports
 jax.
 
-Ported so far: the test-time render (`eval.py --fused_mlp`):
+Ported so far: the test-time render (`eval.py --fused_mlp`) and the
+loss-fused training step (`train.py --fused_train`) on one device:
   models     — positional encoding + NeRF MLP over {layer: {w, b}} dicts
-  ops        — sample_pdf, the fused-MLP packing, and the two fused render
-               kernels (fused_sigma_render, fused_render_eval)
-  rendering  — volume quadrature, test-time render_rays
-  parallel   — make_render_fn: padded, chunked full-image renderer
-  training   — checkpoint loading, PSNR / SSIM
+  ops        — sample_pdf, the fused-MLP packing and plain forward and
+               gradient bodies, the two fused render kernels
+               (fused_sigma_render, fused_render_eval) and the training
+               kernel (fused_mse_render)
+  rendering  — volume quadrature, render_rays (test and train time),
+               fused_mse_train_step
+  parallel   — make_render_fn (padded, chunked full-image renderer) and
+               the single-device Trainer
+  training   — checkpoints (both packages' format), losses, lr schedules,
+               sgd/adam, PSNR / SSIM, NeRFSystem
   datasets   — camera rays and sphere poses in torch
-  eval       — the eval CLI (python -m nerf_pl_tpu_torch.eval)
+  eval, train — the CLIs (python -m nerf_pl_tpu_torch.eval / .train)
 """

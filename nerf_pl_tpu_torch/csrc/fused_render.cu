@@ -142,8 +142,6 @@ render_kernel(const float* __restrict__ rays, const float* __restrict__ z,
                    depth_out, opacity_out);
 }
 
-inline int rays_per_block(int S) { return S >= 4 * TP ? 1 : (4 * TP) / S; }
-
 template <bool FULL>
 int launch(const void* rays, const void* z, int R, int S, const MlpWeights& p,
            int white_back, void* weights, void* rgb, void* depth,

@@ -74,6 +74,9 @@ __host__ __device__ inline size_t align128(size_t n) {
   return (n + 127) & ~static_cast<size_t>(127);
 }
 
+// Whole rays per block: enough for four tiles of points, at least one.
+inline int rays_per_block(int S) { return S >= 4 * TP ? 1 : (4 * TP) / S; }
+
 // Byte offsets of a block's shared-memory regions (host and device agree).
 struct SmemLayout {
   size_t h, x, d, slab, stage, rays, z, sig, rgb, total;
@@ -259,17 +262,45 @@ __device__ void build_inputs(const Smem& sm, int S, int t0, int P) {
   }
 }
 
+// Where a training forward keeps the bf16 activations of a tile: row r of
+// each buffer is point r of the tile (the pointers are offset to the
+// tile's first point); trunk layer i is at act + i * layer_stride.
+struct ActSink {
+  bf16* act;            // (D, P, W)
+  size_t layer_stride;  // P * W
+  bf16* feat;           // (P, W)
+  bf16* hd;             // (P, WD)
+};
+
+// Rows [0, n) of a shared-memory tile (row stride lds) to a dense global
+// matrix of `width` columns, 16 bytes per thread and step.
+__device__ __forceinline__ void copy_rows(const bf16* src, int lds,
+                                          bf16* __restrict__ dst, int width,
+                                          int n) {
+  const int vpr = width / 8;
+  for (int i = threadIdx.x; i < n * vpr; i += NTHREADS) {
+    const int r = i / vpr, c = i - r * vpr;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * width + c * 8) =
+        *reinterpret_cast<const uint4*>(src + r * lds + c * 8);
+  }
+}
+
 // The MLP on the tile in sm.x (and sm.d): raw sigma of the first n_valid
-// points to sig_out, and (FULL) their sigmoid rgb to rgb_out.
-template <bool FULL>
+// points to sig_out, and (FULL) their sigmoid rgb to rgb_out. With KEEP,
+// every activation of those points is also copied to `keep`.
+template <bool FULL, bool KEEP = false>
 __device__ void mlp_tile(const MlpWeights& p, const Smem& sm, float* sig_out,
-                         float* rgb_out, int n_valid) {
+                         float* rgb_out, int n_valid,
+                         const ActSink* keep = nullptr) {
   FragC acc[8];
   zero(acc);
   gemm_acc<2>(acc, sm.x, LDX, p.w0, KX, sm.slab);
   store_act<2, true>(acc, p.bt, sm.h, sm.stage);
   for (int i = 1; i < D; ++i) {
     __syncthreads();              // h of layer i - 1 is complete
+    if constexpr (KEEP)
+      copy_rows(sm.h, LDH, keep->act + (i - 1) * keep->layer_stride, W,
+                n_valid);
     zero(acc);
     gemm_acc<2>(acc, sm.h, LDH, p.wt + (size_t)(i - 1) * W * W, W, sm.slab);
     if (i == SKIP) gemm_acc<2>(acc, sm.x, LDX, p.wsk, KX, sm.slab);
@@ -277,6 +308,9 @@ __device__ void mlp_tile(const MlpWeights& p, const Smem& sm, float* sig_out,
     store_act<2, true>(acc, p.bt + i * W, sm.h, sm.stage);
   }
   __syncthreads();
+  if constexpr (KEEP)
+    copy_rows(sm.h, LDH, keep->act + (D - 1) * keep->layer_stride, W,
+              n_valid);
 
   const int pt = threadIdx.x >> 2, q = threadIdx.x & 3;
   {  // sigma head: 4 threads per point, 64 products each
@@ -296,6 +330,7 @@ __device__ void mlp_tile(const MlpWeights& p, const Smem& sm, float* sig_out,
   __syncthreads();
   store_act<2, false>(acc, p.bf, sm.h, sm.stage);   // feature layer: linear
   __syncthreads();
+  if constexpr (KEEP) copy_rows(sm.h, LDH, keep->feat, W, n_valid);
   FragC acc4[4];
   zero(acc4);
   gemm_acc<1>(acc4, sm.h, LDH, p.wdf, W, sm.slab);
@@ -303,6 +338,7 @@ __device__ void mlp_tile(const MlpWeights& p, const Smem& sm, float* sig_out,
   __syncthreads();
   store_act<1, true>(acc4, p.bd, sm.h, sm.stage);   // h[:, :WD] = view act
   __syncthreads();
+  if constexpr (KEEP) copy_rows(sm.h, LDH, keep->hd, WD, n_valid);
 
   {  // rgb head: 4 threads per point, 32 rows each, 3 channels
     const bf16* hr = sm.h + pt * LDH + q * 32;

@@ -5,8 +5,9 @@
 Port of the repository's eval.py: the same flags and defaults, and the same
 outputs (per-frame NNN.png, an animated GIF, PFM or raw depth, optional
 ground-truth PNGs and a --metrics_out JSON), and it prints the mean PSNR
-and SSIM when ground truth exists. It renders on the GPU when one is
-present, else on the CPU. `--fused_mlp` takes the fused render kernels.
+and SSIM when ground truth exists. It renders on cuda:0 and raises when
+there is no CUDA device; only a caller of main(device="cpu") renders on
+the CPU. `--fused_mlp` takes the fused render kernels.
 
 Flags of later slices are rejected: the occupancy-culled renderer
 (--occ_grid and its siblings, ROADMAP item A8) and more than one device
@@ -135,12 +136,13 @@ def save_gif(path, frames, fps=30):
                      duration=int(1000 / fps), loop=0)
 
 
-def main(argv=None):
+def main(argv=None, device=None):
     from PIL import Image
 
     from nerf_pl_tpu.datasets import dataset_dict
     from nerf_pl_tpu.datasets.depth_utils import save_pfm
 
+    from .device import resolve_device
     from .models import init_nerf_params
     from .parallel import make_render_fn
     from .rendering import ModelConfig, RenderConfig
@@ -152,7 +154,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     check_ported(args, parser)
     w, h = args.img_wh
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(device)
     print(f"[eval] device {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))

@@ -1,16 +1,20 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-`nerf_pl_tpu_torch/csrc/*.cu` compile into one shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds):
+Each `nerf_pl_tpu_torch/csrc/*.cu` compiles to an object, all of them at
+once (one nvcc process per source), and the objects link into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas=-v -o <lib>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas=-v -c -o <src>.o csrc/<src>.cu
+    nvcc -shared -o <lib>.so *.o
 
 The library goes to `build/torch_kernels/` at the repository root, named by
 a hash of the sources and flags, and is built on first use only. The
-compiler's report (registers, shared memory, spills) is kept beside it as
-`<lib>.log`. `--use_fast_math` is left out on purpose: the embedding's sin
-arguments reach 2^9 |x|, where the fast sine is inaccurate.
+compilers' reports (registers, shared memory, spills) are kept beside it
+as `<lib>.log`. `--use_fast_math` is left out on purpose: the embedding's
+sin arguments reach 2^9 |x|, where the fast sine is inaccurate, and the
+training quadrature's scans must stay true f32.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def find_nvcc() -> str:
@@ -49,20 +53,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libnerf_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the output of any that
+    failed. Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {p.returncode}:\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless the library for these sources exists."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                    for s, o in zip(srcs, objs)])
+    tmp = out.with_name(f"{tag}.tmp.so")
+    log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return out
 
@@ -81,4 +102,13 @@ def load_library() -> ctypes.CDLL:
     lib.nerf_render_eval.argtypes = [ptr, ptr, i32, i32] + [ptr] * 13 + \
         [i32, ptr, ptr, ptr, ptr]
     lib.nerf_render_eval.restype = i32
+    lib.nerf_mse_workspace_bytes.argtypes = [i32, i32]
+    lib.nerf_mse_workspace_bytes.restype = ctypes.c_longlong
+    lib.nerf_mse_grad_floats.argtypes = []
+    lib.nerf_mse_grad_floats.restype = i32
+    # rays, z, noise, gt, R, S, 13 weight buffers + 3 transposed, white_back,
+    # scale, out8, weights, workspace, grad, stream
+    lib.nerf_mse_render.argtypes = [ptr] * 4 + [i32, i32] + [ptr] * 16 + \
+        [i32, ctypes.c_float] + [ptr] * 5
+    lib.nerf_mse_render.restype = i32
     return lib

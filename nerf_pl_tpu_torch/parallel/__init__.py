@@ -1,3 +1,4 @@
 from .render import make_render_fn
+from .spmd import Trainer, TrainState
 
-__all__ = ["make_render_fn"]
+__all__ = ["make_render_fn", "Trainer", "TrainState"]

@@ -1,29 +1,41 @@
-"""Volume rendering at test time: stratified depths, quadrature, hierarchical
-resampling.
+"""Volume rendering: stratified depths, quadrature, hierarchical
+resampling, at test time and at train time.
 
-Port of nerf_pl_tpu/rendering/render.py for the configuration the eval
-path uses: `test_time=True, perturb=0, noise_std=0`, with the coarse pass
-sigma-only. Both branches are here:
-  * fused (`cfg.fused`): `fused_sigma_render` -> `sample_pdf` ->
-    `fused_render_eval`, the two CUDA kernels on a GPU;
-  * unfused: embed + `nerf_apply` + `volume_quadrature`, plain PyTorch.
-Training (perturb, sigma noise, the fused training kernels) and occupancy
-placement are not ported yet and raise NotImplementedError.
+Port of nerf_pl_tpu/rendering/render.py:
+  * test time, fused (`cfg.fused`): `fused_sigma_render` -> `sample_pdf` ->
+    `fused_render_eval`, the two render kernels on a GPU;
+  * unfused, test or train time (perturb, sigma noise): embed +
+    `nerf_apply` + `volume_quadrature`, plain PyTorch and differentiable by
+    autograd, the reference for the training step as a whole;
+  * `fused_mse_train_step`: the loss-fused training step, one
+    `fused_mse_render` (the training kernel on a GPU) per pass, gradients
+    out of the kernel instead of autograd.
+Still raising NotImplementedError, with their ROADMAP items: the fused
+point-MLP kernels (`fused` at train time, or with perturb or noise: B4,
+B5), the two-kernel `fused_train_render` (`fused_train` in `render_rays`:
+B6) and occupancy placement (`occm`: A5).
+
+torch cannot reproduce JAX's random streams, so where JAX splits a key
+into (perturb, coarse noise, importance u, fine noise), these functions
+take a `torch.Generator` and optional explicit draws (`TrainDraws`): the
+perturb uniforms, the standard-normal sigma noise of each pass and the
+importance `u`. A draw that is not given comes from the generator, in that
+order, on the rays' device.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Mapping, Optional
 
 import torch
 
 from ..models.embedding import EmbeddingConfig, embed
 from ..models.nerf import NeRFConfig, nerf_apply
+from ..ops.fused_mlp import unpack_grads
 from ..ops.fused_render import fused_render_eval, fused_sigma_render
+from ..ops.fused_train import fused_mse_render
 from ..ops.sample_pdf import sample_pdf
-
-_TRAINING_ITEM = ("training renders (perturb, noise_std, fused_train, "
-                  "fused_loss, occupancy placement) are ROADMAP items A2-A5")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +61,25 @@ class RenderConfig:
     fused_train: bool = False
     fused_loss: bool = False
     occ_keepalive: float = 0.0
+
+
+@dataclasses.dataclass
+class TrainDraws:
+    """Explicit random draws of one render (each optional):
+    perturb (R, N_samples) and u (R, N_importance) uniform in [0, 1);
+    noise_coarse (R, N_samples) and noise_fine (R, N_samples +
+    N_importance) standard normal (scaled by cfg.noise_std here)."""
+    perturb: Optional[torch.Tensor] = None
+    noise_coarse: Optional[torch.Tensor] = None
+    u: Optional[torch.Tensor] = None
+    noise_fine: Optional[torch.Tensor] = None
+
+    def take(self, name: str, shape, generator, device) -> torch.Tensor:
+        given = getattr(self, name)
+        if given is not None:
+            return given.to(device=device, dtype=torch.float32)
+        draw = torch.rand if name in ("perturb", "u") else torch.randn
+        return draw(shape, generator=generator, device=device)
 
 
 def volume_quadrature(sigmas: torch.Tensor,
@@ -87,19 +118,39 @@ def volume_quadrature(sigmas: torch.Tensor,
     return out
 
 
-def _check_ported(cfg: RenderConfig):
-    if (not cfg.test_time or cfg.perturb > 0 or cfg.noise_std > 0
-            or cfg.fused_train or cfg.fused_loss):
+def _check_occm(occm):
+    if occm is not None:
         raise NotImplementedError(
-            f"only test-time rendering (test_time=True, perturb=0, "
-            f"noise_std=0) is ported; {_TRAINING_ITEM}")
+            "occupancy placement of the coarse samples (occm) is not ported "
+            "yet: ROADMAP item A5")
+
+
+def _check_ported(cfg: RenderConfig, occm=None):
+    _check_occm(occm)
+    if cfg.fused_train and not cfg.test_time:
+        raise NotImplementedError(
+            "fused_train renders through fused_train_render, whose two "
+            "kernels are not ported yet: ROADMAP item B6 (the loss-fused "
+            "step, fused_mse_train_step, is)")
+    if cfg.fused and (not cfg.test_time or cfg.perturb > 0
+                      or cfg.noise_std > 0):
+        raise NotImplementedError(
+            "fused with training, perturb or sigma noise runs the fused "
+            "point-MLP kernels (fused_nerf_mlp, nerf_sigma_fused), which "
+            "are not ported yet: ROADMAP items B4, B5")
 
 
 def coarse_z_vals(rays: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     """(R, N_samples) stratified depths, linear in depth or disparity."""
     near, far = rays[:, 6:7], rays[:, 7:8]
-    z_steps = torch.linspace(0.0, 1.0, cfg.N_samples, dtype=rays.dtype,
-                             device=rays.device)
+    # jnp.linspace's rounding, i * f32(1 / (N - 1)) and an exact 1 at the
+    # end: torch.linspace rounds otherwise, and the 2^9 embedding
+    # frequencies see one ulp of depth
+    N = cfg.N_samples
+    z_steps = torch.arange(N, dtype=rays.dtype, device=rays.device) * (
+        1.0 / max(N - 1, 1))
+    if N > 1:
+        z_steps[-1] = 1.0
     if not cfg.use_disp:
         z_vals = near * (1.0 - z_steps) + far * z_steps
     else:
@@ -107,28 +158,68 @@ def coarse_z_vals(rays: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     return z_vals.expand(rays.shape[0], cfg.N_samples)
 
 
-def _fine_z_vals(z_vals, weights, cfg: RenderConfig) -> torch.Tensor:
+def _bin_bounds(z_vals):
     z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
-    z_fine = sample_pdf(z_mid, weights[:, 1:-1], cfg.N_importance, det=True)
+    upper = torch.cat([z_mid, z_vals[:, -1:]], dim=-1)
+    lower = torch.cat([z_vals[:, :1], z_mid], dim=-1)
+    return lower, upper
+
+
+def _fine_z_vals(z_vals, weights, cfg: RenderConfig,
+                 u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Coarse and importance depths, sorted; det=True unless u is given."""
+    z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+    z_fine = sample_pdf(z_mid, weights[:, 1:-1].detach(), cfg.N_importance,
+                        det=True, u=u)
     return torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
+
+
+def _evaluate_field(params, xyz, dir_emb, z_vals, dir_norms, noise,
+                    cfg: RenderConfig, mcfg: ModelConfig, sigma_only: bool):
+    """Embed sampled points, run the MLP, integrate."""
+    xyz_emb = embed(xyz, mcfg.emb_xyz)
+    if sigma_only:
+        sigma = nerf_apply(params, xyz_emb, None, mcfg.nerf, sigma_only=True,
+                           compute_dtype=cfg.compute_dtype)
+        rgbs = None
+    else:
+        rgbs, sigma = nerf_apply(params, xyz_emb, dir_emb[:, None, :],
+                                 mcfg.nerf, sigma_only=False,
+                                 compute_dtype=cfg.compute_dtype)
+    return volume_quadrature(sigma[..., 0], z_vals, dir_norms, noise, rgbs,
+                             cfg.white_back)
 
 
 def render_rays(params: Mapping[str, Any],
                 rays: torch.Tensor,
                 cfg: RenderConfig,
-                mcfg: ModelConfig = ModelConfig()) -> Dict[str, torch.Tensor]:
-    """Render a batch of rays through the coarse (+fine) NeRF at test time.
+                mcfg: ModelConfig = ModelConfig(),
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[TrainDraws] = None,
+                occm: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+    """Render a batch of rays through the coarse (+fine) NeRF.
 
     Args:
       params: {'nerf_coarse': MLP, 'nerf_fine': MLP (iff N_importance > 0)},
         each a {layer: {w, b}} dict or, on the fused branch, a PackedMLP.
       rays: (R, 8) = [origin(3), direction(3), near(1), far(1)].
+      generator, draws: the random draws of perturb and sigma noise (see
+        the module docstring); unused when perturb = noise_std = 0.
 
-    Returns opacity_coarse, and rgb_fine/depth_fine/opacity_fine when
-    N_importance > 0, keyed like the JAX package.
+    Returns rgb_coarse/depth_coarse/opacity_coarse (opacity only at test
+    time), and rgb_fine/depth_fine/opacity_fine when N_importance > 0,
+    keyed like the JAX package. The unfused branch is differentiable.
     """
-    _check_ported(cfg)
-    z_vals = coarse_z_vals(rays, cfg).contiguous()
+    _check_ported(cfg, occm)
+    rng = functools.partial((draws or TrainDraws()).take,
+                            generator=generator, device=rays.device)
+    z_vals = coarse_z_vals(rays, cfg)
+    if cfg.perturb > 0:
+        lower, upper = _bin_bounds(z_vals)
+        z_vals = lower + (upper - lower) * (
+            cfg.perturb * rng("perturb", z_vals.shape))
+    z_vals = z_vals.contiguous()
 
     if cfg.fused:
         weights_c, opacity_c = fused_sigma_render(params["nerf_coarse"],
@@ -143,29 +234,96 @@ def render_rays(params: Mapping[str, Any],
             result["opacity_fine"] = fine["opacity"]
         return result
 
+    def noise(name, shape):
+        if cfg.noise_std > 0:
+            return cfg.noise_std * rng(name, shape)
+        return None
+
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     dir_norms = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    dir_emb = embed(rays_d, mcfg.emb_dir)
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    sigma = nerf_apply(params["nerf_coarse"], embed(xyz, mcfg.emb_xyz),
-                       None, mcfg.nerf, sigma_only=True,
-                       compute_dtype=cfg.compute_dtype)
-    coarse = volume_quadrature(sigma[..., 0], z_vals, dir_norms, None, None,
-                               cfg.white_back)
-    result = {"opacity_coarse": coarse["opacity"]}
+    coarse = _evaluate_field(params["nerf_coarse"], xyz, dir_emb, z_vals,
+                             dir_norms, noise("noise_coarse", z_vals.shape),
+                             cfg, mcfg, sigma_only=cfg.test_time)
+    if cfg.test_time:
+        result = {"opacity_coarse": coarse["opacity"]}
+    else:
+        result = {"rgb_coarse": coarse["rgb"],
+                  "depth_coarse": coarse["depth"],
+                  "opacity_coarse": coarse["opacity"]}
     if cfg.N_importance > 0:
-        z_all = _fine_z_vals(z_vals, coarse["weights"], cfg)
+        u = (rng("u", (rays.shape[0], cfg.N_importance))
+             if cfg.perturb > 0 else None)
+        z_all = _fine_z_vals(z_vals, coarse["weights"], cfg, u)
         xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
-        dir_emb = embed(rays_d, mcfg.emb_dir)
-        rgbs, sigma = nerf_apply(params["nerf_fine"], embed(xyz, mcfg.emb_xyz),
-                                 dir_emb[:, None, :], mcfg.nerf,
-                                 sigma_only=False,
-                                 compute_dtype=cfg.compute_dtype)
-        fine = volume_quadrature(sigma[..., 0], z_all, dir_norms, None, rgbs,
-                                 cfg.white_back)
+        fine = _evaluate_field(params["nerf_fine"], xyz, dir_emb, z_all,
+                               dir_norms, noise("noise_fine", z_all.shape),
+                               cfg, mcfg, sigma_only=False)
         result["rgb_fine"] = fine["rgb"]
         result["depth_fine"] = fine["depth"]
         result["opacity_fine"] = fine["opacity"]
     return result
+
+
+def fused_mse_train_step(params: Mapping[str, Any],
+                         rays: torch.Tensor,
+                         rgbs: torch.Tensor,
+                         cfg: RenderConfig,
+                         global_batch: int,
+                         mcfg: ModelConfig = ModelConfig(),
+                         generator: Optional[torch.Generator] = None,
+                         draws: Optional[TrainDraws] = None,
+                         occm: Optional[torch.Tensor] = None):
+    """Loss-fused training step: loss, render outputs and parameter
+    gradients from one `fused_mse_render` per pass (no autograd).
+
+    Valid exactly for the reference MSE loss (the sum of the per-pass
+    means). Args as `render_rays`, plus rgbs (R, 3) ground truth and
+    global_batch, the ray count of the whole step (cotangent scale
+    1 / (global_batch * 3)).
+
+    Returns (loss_sum, result dict, grads like params): loss_sum is the
+    SUM over rays of the per-ray squared-error means; divide it by
+    global_batch for the loss.
+    """
+    _check_occm(occm)
+    rng = functools.partial((draws or TrainDraws()).take,
+                            generator=generator, device=rays.device)
+    z_vals = coarse_z_vals(rays, cfg)
+    if cfg.perturb > 0:
+        lower, upper = _bin_bounds(z_vals)
+        z_vals = lower + (upper - lower) * cfg.perturb * \
+            rng("perturb", z_vals.shape)
+    z_vals = z_vals.contiguous()
+
+    def noise(name, shape):
+        if cfg.noise_std > 0:
+            return (cfg.noise_std * rng(name, shape)).contiguous()
+        return torch.zeros(shape, dtype=torch.float32, device=rays.device)
+
+    scale = 1.0 / (global_batch * 3)
+    out_c, weights_c, g_c = fused_mse_render(
+        params["nerf_coarse"], rays, z_vals,
+        noise("noise_coarse", z_vals.shape), rgbs, cfg.white_back, scale)
+    result = {"rgb_coarse": out_c[:, 0:3], "depth_coarse": out_c[:, 3],
+              "opacity_coarse": out_c[:, 4]}
+    loss_sum = torch.sum((out_c[:, 0:3] - rgbs) ** 2) / 3.0
+    grads = {"nerf_coarse": unpack_grads(g_c)}
+
+    if cfg.N_importance > 0:
+        u = (rng("u", (rays.shape[0], cfg.N_importance))
+             if cfg.perturb > 0 else None)
+        z_all = _fine_z_vals(z_vals, weights_c, cfg, u).contiguous()
+        out_f, _, g_f = fused_mse_render(
+            params["nerf_fine"], rays, z_all,
+            noise("noise_fine", z_all.shape), rgbs, cfg.white_back, scale)
+        result["rgb_fine"] = out_f[:, 0:3]
+        result["depth_fine"] = out_f[:, 3]
+        result["opacity_fine"] = out_f[:, 4]
+        loss_sum = loss_sum + torch.sum((out_f[:, 0:3] - rgbs) ** 2) / 3.0
+        grads["nerf_fine"] = unpack_grads(g_f)
+    return loss_sum, result, grads
 
 
 def render_rays_chunked(params: Mapping[str, Any],

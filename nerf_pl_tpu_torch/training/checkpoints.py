@@ -1,18 +1,120 @@
-"""Checkpoint loading: partial (prefix-filtered) loads of one model's params.
+"""Checkpoints: full train-state save and resume, top-k retention, and
+partial (prefix-filtered) loads of one model's params.
 
-Port of the loading half of nerf_pl_tpu/training/checkpoints.py. The file
-format is the JAX package's: one .npz with every leaf under a '/'-joined
-key ("params/{model}/{layer}/{w|b}" in a full train state,
-"{model}/{layer}/{w|b}" in a weights-only export) plus a JSON '__meta__'
-blob, so one checkpoint loads in both packages. Saving and resume are
-ROADMAP item A1.
+Port of nerf_pl_tpu/training/checkpoints.py, with its file format: one .npz
+with every leaf under a '/'-joined key path ("params/{model}/{layer}/{w|b}",
+"opt_state/0/mu/...", "step" in a full train state; "{model}/{layer}/{w|b}"
+in a weights-only export) plus a JSON '__meta__' blob. A state saved by
+either package resumes in the other: a NamedTuple's fields, a tuple's
+indices and a dict's keys make the same paths as JAX's tree paths, tensors
+are stored as numpy (bf16 widened to f32) and a Python int leaf (the step)
+as int32.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import json
+import os
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _children(tree):
+    """(key, child) pairs of a container, or None for a leaf."""
+    if _is_namedtuple(tree):
+        return [(f, getattr(tree, f)) for f in tree._fields]
+    if isinstance(tree, (tuple, list)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    if isinstance(tree, dict):
+        return [(str(k), v) for k, v in tree.items()]
+    return None
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
+        return leaf.cpu().numpy()
+    if isinstance(leaf, (bool, np.bool_)):
+        return np.asarray(leaf)
+    if isinstance(leaf, int):
+        return np.asarray(leaf, np.int32)
+    return np.asarray(leaf)
+
+
+def flatten_with_paths(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{'/'-joined path: numpy leaf} of a state tree."""
+    kids = _children(tree)
+    if kids is None:
+        return {prefix: _to_numpy(tree)}
+    out = {}
+    for k, v in kids:
+        out.update(flatten_with_paths(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def save_checkpoint(path: str, state, meta: Optional[Dict[str, Any]] = None):
+    """Save a train state (or any tree) + JSON metadata to one .npz file."""
+    flat = flatten_with_paths(state)
+    flat["__meta__"] = np.frombuffer(json.dumps(meta or {}).encode(),
+                                     dtype=np.uint8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, path)
+
+
+def load_meta(path: str) -> Dict[str, Any]:
+    with np.load(path) as z:
+        if "__meta__" not in z:
+            return {}
+        return json.loads(bytes(z["__meta__"].tobytes()).decode())
+
+
+def load_checkpoint(path: str, template) -> Tuple[Any, Dict[str, Any]]:
+    """Restore a tree saved by either package into `template`'s structure:
+    tensor leaves take the template's dtype and device, int leaves stay
+    ints. Every leaf of the template must be in the file (full resume).
+    Returns (restored tree, meta)."""
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files if k != "__meta__"}
+        meta = (json.loads(bytes(z["__meta__"].tobytes()).decode())
+                if "__meta__" in z.files else {})
+
+    def build(tree, key):
+        kids = _children(tree)
+        if kids is not None:
+            vals = [build(v, f"{key}/{k}" if key else k) for k, v in kids]
+            if _is_namedtuple(tree):
+                return type(tree)(*vals)
+            if isinstance(tree, dict):
+                return dict(zip(tree.keys(), vals))
+            return type(tree)(vals)
+        if key not in arrays:
+            raise KeyError(f"checkpoint {path!r} missing leaf {key!r}")
+        arr = arrays[key]
+        if isinstance(tree, torch.Tensor):
+            if tuple(arr.shape) != tuple(tree.shape):
+                raise ValueError(f"shape mismatch for {key}: ckpt "
+                                 f"{arr.shape} vs template "
+                                 f"{tuple(tree.shape)}")
+            return torch.as_tensor(np.array(arr),
+                                   device=tree.device).to(tree.dtype)
+        if isinstance(tree, int):
+            if arr.shape != ():
+                raise ValueError(f"shape mismatch for {key}: ckpt "
+                                 f"{arr.shape} vs a scalar")
+            return int(arr)
+        return arr
+
+    return build(template, ""), meta
 
 
 def extract_model_state_dict(ckpt_path: str, model_name: str = "nerf_coarse",
@@ -75,3 +177,59 @@ def load_ckpt(params: Dict[str, Any], ckpt_path: str,
     out = dict(params)
     out[model_name] = target
     return out
+
+
+class TopKCheckpoints:
+    """Keep the k best checkpoints by a monitored value (lower is better).
+
+    The (monitored, path) bookkeeping persists in `topk.json` in the
+    checkpoint directory (the JAX package's format), so a resumed run of
+    either package keeps evicting relative to earlier checkpoints."""
+
+    def __init__(self, ckpt_dir: str, k: int = 5,
+                 filename: str = "epoch={epoch}.ckpt"):
+        self.ckpt_dir = ckpt_dir
+        self.k = k
+        self.filename = filename
+        self.entries: List[Tuple[float, str]] = []  # (monitored, path)
+        os.makedirs(ckpt_dir, exist_ok=True)
+        self._state_path = os.path.join(ckpt_dir, "topk.json")
+        if os.path.exists(self._state_path):
+            with open(self._state_path) as f:
+                saved = json.load(f)
+            # drop entries whose files were deleted out-of-band
+            self.entries = [(float(m), p) for m, p in saved.get("entries", [])
+                            if os.path.exists(p)]
+
+    def _persist(self):
+        tmp = self._state_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"k": self.k, "entries": self.entries}, f)
+        os.replace(tmp, self._state_path)
+
+    def maybe_save(self, state, monitored: float, epoch: int,
+                   meta: Optional[Dict[str, Any]] = None) -> Optional[str]:
+        """Save if among the best k; evict the worst beyond k. Returns the
+        path, or None when not saved."""
+        path = os.path.join(self.ckpt_dir, self.filename.format(epoch=epoch))
+        if len(self.entries) >= self.k:
+            worst = max(self.entries, key=lambda e: e[0])
+            if monitored >= worst[0]:
+                return None
+        meta = dict(meta or {})
+        meta.update({"epoch": epoch, "monitored": float(monitored)})
+        save_checkpoint(path, state, meta)
+        # re-saving the same epoch path replaces its old entry
+        self.entries = [e for e in self.entries if e[1] != path]
+        self.entries.append((float(monitored), path))
+        if len(self.entries) > self.k:
+            worst = max(self.entries, key=lambda e: e[0])
+            self.entries.remove(worst)
+            if worst[1] != path and os.path.exists(worst[1]):
+                os.remove(worst[1])
+        self._persist()
+        return path
+
+    @property
+    def best(self) -> Optional[Tuple[float, str]]:
+        return min(self.entries, key=lambda e: e[0]) if self.entries else None

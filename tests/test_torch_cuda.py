@@ -7,19 +7,25 @@ does: the machine with the card has no jax.
 
 Tolerances are the JAX kernels' test bars: weights 5e-3, rgb and opacity
 1e-2, depth 5e-2 (bf16 operands; the kernel and the plain version sum in
-different orders, and a bf16 rounding of an activation can flip).
+different orders, and a bf16 rounding of an activation can flip). The
+training kernel's gradients are held per leaf to a relative max error
+(max |kernel - plain| / max |plain|) of GRAD_TOL = 0.03, the bar of
+tests/test_fused_train.py::TestGradientParity: a flipped bf16 rounding or
+ReLU mask of one activation moves every product downstream of it.
 """
 import pytest
 import torch
 
 from nerf_pl_tpu_torch.models import init_nerf_params
 from nerf_pl_tpu_torch.ops import fused_render as fr
+from nerf_pl_tpu_torch.ops import fused_train as ft
 from nerf_pl_tpu_torch.parallel import make_render_fn
 from nerf_pl_tpu_torch.rendering import RenderConfig
 
 pytestmark = pytest.mark.cuda
 
 TOL = {"weights": 5e-3, "rgb": 1e-2, "opacity": 1e-2, "depth": 5e-2}
+GRAD_TOL = 0.03
 
 
 @pytest.fixture(scope="module")
@@ -113,3 +119,59 @@ def test_render_fn_fused_matches_unfused(dev):
     torch.cuda.synchronize()
     for k in plain:
         assert max_err(fused[k], plain[k]) <= 2e-2, k
+
+
+def _mse_inputs(R, S, dev, seed=0):
+    rays, z = rays_z(R, S, dev, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    noise = torch.randn((R, S), generator=g).to(dev)
+    gt = torch.rand((R, 3), generator=g).to(dev)
+    return rays, z, noise, gt
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / (b.abs().max() + 1e-12)).item()
+
+
+@pytest.mark.parametrize("R,S,white_back", [(8, 24, True), (8, 64, False),
+                                            (8, 192, True), (1032, 24, False),
+                                            (1032, 64, True),
+                                            (1032, 192, False),
+                                            (5, 300, True)])
+def test_mse_render_matches_plain(dev, R, S, white_back):
+    mlp = fr.pack_mlp(dense_params(0, dev), dev)
+    rays, z, noise, gt = _mse_inputs(R, S, dev)
+    scale = 1.0 / (R * 3)
+    n0 = ft.mse_render_launches
+    out8, w, grads = ft.fused_mse_render(mlp, rays, z, noise, gt,
+                                         white_back, scale)
+    assert ft.mse_render_launches == n0 + 1
+    ref8, ref_w, ref_g = ft.fused_mse_render_reference(
+        mlp, rays, z, noise, gt, white_back, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out8).all() and torch.isfinite(w).all()
+    assert max_err(w, ref_w) <= TOL["weights"]
+    for k, cols in (("rgb", slice(0, 3)), ("depth", slice(3, 4)),
+                    ("opacity", slice(4, 5))):
+        assert max_err(out8[:, cols], ref8[:, cols]) <= TOL[k], k
+    assert not out8[:, 5:].any()
+    assert len(grads) == len(ref_g) == 17
+    for i, (a, b) in enumerate(zip(grads, ref_g)):
+        assert a.shape == b.shape, i
+        assert torch.isfinite(a).all(), i
+        if b.abs().max() > 0:
+            assert _rel(a, b) <= GRAD_TOL, (i, _rel(a, b))
+        else:
+            assert not a.any(), i
+
+
+def test_mse_render_is_deterministic(dev):
+    mlp = fr.pack_mlp(dense_params(1, dev), dev)
+    rays, z, noise, gt = _mse_inputs(1032, 128, dev, seed=3)
+    first = ft.fused_mse_render(mlp, rays, z, noise, gt, True, 1e-3)
+    second = ft.fused_mse_render(mlp, rays, z, noise, gt, True, 1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+    for a, b in zip(first[2], second[2]):
+        assert torch.equal(a, b)

@@ -98,7 +98,8 @@ def test_eval_cli_matches_jax_cli(scene, ckpt, tmp_path):
                                  "--out_dir", str(tmp_path / "jax")])
     psnr_t = teval.main(flags + ["--scene_name", "s",
                                  "--out_dir", str(tmp_path / "torch"),
-                                 "--metrics_out", str(tmp_path / "m.json")])
+                                 "--metrics_out", str(tmp_path / "m.json")],
+                        device="cpu")
     assert np.isfinite(psnr_t) and abs(psnr_t - psnr_j) <= 0.05
     dj = tmp_path / "jax" / "blender" / "s"
     dt = tmp_path / "torch" / "blender" / "s"
@@ -112,6 +113,19 @@ def test_eval_cli_matches_jax_cli(scene, ckpt, tmp_path):
     assert len(m["per_view"]) == m["n_views"] == 2
     assert abs(m["mean_psnr"] - psnr_t) < 1e-3
     assert m["flags"]["fused_mlp"] is True
+
+
+def test_main_needs_cuda_unless_given_a_device(scene, ckpt, tmp_path,
+                                              monkeypatch):
+    """No device argument means cuda:0: without CUDA, main raises instead
+    of rendering on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    flags = ["--root_dir", scene, "--img_wh", "20", "20", "--N_samples",
+             "8", "--N_importance", "4", "--ckpt_path", ckpt,
+             "--out_dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        teval.main(flags)
+    assert not (tmp_path / "blender").exists()
 
 
 def test_parsers_share_flags_and_defaults():

@@ -127,10 +127,13 @@ def test_make_render_fn_device_out_and_chunked(params):
         torch.testing.assert_close(out[k], chunked[k])
 
 
-@pytest.mark.parametrize("change", [dict(test_time=False), dict(perturb=1.0),
-                                    dict(noise_std=1.0),
-                                    dict(fused_train=True)])
+@pytest.mark.parametrize("change", [dict(test_time=False, fused_train=True),
+                                    dict(test_time=False, fused=True),
+                                    dict(perturb=1.0, fused=True),
+                                    dict(noise_std=1.0, fused=True)])
 def test_unported_configs_raise(params, change):
+    """The branches of later slices: fused_train_render (B6) and the fused
+    point-MLP kernels at train time or with perturb / noise (B4, B5)."""
     cfg = RenderConfig(**{**dict(N_samples=8, test_time=True), **change})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_rays(_torch_params(params), torch.from_numpy(_rays(2)), cfg)
