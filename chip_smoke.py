@@ -34,13 +34,44 @@
    batch gradients of the fused step pointing the way the plain autograd
    step's do with the same draws (cosine >= 0.95 per leaf, the bar of
    test_grad_direction_vs_f32_reference). Prints train rays/s.
-5. Prints one JSON line about the kernels, the nvidia-smi line, and last
+5. Point-MLP path (`--fused_mlp` training). Holds the three point-MLP
+   kernels against their plain versions at ragged P = 300, 4099 and
+   131,075 with the weights of dense_params and of plain init: rgb within
+   5e-3, raw sigma within 5e-3 x max(1, max |sigma|) (the x50 sigma head
+   scales it), each mlp_bwd gradient leaf within GRAD_TOL and two launches
+   bit-identical. Times mlp_fwd and mlp_bwd at P = 65,536 and 131,072 (a
+   dense step's coarse and fine pass) and sigma_fwd at 32768 x 64 points.
+   Then a Trainer at the dense bench config with fused=True and no
+   fused_train (autograd through fused_nerf_mlp) fits the same store as in
+   4 for the same 350 steps: exactly 2 mlp_fwd and 2 mlp_bwd launches per
+   step and no other kernel, the loss falling, and the gradient cosine >=
+   0.95 per leaf against the plain autograd step. Prints train rays/s.
+6. The validation config of --fused_mlp (make_render_fn with fused and
+   test_time off, as NeRFSystem validates) renders one 400x400 frame at
+   64 + 64 through mlp_fwd alone; rgb_coarse and rgb_fine finite and within
+   2e-2 of the plain unfused path on 4096 of its rays. A test-time render
+   with perturb 1 and sigma noise 1 (explicit draws) on those rays launches
+   sigma_fwd (coarse) and mlp_fwd (fine) once each and agrees within 2e-2
+   (depth 5e-2) with the unfused path on the same draws. Both are held at
+   the 99.5th percentile over rays, with at most 4 of the 4096 rays past
+   the bar and none past a loose cap (0.25, depth 1.0): a ray
+   whose importance samples move past a sharp feature of the random dense
+   field (or, with noise, past a coarse depth, which shifts the noise
+   slots) can jump between two implementations that differ in one bf16
+   rounding; the plain bf16 version on the CPU jumps on the same rays.
+7. The train CLI with --fused_mlp alone, in a process of its own as a user
+   runs it, on the 40x40 synthetic scene (12 views, 32 + 16 samples,
+   batch 1024, lr 5e-4, 10 epochs, in a temporary directory): val/psnr past
+   20 dB by epoch 10, `last.ckpt` written, and a second process resumes
+   from it for one more epoch.
+8. Prints one JSON line about the kernels, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 Any failure raises, and the script exits non-zero without those lines.
 """
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -55,11 +86,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from nerf_pl_tpu_torch.datasets.rays import frame_rays, sphere_pose  # noqa: E402
 from nerf_pl_tpu_torch.models import init_nerf_params  # noqa: E402
 from nerf_pl_tpu_torch.ops import _build  # noqa: E402
+from nerf_pl_tpu_torch.ops import fused_mlp as fm  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_render as fr  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_train as ft  # noqa: E402
 from nerf_pl_tpu_torch.parallel import Trainer, make_render_fn  # noqa: E402
 from nerf_pl_tpu_torch.rendering import (ModelConfig, RenderConfig,  # noqa: E402
-                                         TrainDraws)
+                                         TrainDraws, render_rays)
 from nerf_pl_tpu_torch.training import (get_lr_schedule,  # noqa: E402
                                         get_optimizer, loss_dict)
 from nerf_pl_tpu_torch.training.checkpoints import load_ckpt  # noqa: E402
@@ -67,6 +99,8 @@ from nerf_pl_tpu_torch.training.optimizers import tree_leaves  # noqa: E402
 
 TOL = {"weights": 5e-3, "rgb": 1e-2, "opacity": 1e-2, "depth": 5e-2}
 MAIN_PATH_TOL = 2e-2
+RAYS_PAST_BAR = 4        # of the 4096 rays held at the 99.5th pct
+RAY_CAP = {"rgb": 0.25, "depth": 1.0}   # no such ray may pass these
 CHUNK = 32768            # eval.py's default --chunk: the kernels' main R
 IMG = 400
 N_SAMPLES, N_IMPORTANCE = 64, 64
@@ -78,12 +112,37 @@ KERNELS = {   # name: (TPU kernel it replaces, source of the port's)
                     "nerf_pl_tpu_torch/csrc/fused_render.cu"),
     "mse_render": ("nerf_pl_tpu/ops/fused_train.py:362",
                    "nerf_pl_tpu_torch/csrc/fused_train.cu"),
+    "mlp_fwd": ("nerf_pl_tpu/ops/fused_mlp.py:351",
+                "nerf_pl_tpu_torch/csrc/fused_mlp.cu"),
+    "mlp_bwd": ("nerf_pl_tpu/ops/fused_mlp.py:382",
+                "nerf_pl_tpu_torch/csrc/fused_mlp.cu"),
+    "sigma_fwd": ("nerf_pl_tpu/ops/fused_mlp.py:465",
+                  "nerf_pl_tpu_torch/csrc/fused_mlp.cu"),
+}
+COUNTERS = {   # kernel: (wrapper module, its launch count)
+    "sigma_render": (fr, "sigma_render_launches"),
+    "render_eval": (fr, "render_eval_launches"),
+    "mse_render": (ft, "mse_render_launches"),
+    "mlp_fwd": (fm, "mlp_fwd_launches"),
+    "mlp_bwd": (fm, "mlp_bwd_launches"),
+    "sigma_fwd": (fm, "sigma_fwd_launches"),
 }
 GRAD_TOL = 0.03
 COS_BAR = 0.95
+POINT_TOL = 5e-3         # point-MLP rgb; raw sigma x max(1, max |sigma|)
 TRAIN_BATCH = 1024
 TRAIN_SEED = 7
 WARMUP_STEPS, SEGMENTS, SEGMENT_STEPS = 50, 3, 100
+CLI_EPOCHS, CLI_PSNR_BAR = 10, 20.0
+
+
+def reset_counts():
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
 
 
 def dense_params(seed, device):
@@ -210,8 +269,7 @@ def main_path(dev):
     render = make_render_fn(RenderConfig(**base, fused=True), CHUNK, dev,
                             device_out=True)
 
-    fr.sigma_render_launches = 0
-    fr.render_eval_launches = 0
+    reset_counts()
     outs, secs = [], []
     for rays in frames:
         torch.cuda.synchronize()
@@ -321,9 +379,9 @@ def time_mse(mlp, dev):
     return times
 
 
-def train_path(dev):
-    """Teacher renders a store, a Trainer at the dense bench config fits
-    it; returns (mse_render launches, rays/s per timed segment)."""
+def teacher_store(dev):
+    """A teacher (fixed random weights) renders 4 frames of 400x400 through
+    the fused eval path: the ray store both training paths fit."""
     teacher = {"nerf_coarse": dense_params(20, dev),
                "nerf_fine": dense_params(21, dev)}
     focal = 0.5 * 800 / np.tan(0.5 * CAMERA_ANGLE_X) * IMG / 800
@@ -333,11 +391,15 @@ def train_path(dev):
     frames = [frame_rays(sphere_pose(theta, np.pi / 5, 4.0), IMG, IMG, focal,
                          2.0, 6.0, dev) for theta in (0.3, 1.9, 3.5, 5.1)]
     rgbs = torch.cat([render(teacher, f)["rgb_fine"] for f in frames])
-    rays = torch.cat(frames)
+    return torch.cat(frames), rgbs
 
-    rcfg = RenderConfig(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
-                        perturb=1.0, noise_std=1.0, white_back=True,
-                        fused_train=True, fused_loss=True)
+
+def train_path(dev, store, name, rcfg, per_step):
+    """A Trainer at the dense bench config on `rcfg`'s kernel path fits the
+    teacher's store. per_step: the launches of each kernel per step; no
+    other kernel may launch. Returns (launch counts, rays/s per timed
+    segment)."""
+    rays, rgbs = store
     sched = get_lr_schedule("steplr", 5e-4, 16, 1000, decay_step=[2, 4, 8],
                             decay_gamma=0.5)
     tr = Trainer(ModelConfig(), rcfg, get_optimizer("adam", sched), sched,
@@ -347,8 +409,7 @@ def train_path(dev):
     probe = state.params["nerf_coarse"]["xyz_0"]["w"]
     torch.cuda.synchronize()
 
-    fr.sigma_render_launches = fr.render_eval_launches = 0
-    ft.mse_render_launches = 0
+    reset_counts()
     state, m = tr.run_steps(state, TRAIN_SEED, WARMUP_STEPS)
     losses, rates = [m["loss"]], []
     for _ in range(SEGMENTS):
@@ -362,30 +423,27 @@ def train_path(dev):
         for k in ("loss", "psnr", "lr"):
             if not torch.isfinite(m[k]).all():
                 raise AssertionError(f"train metric {k} not finite")
-    launches = {"sigma_render": fr.sigma_render_launches,
-                "render_eval": fr.render_eval_launches,
-                "mse_render": ft.mse_render_launches}
+    launches = read_counts()
     n_steps = WARMUP_STEPS + SEGMENTS * SEGMENT_STEPS
     losses = torch.cat(losses).cpu()
     first, last = losses[:50].mean().item(), losses[-50:].mean().item()
-    print(f"[train] {n_steps} steps at batch {TRAIN_BATCH}, "
+    print(f"[train] {name}: {n_steps} steps at batch {TRAIN_BATCH}, "
           f"{N_SAMPLES}+{N_IMPORTANCE} samples, store of {rays.shape[0]} "
           f"rays: launches {launches}; mean loss first 50 {first:.5f}, "
           f"last 50 {last:.5f}; final psnr {m['psnr'][-1].item():.2f}")
-    print(f"[train] rays/s per segment {[round(r, 1) for r in rates]}; "
-          f"best {max(rates):.1f}")
-    if launches["mse_render"] != 2 * n_steps:
-        raise AssertionError(f"mse_render launched {launches['mse_render']}"
-                             f" times in {n_steps} steps, not 2 per step")
-    if launches["sigma_render"] or launches["render_eval"]:
-        raise AssertionError(f"the train path launched eval kernels: "
-                             f"{launches}")
+    print(f"[train] {name}: rays/s per segment "
+          f"{[round(r, 1) for r in rates]}; best {max(rates):.1f}")
+    for k, n in launches.items():
+        if n != per_step.get(k, 0) * n_steps:
+            raise AssertionError(f"{name}: {k} launched {n} times in "
+                                 f"{n_steps} steps, not "
+                                 f"{per_step.get(k, 0)} per step")
     if not last < first:
         raise AssertionError(f"loss did not fall: {first} -> {last}")
     if torch.equal(probe, state.params["nerf_coarse"]["xyz_0"]["w"]):
         raise AssertionError("parameters did not change")
 
-    # one batch, same draws: fused step vs plain autograd step
+    # one batch, same draws: the kernel path's step vs plain autograd
     rays_b, rgbs_b = tr._sample_batch(state.step)
     g = torch.Generator(device=dev).manual_seed(11)
     R, S = TRAIN_BATCH, N_SAMPLES
@@ -396,8 +454,8 @@ def train_path(dev):
         noise_fine=torch.randn((R, S + N_IMPORTANCE), generator=g,
                                device=dev))
     plain_tr = Trainer(ModelConfig(), dataclasses.replace(
-        rcfg, fused_train=False, fused_loss=False), tr.optimizer, sched,
-        loss_dict["mse"], TRAIN_BATCH, dev)
+        rcfg, fused=False, fused_train=False, fused_loss=False),
+        tr.optimizer, sched, loss_dict["mse"], TRAIN_BATCH, dev)
     loss_f, _, g_f = tr._loss_and_grads(state.params, rays_b, rgbs_b, None,
                                         draws)
     loss_p, _, g_p = plain_tr._loss_and_grads(state.params, rays_b, rgbs_b,
@@ -405,12 +463,264 @@ def train_path(dev):
     cos = [torch.nn.functional.cosine_similarity(a.reshape(-1),
                                                  b.reshape(-1), dim=0).item()
            for a, b in zip(tree_leaves(g_f), tree_leaves(g_p, g_f))]
-    print(f"[train] one batch, fused vs plain autograd step: loss "
+    print(f"[train] {name}: one batch vs plain autograd step: loss "
           f"{loss_f.item():.6f} vs {loss_p.item():.6f}; gradient cosine "
           f"per leaf min {min(cos):.5f} (bar {COS_BAR})")
     if not min(cos) >= COS_BAR:
         raise AssertionError(f"gradient direction: cosine {min(cos)}")
-    return launches["mse_render"], rates
+    return launches, rates
+
+
+def ray_errors(out, plain, keys):
+    """{key: (99.5th percentile, max, rays past the bar, bar, cap)} of the
+    per-ray max abs error of out against plain. Rays whose importance
+    samples move past a sharp feature of the fine field can jump between
+    two implementations that differ in a bf16 rounding (the plain bf16
+    version on the CPU shows the same rays), so a path is held at the
+    99.5th percentile over rays, at most RAYS_PAST_BAR rays past the bar,
+    and every ray within a loose cap that a wrong tile would break. Depth
+    (scene units, up to 6) takes the kernels' depth bar."""
+    errs = {}
+    for k in keys:
+        if not torch.isfinite(out[k]).all():
+            raise AssertionError(f"{k} not finite")
+        kind = "depth" if k.startswith("depth") else "rgb"
+        bar = TOL["depth"] if kind == "depth" else MAIN_PATH_TOL
+        e = (out[k] - plain[k]).abs().reshape(out[k].shape[0], -1)
+        e = e.max(dim=-1).values
+        errs[k] = (torch.quantile(e, 0.995).item(), e.max().item(),
+                   int((e > bar).sum()), bar, RAY_CAP[kind])
+    return errs
+
+
+def check_ray_errors(what, errs):
+    print(f"[{what}] vs plain unfused path (99.5th pct, max, rays past "
+          f"the bar, bar, cap; at most {RAYS_PAST_BAR} rays past): "
+          + ", ".join(f"{k} {q:.3e} {m:.3e} {n} {b} {c}"
+                      for k, (q, m, n, b, c) in errs.items()))
+    for k, (q, m, n, bar, cap) in errs.items():
+        if not (q <= bar and n <= RAYS_PAST_BAR and m <= cap):
+            raise AssertionError(f"{what} {k}: 99.5th pct {q} (bar {bar}), "
+                                 f"{n} rays past the bar, max {m} (cap "
+                                 f"{cap})")
+
+
+def point_inputs(P, dev, seed):
+    """(P, 8) raw points and unit directions, and a cotangent on
+    [rgb, sigma] of size ~1 / P (a mean over points)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x8 = torch.zeros((P, 8), device=dev)
+    x8[:, :3] = 2 * torch.randn((P, 3), generator=g, device=dev)
+    d8 = torch.zeros((P, 8), device=dev)
+    d8[:, :3] = torch.nn.functional.normalize(
+        torch.randn((P, 3), generator=g, device=dev), dim=-1)
+    cot = torch.zeros((P, 8), device=dev)
+    cot[:, :4] = torch.randn((P, 4), generator=g, device=dev) / P
+    return x8, d8, cot
+
+
+def compare_point_mlp(dev):
+    """The point-MLP kernels vs their plain versions; returns {kernel: max
+    abs error} (for mlp_bwd over the gradient leaves) and prints the
+    gradients' worst relative error."""
+    errs = {"mlp_fwd": 0.0, "sigma_fwd": 0.0, "mlp_bwd": 0.0}
+    worst_rel = 0.0
+    for weights in ("dense", "init"):
+        params = (dense_params(0, dev) if weights == "dense" else
+                  init_nerf_params(torch.Generator().manual_seed(5),
+                                   device=dev))
+        mlp = fm.pack_mlp(params, dev)
+        for P in (300, 4099, 131075):
+            x8, d8, cot = point_inputs(P, dev, seed=P)
+            out = fm.mlp_forward(mlp, x8, d8)
+            sigma = fm.sigma_forward(mlp, x8)
+            g1 = fm.mlp_backward(mlp, x8, d8, cot)
+            g2 = fm.mlp_backward(mlp, x8, d8, cot)
+            ref = fm.mlp_forward_reference(mlp.packed, x8, d8)
+            ref_sigma = fm.sigma_forward_reference(mlp.packed, x8)
+            ref_g = fm.mlp_backward_reference(mlp.packed, x8, d8, cot)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
+                raise AssertionError(f"mlp_bwd P={P}: two launches differ")
+            if not (torch.isfinite(out).all() and not out[:, 4:].any()):
+                raise AssertionError(f"mlp_fwd P={P}: bad output")
+            sig_tol = POINT_TOL * max(1.0, ref[:, 3].abs().max().item())
+            e_rgb = max_err(out[:, :3], ref[:, :3])
+            e_sig = max_err(out[:, 3], ref[:, 3])
+            e_sfwd = max_err(sigma, ref_sigma)
+            e_g = max(max_err(a, b) for a, b in zip(g1, ref_g))
+            rels = [((a - b).abs().max() / b.abs().max()).item()
+                    if b.abs().max() > 0 else float(a.abs().max() > 0)
+                    for a, b in zip(g1, ref_g)]
+            print(f"[compare] point MLP {weights} P={P}: mlp_fwd rgb "
+                  f"{e_rgb:.3e} (tol {POINT_TOL}), sigma {e_sig:.3e}; "
+                  f"sigma_fwd {e_sfwd:.3e} (tol {sig_tol:.3e}); mlp_bwd "
+                  f"grad abs {e_g:.3e}, rel max {max(rels):.3e} (tol "
+                  f"{GRAD_TOL}); bit-identical twice")
+            if not (e_rgb <= POINT_TOL and e_sig <= sig_tol
+                    and e_sfwd <= sig_tol):
+                raise AssertionError(f"point MLP {weights} P={P}: forward "
+                                     f"error {e_rgb}, {e_sig}, {e_sfwd}")
+            for i, v in enumerate(rels):
+                if not v <= GRAD_TOL:
+                    raise AssertionError(f"mlp_bwd {weights} P={P} grad {i}:"
+                                         f" relative error {v}")
+            errs["mlp_fwd"] = max(errs["mlp_fwd"], e_rgb, e_sig)
+            errs["sigma_fwd"] = max(errs["sigma_fwd"], e_sfwd)
+            errs["mlp_bwd"] = max(errs["mlp_bwd"], e_g)
+            worst_rel = max(worst_rel, *rels)
+            del out, sigma, g1, g2, ref, ref_sigma, ref_g
+            torch.cuda.empty_cache()
+    print(f"[compare] mlp_bwd worst gradient relative error {worst_rel:.3e}")
+    return errs
+
+
+def time_point_mlp(mlp, dev):
+    """Median ms of the point-MLP kernels and their plain versions at the
+    main path's point counts."""
+    times = {}
+    for P in (65536, 131072):
+        x8, d8, cot = point_inputs(P, dev, seed=3000 + P)
+        pairs = {
+            "mlp_fwd": (lambda: fm.mlp_forward(mlp, x8, d8),
+                        lambda: fm.mlp_forward_reference(mlp.packed, x8,
+                                                         d8)),
+            "mlp_bwd": (lambda: fm.mlp_backward(mlp, x8, d8, cot),
+                        lambda: fm.mlp_backward_reference(mlp.packed, x8,
+                                                          d8, cot)),
+        }
+        for name, (kern, plain) in pairs.items():
+            t_k, t_p = median_ms(kern), median_ms(plain, reps=5, warmup=1)
+            times[(name, P)] = (t_k, t_p)
+            print(f"[time] {name} P={P}: kernel {t_k:.3f} ms, plain "
+                  f"{t_p:.3f} ms ({t_p / t_k:.2f}x)")
+    P = CHUNK * N_SAMPLES
+    x8, _, _ = point_inputs(P, dev, seed=4000)
+    t_k = median_ms(lambda: fm.sigma_forward(mlp, x8))
+    t_p = median_ms(lambda: fm.sigma_forward_reference(mlp.packed, x8),
+                    reps=3, warmup=1)
+    times[("sigma_fwd", P)] = (t_k, t_p)
+    print(f"[time] sigma_fwd P={P}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms "
+          f"({t_p / t_k:.2f}x)")
+    return times
+
+
+def validation_path(dev):
+    """The --fused_mlp validation config through make_render_fn; returns
+    the 4096 compared rays and the params for the perturbed path."""
+    params = {"nerf_coarse": dense_params(30, dev),
+              "nerf_fine": dense_params(31, dev)}
+    focal = 0.5 * 800 / np.tan(0.5 * CAMERA_ANGLE_X) * IMG / 800
+    frame = frame_rays(sphere_pose(0.7, np.pi / 5, 4.0), IMG, IMG, focal,
+                       2.0, 6.0, dev)
+    base = dict(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+                white_back=True)
+    render = make_render_fn(RenderConfig(**base, fused=True), CHUNK, dev,
+                            device_out=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = render(params, frame)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    n_chunks = -(-IMG * IMG // CHUNK)
+    print(f"[val] validation config (fused, test_time off), 1 frame "
+          f"{IMG}x{IMG}, {N_SAMPLES}+{N_IMPORTANCE}: launches {launches}; "
+          f"{secs:.4f} s")
+    want = {k: 2 * n_chunks if k == "mlp_fwd" else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"validation launched {launches}, not {want}")
+    for k, v in out.items():
+        if v.shape[0] != IMG * IMG or not torch.isfinite(v).all():
+            raise AssertionError(f"validation: {k} not finite or misshapen")
+    idx = torch.linspace(0, IMG * IMG - 1, 4096, device=dev).long()
+    plain = make_render_fn(RenderConfig(**base), 4096, dev,
+                           device_out=True)(params, frame[idx])
+    check_ray_errors("val", ray_errors({k: v[idx] for k, v in out.items()},
+                                       plain, ("rgb_coarse", "rgb_fine")))
+    return params, frame[idx].contiguous(), secs
+
+
+def perturbed_path(dev, params, rays):
+    """Test time with perturb and sigma noise: sigma_fwd on the coarse
+    pass, mlp_fwd on the fine, against the unfused path on the same
+    draws."""
+    R = rays.shape[0]
+    g = torch.Generator(device=dev).manual_seed(12)
+    draws = TrainDraws(
+        perturb=torch.rand((R, N_SAMPLES), generator=g, device=dev),
+        noise_coarse=torch.randn((R, N_SAMPLES), generator=g, device=dev),
+        u=torch.rand((R, N_IMPORTANCE), generator=g, device=dev),
+        noise_fine=torch.randn((R, N_SAMPLES + N_IMPORTANCE), generator=g,
+                               device=dev))
+    cfg = RenderConfig(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+                       test_time=True, white_back=True, fused=True,
+                       perturb=1.0, noise_std=1.0)
+    with torch.no_grad():
+        reset_counts()
+        out = render_rays(params, rays, cfg, draws=draws)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        plain = render_rays(params, rays, dataclasses.replace(cfg,
+                                                              fused=False),
+                            draws=draws)
+    print(f"[test-time] perturb 1, noise 1, {R} rays: launches {launches}")
+    want = {k: 1 if k in ("sigma_fwd", "mlp_fwd") else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"perturbed test time launched {launches}")
+    # the sigma noise is added by sorted sample position: a ray whose
+    # importance samples move past a coarse depth also moves its noise
+    check_ray_errors("test-time", ray_errors(out, plain, plain.keys()))
+    return launches
+
+
+def train_cli_path():
+    """The train CLI with --fused_mlp alone and its resume, each in a
+    process of its own; returns val/psnr by epoch."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    flags = ["--dataset_name", "blender", "--root_dir", "scene",
+             "--img_wh", "40", "40", "--N_samples", "32",
+             "--N_importance", "16", "--batch_size", "1024", "--lr", "5e-4",
+             "--decay_step", "20", "--decay_gamma", "0.5",
+             "--scan_steps", "90", "--val_chunk", "1600", "--exp_name", "v1",
+             "--fused_mlp"]
+
+    def run(args, what):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *args], cwd=tmp, env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run(["-m", "nerf_pl_tpu_torch.datasets.synthetic", "scene"],
+            "scene")
+        out, secs = run(["-m", "nerf_pl_tpu_torch.train", *flags,
+                         "--num_epochs", str(CLI_EPOCHS)], "train CLI")
+        psnr = {int(e): float(p) for e, p in re.findall(
+            r"^\[val\] epoch (\d+) loss=\S+ psnr=(\S+)", out, re.M)}
+        print(f"[cli] train --fused_mlp, {CLI_EPOCHS} epochs, {secs:.1f} s: "
+              f"val/psnr by epoch {psnr}")
+        if not psnr.get(CLI_EPOCHS, 0.0) > CLI_PSNR_BAR:
+            raise AssertionError(f"train CLI: val/psnr {psnr} not past "
+                                 f"{CLI_PSNR_BAR} dB by epoch {CLI_EPOCHS}")
+        ckpt = os.path.join(tmp, "ckpts", "v1", "last.ckpt")
+        if not os.path.isfile(ckpt):
+            raise AssertionError("train CLI wrote no last.ckpt")
+        out, secs = run(["-m", "nerf_pl_tpu_torch.train", *flags,
+                         "--num_epochs", str(CLI_EPOCHS + 1), "--ckpt_path",
+                         ckpt], "train CLI resume")
+        resumed = re.search(r"^\[resume\] full train state .*$", out, re.M)
+        last = re.search(rf"^\[val\] epoch {CLI_EPOCHS + 1} .*$", out, re.M)
+        if not (resumed and last):
+            raise AssertionError(f"train CLI resume:\n{out[-3000:]}")
+        print(f"[cli] resume, {secs:.1f} s: {resumed.group(0)}; "
+              f"{last.group(0)}")
+    return psnr
 
 
 def main():
@@ -435,23 +745,43 @@ def main():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
-    mlp = fr.pack_mlp(dense_params(0, dev), dev)
+    mlp = fm.pack_mlp(dense_params(0, dev), dev)
     errs = compare_kernels(mlp, dev)
     times = time_kernels(mlp, dev)
     launches, _ = main_path(dev)
 
     errs["mse_render"], _ = compare_mse(mlp, dev)
     mse_times = time_mse(mlp, dev)
-    launches["mse_render"], _ = train_path(dev)
+    store = teacher_store(dev)
+    base = dict(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE, perturb=1.0,
+                noise_std=1.0, white_back=True)
+    counts, _ = train_path(dev, store, "loss-fused", RenderConfig(
+        **base, fused_train=True, fused_loss=True), {"mse_render": 2})
+    launches["mse_render"] = counts["mse_render"]
+
+    errs.update(compare_point_mlp(dev))
+    times.update(time_point_mlp(mlp, dev))
+    counts, _ = train_path(dev, store, "fused_mlp",
+                           RenderConfig(**base, fused=True),
+                           {"mlp_fwd": 2, "mlp_bwd": 2})
+    launches["mlp_fwd"], launches["mlp_bwd"] = (counts["mlp_fwd"],
+                                                counts["mlp_bwd"])
+    del store
+    torch.cuda.empty_cache()
+    params, rays, _ = validation_path(dev)
+    launches["sigma_fwd"] = perturbed_path(dev, params, rays)["sigma_fwd"]
+    train_cli_path()
 
     fine_S = N_SAMPLES + N_IMPORTANCE
     times[("mse_render", fine_S)] = mse_times[fine_S]
-    main_S = {"sigma_render": N_SAMPLES, "render_eval": fine_S,
-              "mse_render": fine_S}
+    main_shape = {"sigma_render": N_SAMPLES, "render_eval": fine_S,
+                  "mse_render": fine_S, "mlp_fwd": TRAIN_BATCH * fine_S,
+                  "mlp_bwd": TRAIN_BATCH * fine_S,
+                  "sigma_fwd": CHUNK * N_SAMPLES}
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": tpu,
                 "launches": launches[k], "max_abs_err": errs[k],
-                "ms": times[(k, main_S[k])][0],
-                "plain_ms": times[(k, main_S[k])][1]}
+                "ms": times[(k, main_shape[k])][0],
+                "plain_ms": times[(k, main_shape[k])][1]}
                for k, (tpu, src) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)

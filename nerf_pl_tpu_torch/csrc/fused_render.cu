@@ -110,17 +110,7 @@ render_kernel(const float* __restrict__ rays, const float* __restrict__ z,
               float* __restrict__ weights_out, float* __restrict__ rgb_out,
               float* __restrict__ depth_out, float* __restrict__ opacity_out) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const SmemLayout L(S, rpb, FULL);
-  Smem sm;
-  sm.h = reinterpret_cast<bf16*>(smem_raw + L.h);
-  sm.x = reinterpret_cast<bf16*>(smem_raw + L.x);
-  sm.d = reinterpret_cast<bf16*>(smem_raw + L.d);
-  sm.slab = reinterpret_cast<bf16*>(smem_raw + L.slab);
-  sm.stage = reinterpret_cast<float*>(smem_raw + L.stage);
-  sm.rays = reinterpret_cast<float*>(smem_raw + L.rays);
-  sm.z = reinterpret_cast<float*>(smem_raw + L.z);
-  sm.sig = reinterpret_cast<float*>(smem_raw + L.sig);
-  sm.rgb = reinterpret_cast<float*>(smem_raw + L.rgb);
+  const Smem sm = smem_at(smem_raw, SmemLayout(S, rpb, FULL));
 
   const int ray0 = blockIdx.x * rpb;
   const int nray = min(rpb, R - ray0);
@@ -165,21 +155,15 @@ int launch(const void* rays, const void* z, int R, int S, const MlpWeights& p,
 
 }  // namespace nerf
 
-using nerf::bf16;
-
 extern "C" {
 
 int nerf_sigma_render(const void* rays, const void* z, int R, int S,
                       const void* w0, const void* wt, const void* wsk,
                       const void* bt, const void* ws, const void* bs,
                       void* weights, void* opacity, void* stream) {
-  nerf::MlpWeights p{};
-  p.w0 = static_cast<const bf16*>(w0);
-  p.wt = static_cast<const bf16*>(wt);
-  p.wsk = static_cast<const bf16*>(wsk);
-  p.bt = static_cast<const float*>(bt);
-  p.ws = static_cast<const bf16*>(ws);
-  p.bs = static_cast<const float*>(bs);
+  const nerf::MlpWeights p = nerf::weights_at(
+      w0, wt, wsk, bt, ws, bs, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr);
   return nerf::launch<false>(rays, z, R, S, p, 0, weights, nullptr, nullptr,
                              opacity, stream);
 }
@@ -191,20 +175,8 @@ int nerf_render_eval(const void* rays, const void* z, int R, int S,
                      const void* wdd, const void* bd, const void* wr,
                      const void* br, int white_back, void* rgb, void* depth,
                      void* opacity, void* stream) {
-  nerf::MlpWeights p{};
-  p.w0 = static_cast<const bf16*>(w0);
-  p.wt = static_cast<const bf16*>(wt);
-  p.wsk = static_cast<const bf16*>(wsk);
-  p.bt = static_cast<const float*>(bt);
-  p.ws = static_cast<const bf16*>(ws);
-  p.bs = static_cast<const float*>(bs);
-  p.wf = static_cast<const bf16*>(wf);
-  p.bf = static_cast<const float*>(bf);
-  p.wdf = static_cast<const bf16*>(wdf);
-  p.wdd = static_cast<const bf16*>(wdd);
-  p.bd = static_cast<const float*>(bd);
-  p.wr = static_cast<const bf16*>(wr);
-  p.br = static_cast<const float*>(br);
+  const nerf::MlpWeights p = nerf::weights_at(w0, wt, wsk, bt, ws, bs, wf,
+                                              bf, wdf, wdd, bd, wr, br);
   return nerf::launch<true>(rays, z, R, S, p, white_back, nullptr, rgb, depth,
                             opacity, stream);
 }

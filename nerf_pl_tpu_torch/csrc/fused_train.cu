@@ -24,17 +24,11 @@
 //                   (warp scans: the exclusive prefix sum for T and a true
 //                   exclusive suffix sum for dL/do = a T exp(-o) - suffix,
 //                   never a (T - w), which cancels for saturated samples);
-//                   then, tile by tile, the data-gradient chain
-//                   dz_i = mask_i (dz_{i+1} @ W_i^T) on the tensor cores
-//                   (transposed weights streamed like the forward's), each
-//                   dz_i stored as bf16 (exactly what the TPU's _dot_t
-//                   casts) and its f32 column sums added to the block's own
-//                   row of bias partials.
-//   B  wgrad        every dW = act^T dz, K = points (up to 1024 x 192), as
-//                   a split-K WMMA product: 64 x 64 output tiles, the points
-//                   in fixed chunks, each chunk into its own partial slot.
-//   C  sum_slots    the slots, then the blocks' bias partials, summed in a
-//                   fixed order.
+//                   then, tile by tile, the data-gradient chain from the
+//                   heads' cotangents (mlp_grad.cuh backward_from_heads).
+//   B  wgrad        every dW = act^T dz (mlp_grad.cuh),
+//   C  sum_slots    then the ordered sums of its slots and of the blocks'
+//                   bias partials (mlp_grad.cuh).
 //
 // What bounds it: tensor-core work, ~3 x 1.21 MFLOP per point. Device
 // memory sees ~10 KB of bf16 scratch per point (written by A, read by B),
@@ -47,43 +41,19 @@
 // the first CUDA error of its launches.
 #include <cuda_runtime.h>
 
-#include "nerf_mlp.cuh"
+#include "mlp_grad.cuh"
 
 namespace nerf {
 
-// Bias gradients: [bt (D x W) | bf (W) | bd (WD) | br (3) | bs (1)].
-constexpr int BT = 0, BF = D * W, BD = BF + W, BR = BD + WD, BS = BR + 3;
-constexpr int NBIAS = BS + 1;
-
-// Weight-gradient products act^T @ dz, in the kernels' weight layout
-// (ops/fused_render.py kernel_layout). The sigma and rgb heads share one
-// 16-wide dz block (cols 0..2 rgb, col 3 sigma).
-constexpr int DZR_W = 16;
-constexpr int NJOBS = 14;
-constexpr int EW = KX * W + (D - 1) * W * W + KX * W + W * W + W * WD +
-                   KD * WD + W * DZR_W + WD * DZR_W;
-
-// Per-point bf16 scratch, P = R * S points, one dense matrix per kind.
-struct Scratch {
-  bf16 *x, *d, *act, *feat, *hd, *dz, *dfeat, *dzd, *dzr;
-  size_t P;
-};
-constexpr int SCRATCH_W = KX + KD + D * W + W + WD + D * W + W + WD + DZR_W;
-
-struct TrainArgs {
+struct TrainArgs : GradArgs {
   const float* rays;
   const float* z;
   const float* noise;
   const float* gt;          // (R, 3)
   int R, S, rpb, white_back;
   float scale;
-  MlpWeights p;
-  const bf16* wdfT;         // (WD, W)
-  const bf16* wfT;          // (W, W)
-  const bf16* wtT;          // (D - 1, W, W)
   float* out8;
   float* weights;
-  Scratch s;
   float* bias_part;         // (gridDim.x, NBIAS)
 };
 
@@ -112,10 +82,6 @@ struct Extra {
   float* grgb;    // rpb x 4   dL/drgb of each ray
   float* dzr;     // TP x 4    rgb-head and sigma cotangents of a tile
 };
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // delta_k = (z_{k+1} - z_k) |d| (1e10 |d| for the last) and its optical
 // depth delta_k relu(sigma_k + noise_k); rounded like the plain version.
@@ -227,155 +193,32 @@ __device__ void quad_train(const TrainArgs& a, const Smem& sm, const Extra& ex,
   }
 }
 
-// Epilogue of a backward product: v = acc (+ bf16(dL/dsigma) * ws when
-// SIG), zeroed where the layer's bf16 activation is not > 0 (MASK) and on
-// rows past nv; bf16(v) goes to h (the next product's operand) and to the
-// scratch `out`, and the f32 column sums of v are added to `bias`.
-template <bool MASK, bool SIG>
-__device__ __forceinline__ void store_grad(FragC (&acc)[8],
-                                           const bf16* __restrict__ act,
-                                           const Extra& ex,
-                                           const bf16* __restrict__ ws,
-                                           const Smem& sm,
-                                           bf16* __restrict__ out,
-                                           float* __restrict__ bias, int nv) {
-  constexpr int NCB = 2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col0 = warp * 16 * NCB;
-  float* st = sm.stage + warp * 256;
-  float cs[NCB] = {0.f, 0.f};
-#pragma unroll
-  for (int f = 0; f < 4 * NCB; ++f) {
-    const int rb = f / NCB, j = f - rb * NCB;
-    wmma::store_matrix_sync(st, acc[f], 16, wmma::mem_row_major);
-    __syncwarp();
-    const int col = col0 + j * 16 + (lane & 15);
-    float part = 0.f;
-    for (int e = lane; e < 256; e += 32) {
-      const int row = rb * 16 + (e >> 4);
-      float v = st[e];
-      if (SIG)
-        v += bf16_round(ex.dzr[row * 4 + 3]) * __bfloat162float(ws[col]);
-      bool keep = row < nv;
-      if (MASK && keep)
-        keep = __bfloat162float(act[(size_t)row * W + col]) > 0.f;
-      if (!keep) v = 0.f;
-      part += v;
-      const bf16 b = __float2bfloat16_rn(v);
-      sm.h[row * LDH + col] = b;
-      if (row < nv) out[(size_t)row * W + col] = b;
-    }
-    part += __shfl_xor_sync(0xffffffffu, part, 16);  // lanes l, l^16: col
-    cs[j] += part;
-    __syncwarp();
-  }
-  if (lane < 16) {
-#pragma unroll
-    for (int j = 0; j < NCB; ++j) bias[col0 + j * 16 + lane] += cs[j];
-  }
-}
-
-// The data-gradient chain of points [t0, t0 + nv) of the block, whose
-// first point is global point g0.
+// The backward of points [t0, t0 + nv) of the block, whose first point is
+// global point g0: the rgb-head cotangent g c (1 - c), g = w dL/drgb, and
+// dL/dsigma per point, then the shared data-gradient chain.
 __device__ void backward_tile(const TrainArgs& a, const Smem& sm,
                               const Extra& ex, int t0, int nv, size_t g0,
                               float* __restrict__ bias) {
   const int tid = threadIdx.x;
-  const int S = a.S;
-  const size_t PW = a.s.P * W;
-
-  // rgb-head cotangent g c (1 - c), g = w dL/drgb, and dL/dsigma per point
-  if (tid < TP) {
-    float v0 = 0.f, v1 = 0.f, v2 = 0.f, gs = 0.f;
-    if (tid < nv) {
-      const int gp = t0 + tid;
-      const float w = ex.w[gp];
-      const float* c = sm.rgb + (size_t)gp * 3;
-      const float* g = ex.grgb + (gp / S) * 4;
-      v0 = w * g[0] * c[0] * (1.f - c[0]);
-      v1 = w * g[1] * c[1] * (1.f - c[1]);
-      v2 = w * g[2] * c[2] * (1.f - c[2]);
-      gs = ex.gsig[gp];
-      bf16* row = a.s.dzr + (g0 + tid) * DZR_W;
-      row[0] = __float2bfloat16_rn(v0);
-      row[1] = __float2bfloat16_rn(v1);
-      row[2] = __float2bfloat16_rn(v2);
-      row[3] = __float2bfloat16_rn(gs);
-      for (int c2 = 4; c2 < DZR_W; ++c2) row[c2] = __float2bfloat16_rn(0.f);
-    }
-    ex.dzr[tid * 4 + 0] = v0;
-    ex.dzr[tid * 4 + 1] = v1;
-    ex.dzr[tid * 4 + 2] = v2;
-    ex.dzr[tid * 4 + 3] = gs;
+  float v0 = 0.f, v1 = 0.f, v2 = 0.f, gs = 0.f;
+  if (tid < nv) {
+    const int gp = t0 + tid;
+    const float w = ex.w[gp];
+    const float* c = sm.rgb + (size_t)gp * 3;
+    const float* g = ex.grgb + (gp / a.S) * 4;
+    v0 = w * g[0] * c[0] * (1.f - c[0]);
+    v1 = w * g[1] * c[1] * (1.f - c[1]);
+    v2 = w * g[2] * c[2] * (1.f - c[2]);
+    gs = ex.gsig[gp];
   }
-  __syncthreads();
-  if (tid < 4) {                       // br (cols 0..2) and bs (col 3)
-    float s = 0.f;
-    for (int pt = 0; pt < TP; ++pt) s += ex.dzr[pt * 4 + tid];
-    bias[tid < 3 ? BR + tid : BS] += s;
-  }
-
-  {  // view layer: dz_d = [hd > 0] (bf16(dz_r) @ wr^T), into h[:, :WD]
-    const int j = tid & (WD - 1);
-    const float w0 = __bfloat162float(a.p.wr[j * 4 + 0]);
-    const float w1 = __bfloat162float(a.p.wr[j * 4 + 1]);
-    const float w2 = __bfloat162float(a.p.wr[j * 4 + 2]);
-    float cs = 0.f;
-    for (int pt = tid / WD; pt < TP; pt += NTHREADS / WD) {
-      float v = 0.f;
-      if (pt < nv) {
-        const float* r4 = ex.dzr + pt * 4;
-        const float dh = bf16_round(r4[0]) * w0 + bf16_round(r4[1]) * w1 +
-                         bf16_round(r4[2]) * w2;
-        if (__bfloat162float(a.s.hd[(g0 + pt) * WD + j]) > 0.f) v = dh;
-        a.s.dzd[(g0 + pt) * WD + j] = __float2bfloat16_rn(v);
-      }
-      cs += v;
-      sm.h[pt * LDH + j] = __float2bfloat16_rn(v);
-    }
-    sm.stage[tid] = cs;
-  }
-  __syncthreads();
-  if (tid < WD) bias[BD + tid] += sm.stage[tid] + sm.stage[tid + WD];
-
-  FragC acc[8];
-  zero(acc);                           // feature layer (linear)
-  gemm_acc<2>(acc, sm.h, LDH, a.wdfT, WD, sm.slab);
-  __syncthreads();
-  store_grad<false, false>(acc, nullptr, ex, a.p.ws, sm, a.s.dfeat + g0 * W,
-                           bias + BF, nv);
-  __syncthreads();
-  zero(acc);                           // + sigma head -> last trunk layer
-  gemm_acc<2>(acc, sm.h, LDH, a.wfT, W, sm.slab);
-  __syncthreads();
-  store_grad<true, true>(acc, a.s.act + (D - 1) * PW + g0 * W, ex, a.p.ws,
-                         sm, a.s.dz + (D - 1) * PW + g0 * W,
-                         bias + BT + (D - 1) * W, nv);
-  for (int i = D - 1; i >= 1; --i) {   // trunk layers 6 .. 0
-    __syncthreads();
-    zero(acc);
-    gemm_acc<2>(acc, sm.h, LDH, a.wtT + (size_t)(i - 1) * W * W, W, sm.slab);
-    __syncthreads();
-    store_grad<true, false>(acc, a.s.act + (i - 1) * PW + g0 * W, ex, a.p.ws,
-                            sm, a.s.dz + (i - 1) * PW + g0 * W,
-                            bias + BT + (i - 1) * W, nv);
-  }
+  backward_from_heads(a, sm, ex.dzr, v0, v1, v2, gs, nv, g0, bias);
 }
 
 __global__ void __launch_bounds__(NTHREADS, 2)
 mse_fwdbwd_kernel(TrainArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const TrainLayout L(a.S, a.rpb);
-  Smem sm;
-  sm.h = reinterpret_cast<bf16*>(smem_raw + L.base.h);
-  sm.x = reinterpret_cast<bf16*>(smem_raw + L.base.x);
-  sm.d = reinterpret_cast<bf16*>(smem_raw + L.base.d);
-  sm.slab = reinterpret_cast<bf16*>(smem_raw + L.base.slab);
-  sm.stage = reinterpret_cast<float*>(smem_raw + L.base.stage);
-  sm.rays = reinterpret_cast<float*>(smem_raw + L.base.rays);
-  sm.z = reinterpret_cast<float*>(smem_raw + L.base.z);
-  sm.sig = reinterpret_cast<float*>(smem_raw + L.base.sig);
-  sm.rgb = reinterpret_cast<float*>(smem_raw + L.base.rgb);
+  const Smem sm = smem_at(smem_raw, L.base);
   Extra ex;
   ex.noise = reinterpret_cast<float*>(smem_raw + L.noise);
   ex.w = reinterpret_cast<float*>(smem_raw + L.w);
@@ -420,190 +263,6 @@ mse_fwdbwd_kernel(TrainArgs a) {
   }
 }
 
-// ------------------------------------------------------ weight gradients --
-
-struct GJob {
-  const bf16* A;    // (P, M) activations
-  const bf16* B;    // (P, N) cotangents
-  int M, N, off;    // out block (M, N) at `off` of a slot
-  int tiles_n, tile0;
-};
-struct GJobs {
-  GJob j[NJOBS];
-};
-
-constexpr int GT = 64;          // output tile
-constexpr int GK = 32;          // points per shared-memory stage
-constexpr int GLD = GT + 8;
-
-using FragAc =
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-
-// One 16-byte vector of the A and the B stage per thread; rows past k_end
-// and columns past M / N are zero.
-__device__ __forceinline__ void load_stage(bf16* As, bf16* Bs, const GJob& jb,
-                                           int m0, int n0, int k, int k_end) {
-  const int lr = threadIdx.x >> 3, lc = (threadIdx.x & 7) * 8;
-  const int kr = k + lr;
-  bf16* da = As + lr * GLD + lc;
-  bf16* db = Bs + lr * GLD + lc;
-  if (kr < k_end && m0 + lc < jb.M)
-    cp_async16(da, jb.A + (size_t)kr * jb.M + m0 + lc);
-  else
-    *reinterpret_cast<uint4*>(da) = make_uint4(0, 0, 0, 0);
-  if (kr < k_end && n0 + lc < jb.N)
-    cp_async16(db, jb.B + (size_t)kr * jb.N + n0 + lc);
-  else
-    *reinterpret_cast<uint4*>(db) = make_uint4(0, 0, 0, 0);
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Block (tile, chunk): out tile of one job over points [k_begin, k_end),
-// into slot blockIdx.y. Warp w owns rows (w / 2) * 16 and 32 columns.
-__global__ void __launch_bounds__(256) wgrad_kernel(GJobs jobs, int P,
-                                                    int kchunk,
-                                                    float* __restrict__ part) {
-  constexpr int STAGE = GK * GLD;
-  __shared__ __align__(128) unsigned char raw[4 * STAGE * sizeof(bf16)];
-  bf16* As = reinterpret_cast<bf16*>(raw);           // 2 stages
-  bf16* Bs = As + 2 * STAGE;                          // 2 stages
-  const int t = blockIdx.x;
-  int ji = 0;
-  while (ji + 1 < NJOBS && t >= jobs.j[ji + 1].tile0) ++ji;
-  const GJob& jb = jobs.j[ji];
-  const int local = t - jb.tile0;
-  const int m0 = (local / jb.tiles_n) * GT, n0 = (local % jb.tiles_n) * GT;
-  const int k_begin = blockIdx.y * kchunk;
-  const int k_end = min(P, k_begin + kchunk);
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 16, wn = (warp & 1) * 32;
-
-  FragC acc[2];
-  zero(acc);
-  const int nstage = (k_end - k_begin + GK - 1) / GK;
-  if (nstage > 0) load_stage(As, Bs, jb, m0, n0, k_begin, k_end);
-  for (int s = 0; s < nstage; ++s) {
-    if (s + 1 < nstage) {
-      const int nb = ((s + 1) & 1) * STAGE;
-      load_stage(As + nb, Bs + nb, jb, m0, n0, k_begin + (s + 1) * GK,
-                 k_end);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const bf16* as = As + (s & 1) * STAGE;
-    const bf16* bs = Bs + (s & 1) * STAGE;
-#pragma unroll
-    for (int kk = 0; kk < GK; kk += 16) {
-      FragAc fa;
-      wmma::load_matrix_sync(fa, as + kk * GLD + wm, GLD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, bs + kk * GLD + wn + j * 16, GLD);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-  float* out = part + (size_t)blockIdx.y * EW + jb.off;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int m = m0 + wm, n = n0 + wn + j * 16;
-    if (m < jb.M && n < jb.N)
-      wmma::store_matrix_sync(out + (size_t)m * jb.N + n, acc[j], jb.N,
-                              wmma::mem_row_major);
-  }
-}
-
-// out[e] = sum over slots k = 0, 1, ... of part[k * ld + e], in that order.
-__global__ void sum_slots(const float* __restrict__ part, int nslot,
-                          size_t n, size_t ld, float* __restrict__ out) {
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < nslot; ++k) s += part[(size_t)k * ld + e];
-    out[e] = s;
-  }
-}
-
-// ------------------------------------------------------------------ host --
-
-inline size_t align256(size_t n) { return (n + 255) & ~static_cast<size_t>(255); }
-
-// Workspace: bf16 scratch, weight-gradient slots, bias partials.
-struct Workspace {
-  size_t P;
-  int rpb, grid_a, kchunk, nchunk;
-  size_t part, bias, total;   // byte offsets
-  Workspace(int R, int S) {
-    P = (size_t)R * S;
-    rpb = rays_per_block(S);
-    grid_a = (R + rpb - 1) / rpb;
-    // >= 2048 points per chunk and at most 64 slots
-    const size_t per = (P + 63) / 64;
-    kchunk = static_cast<int>(per > 2048 ? (per + GK - 1) / GK * GK : 2048);
-    nchunk = static_cast<int>((P + kchunk - 1) / kchunk);
-    part = align256(sizeof(bf16) * P * SCRATCH_W);
-    bias = part + align256(sizeof(float) * (size_t)nchunk * EW);
-    total = bias + align256(sizeof(float) * (size_t)grid_a * NBIAS);
-  }
-};
-
-inline Scratch scratch_at(void* base, size_t P) {
-  Scratch s;
-  bf16* o = static_cast<bf16*>(base);
-  s.P = P;
-  s.x = o;      o += P * KX;
-  s.d = o;      o += P * KD;
-  s.act = o;    o += P * D * W;
-  s.feat = o;   o += P * W;
-  s.hd = o;     o += P * WD;
-  s.dz = o;     o += P * D * W;
-  s.dfeat = o;  o += P * W;
-  s.dzd = o;    o += P * WD;
-  s.dzr = o;
-  return s;
-}
-
-inline GJobs make_jobs(const Scratch& s) {
-  const size_t PW = s.P * W;
-  const GJob spec[NJOBS] = {
-      {s.x, s.dz, KX, W},                           // w0
-      {s.act + 0 * PW, s.dz + 1 * PW, W, W},        // wt[0..6]
-      {s.act + 1 * PW, s.dz + 2 * PW, W, W},
-      {s.act + 2 * PW, s.dz + 3 * PW, W, W},
-      {s.act + 3 * PW, s.dz + 4 * PW, W, W},
-      {s.act + 4 * PW, s.dz + 5 * PW, W, W},
-      {s.act + 5 * PW, s.dz + 6 * PW, W, W},
-      {s.act + 6 * PW, s.dz + 7 * PW, W, W},
-      {s.x, s.dz + SKIP * PW, KX, W},               // wsk
-      {s.act + 7 * PW, s.dfeat, W, W},              // wf
-      {s.feat, s.dzd, W, WD},                       // wdf
-      {s.d, s.dzd, KD, WD},                         // wdd
-      {s.act + 7 * PW, s.dzr, W, DZR_W},            // ws (col 3)
-      {s.hd, s.dzr, WD, DZR_W},                     // wr (cols 0..2)
-  };
-  GJobs jobs;
-  int off = 0, tile = 0;
-  for (int i = 0; i < NJOBS; ++i) {
-    GJob j = spec[i];
-    j.off = off;
-    j.tiles_n = (j.N + GT - 1) / GT;
-    j.tile0 = tile;
-    off += j.M * j.N;
-    tile += ((j.M + GT - 1) / GT) * j.tiles_n;
-    jobs.j[i] = j;
-  }
-  return jobs;
-}
-
-inline int n_tiles(const GJobs& jobs) {
-  const GJob& l = jobs.j[NJOBS - 1];
-  return l.tile0 + ((l.M + GT - 1) / GT) * l.tiles_n;
-}
-
 }  // namespace nerf
 
 using nerf::bf16;
@@ -611,10 +270,14 @@ using nerf::bf16;
 extern "C" {
 
 long long nerf_mse_workspace_bytes(int R, int S) {
-  return static_cast<long long>(nerf::Workspace(R, S).total);
+  const int rpb = nerf::rays_per_block(S);
+  return static_cast<long long>(
+      nerf::Workspace((size_t)R * S, (R + rpb - 1) / rpb).total);
 }
 
-int nerf_mse_grad_floats() { return nerf::EW + nerf::NBIAS; }
+// Floats of the gradient buffer of both training kernels (mse_render and
+// mlp_bwd): the weight gradients, then the bias gradients.
+int nerf_grad_floats() { return nerf::EW + nerf::NBIAS; }
 
 int nerf_mse_render(const void* rays, const void* z, const void* noise,
                     const void* gt, int R, int S, const void* w0,
@@ -628,7 +291,8 @@ int nerf_mse_render(const void* rays, const void* z, const void* noise,
   using namespace nerf;
   if (R <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Workspace wsp(R, S);
+  const int rpb = rays_per_block(S);
+  const Workspace wsp((size_t)R * S, (R + rpb - 1) / rpb);
   unsigned char* base = static_cast<unsigned char*>(workspace);
   TrainArgs a{};
   a.rays = static_cast<const float*>(rays);
@@ -637,22 +301,10 @@ int nerf_mse_render(const void* rays, const void* z, const void* noise,
   a.gt = static_cast<const float*>(gt);
   a.R = R;
   a.S = S;
-  a.rpb = wsp.rpb;
+  a.rpb = rpb;
   a.white_back = white_back;
   a.scale = scale;
-  a.p.w0 = static_cast<const bf16*>(w0);
-  a.p.wt = static_cast<const bf16*>(wt);
-  a.p.wsk = static_cast<const bf16*>(wsk);
-  a.p.bt = static_cast<const float*>(bt);
-  a.p.ws = static_cast<const bf16*>(ws);
-  a.p.bs = static_cast<const float*>(bs);
-  a.p.wf = static_cast<const bf16*>(wf);
-  a.p.bf = static_cast<const float*>(bf);
-  a.p.wdf = static_cast<const bf16*>(wdf);
-  a.p.wdd = static_cast<const bf16*>(wdd);
-  a.p.bd = static_cast<const float*>(bd);
-  a.p.wr = static_cast<const bf16*>(wr);
-  a.p.br = static_cast<const float*>(br);
+  a.p = weights_at(w0, wt, wsk, bt, ws, bs, wf, bf, wdf, wdd, bd, wr, br);
   a.wdfT = static_cast<const bf16*>(wdfT);
   a.wfT = static_cast<const bf16*>(wfT);
   a.wtT = static_cast<const bf16*>(wtT);
@@ -660,27 +312,16 @@ int nerf_mse_render(const void* rays, const void* z, const void* noise,
   a.weights = static_cast<float*>(weights);
   a.s = scratch_at(base, wsp.P);
   a.bias_part = reinterpret_cast<float*>(base + wsp.bias);
-  float* part = reinterpret_cast<float*>(base + wsp.part);
-  float* g = static_cast<float*>(grad);
 
-  const TrainLayout L(S, wsp.rpb);
+  const TrainLayout L(S, rpb);
   cudaError_t err = cudaFuncSetAttribute(
       mse_fwdbwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L.total));
   if (err != cudaSuccess) return static_cast<int>(err);
   mse_fwdbwd_kernel<<<wsp.grid_a, NTHREADS, L.total, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  const GJobs jobs = make_jobs(a.s);
-  wgrad_kernel<<<dim3(n_tiles(jobs), wsp.nchunk), 256, 0, st>>>(
-      jobs, static_cast<int>(wsp.P), wsp.kchunk, part);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  sum_slots<<<(EW + 255) / 256, 256, 0, st>>>(part, wsp.nchunk, EW, EW, g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  sum_slots<<<(NBIAS + 255) / 256, 256, 0, st>>>(
-      a.bias_part, wsp.grid_a, NBIAS, NBIAS, g + EW);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_weight_grads(
+      a.s, wsp, base, a.bias_part, static_cast<float*>(grad), st));
 }
 
 }  // extern "C"

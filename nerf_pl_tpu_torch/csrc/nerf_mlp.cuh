@@ -1,4 +1,7 @@
-// The NeRF point MLP on one tile of points, for the fused render kernels.
+// The NeRF point MLP on one tile of points, for every fused kernel. The
+// tile's inputs come from rays and depths (build_inputs: o + d z, the
+// render and loss-fused training kernels) or from rows of raw points
+// (build_point_inputs: the point-MLP kernels).
 //
 // Computes what `_forward_body` of nerf_pl_tpu/ops/fused_mlp.py computes:
 // in-kernel gamma(x) / gamma(d) as one sin() over an exact f32 phase block
@@ -70,6 +73,30 @@ struct MlpWeights {
   const float* br;   // (4,)
 };
 
+// The weights from the C entry points' pointers (biases f32, the rest
+// bf16); a pass that does not read a buffer may pass null for it.
+inline MlpWeights weights_at(const void* w0, const void* wt, const void* wsk,
+                             const void* bt, const void* ws, const void* bs,
+                             const void* wf, const void* bf, const void* wdf,
+                             const void* wdd, const void* bd, const void* wr,
+                             const void* br) {
+  MlpWeights p{};
+  p.w0 = static_cast<const bf16*>(w0);
+  p.wt = static_cast<const bf16*>(wt);
+  p.wsk = static_cast<const bf16*>(wsk);
+  p.bt = static_cast<const float*>(bt);
+  p.ws = static_cast<const bf16*>(ws);
+  p.bs = static_cast<const float*>(bs);
+  p.wf = static_cast<const bf16*>(wf);
+  p.bf = static_cast<const float*>(bf);
+  p.wdf = static_cast<const bf16*>(wdf);
+  p.wdd = static_cast<const bf16*>(wdd);
+  p.bd = static_cast<const float*>(bd);
+  p.wr = static_cast<const bf16*>(wr);
+  p.br = static_cast<const float*>(br);
+  return p;
+}
+
 __host__ __device__ inline size_t align128(size_t n) {
   return (n + 127) & ~static_cast<size_t>(127);
 }
@@ -106,6 +133,22 @@ struct Smem {
   float* sig;    // rpb * S    raw sigma per point
   float* rgb;    // rpb * S * 3 (full MLP only)
 };
+
+// The regions of a block's dynamic shared memory.
+__device__ __forceinline__ Smem smem_at(unsigned char* raw,
+                                        const SmemLayout& L) {
+  Smem sm;
+  sm.h = reinterpret_cast<bf16*>(raw + L.h);
+  sm.x = reinterpret_cast<bf16*>(raw + L.x);
+  sm.d = reinterpret_cast<bf16*>(raw + L.d);
+  sm.slab = reinterpret_cast<bf16*>(raw + L.slab);
+  sm.stage = reinterpret_cast<float*>(raw + L.stage);
+  sm.rays = reinterpret_cast<float*>(raw + L.rays);
+  sm.z = reinterpret_cast<float*>(raw + L.z);
+  sm.sig = reinterpret_cast<float*>(raw + L.sig);
+  sm.rgb = reinterpret_cast<float*>(raw + L.rgb);
+  return sm;
+}
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
@@ -255,6 +298,46 @@ __device__ void build_inputs(const Smem& sm, int S, int t0, int P) {
         } else if (col >= XS && col < XS + ND) {
           const int j = col - XS;
           v = sincos_col(ray[3 + j % 3], j);
+        }
+      }
+      sm.d[pt * LDD + col] = __float2bfloat16_rn(v);
+    }
+  }
+}
+
+// Fill the MLP inputs for points [t0, t0 + TP) from rows of the (P, 8)
+// raw points p8 (and directions d8): the raw value in columns 0..2, the
+// same sin/cos columns as build_inputs; rows at or past `end` are zero.
+template <bool FULL>
+__device__ void build_point_inputs(const Smem& sm,
+                                   const float* __restrict__ p8,
+                                   const float* __restrict__ d8, int t0,
+                                   int end) {
+  for (int i = threadIdx.x; i < TP * KX; i += NTHREADS) {
+    const int pt = i / KX, col = i - pt * KX;
+    const size_t gp = (size_t)t0 + pt;
+    float v = 0.f;
+    if (t0 + pt < end) {
+      if (col < 3) {
+        v = p8[gp * 8 + col];
+      } else if (col >= XS && col < XS + NX) {
+        const int j = col - XS;
+        v = sincos_col(p8[gp * 8 + j % 3], j);
+      }
+    }
+    sm.x[pt * LDX + col] = __float2bfloat16_rn(v);
+  }
+  if constexpr (FULL) {
+    for (int i = threadIdx.x; i < TP * KD; i += NTHREADS) {
+      const int pt = i / KD, col = i - pt * KD;
+      const size_t gp = (size_t)t0 + pt;
+      float v = 0.f;
+      if (t0 + pt < end) {
+        if (col < 3) {
+          v = d8[gp * 8 + col];
+        } else if (col >= XS && col < XS + ND) {
+          const int j = col - XS;
+          v = sincos_col(d8[gp * 8 + j % 3], j);
         }
       }
       sm.d[pt * LDD + col] = __float2bfloat16_rn(v);

@@ -1,2 +1,3 @@
-"""Kernels of the port and their plain versions: sample_pdf, fused-MLP
-packing, and the fused render kernels (CUDA, built on first use)."""
+"""Kernels of the port and their plain versions: sample_pdf, the fused
+point MLP (packing and its three kernels), the fused render kernels and
+the loss-fused training kernel (CUDA, built on first use)."""

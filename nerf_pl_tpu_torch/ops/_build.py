@@ -104,11 +104,23 @@ def load_library() -> ctypes.CDLL:
     lib.nerf_render_eval.restype = i32
     lib.nerf_mse_workspace_bytes.argtypes = [i32, i32]
     lib.nerf_mse_workspace_bytes.restype = ctypes.c_longlong
-    lib.nerf_mse_grad_floats.argtypes = []
-    lib.nerf_mse_grad_floats.restype = i32
+    lib.nerf_grad_floats.argtypes = []
+    lib.nerf_grad_floats.restype = i32
     # rays, z, noise, gt, R, S, 13 weight buffers + 3 transposed, white_back,
     # scale, out8, weights, workspace, grad, stream
     lib.nerf_mse_render.argtypes = [ptr] * 4 + [i32, i32] + [ptr] * 16 + \
         [i32, ctypes.c_float] + [ptr] * 5
     lib.nerf_mse_render.restype = i32
+    # p8, d8, P, 13 weight buffers, out8, stream
+    lib.nerf_mlp_fwd.argtypes = [ptr, ptr, i32] + [ptr] * 13 + [ptr, ptr]
+    lib.nerf_mlp_fwd.restype = i32
+    # p8, P, 6 trunk buffers, sigma, stream
+    lib.nerf_sigma_fwd.argtypes = [ptr, i32] + [ptr] * 6 + [ptr, ptr]
+    lib.nerf_sigma_fwd.restype = i32
+    lib.nerf_mlp_workspace_bytes.argtypes = [i32]
+    lib.nerf_mlp_workspace_bytes.restype = ctypes.c_longlong
+    # p8, d8, g8, P, 13 weight buffers + 3 transposed, workspace, grad,
+    # stream
+    lib.nerf_mlp_bwd.argtypes = [ptr] * 3 + [i32] + [ptr] * 16 + [ptr] * 3
+    lib.nerf_mlp_bwd.restype = i32
     return lib

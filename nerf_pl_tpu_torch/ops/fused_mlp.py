@@ -1,12 +1,26 @@
-"""Packing of one NeRF MLP for the fused kernels, and the plain forward body.
+"""The fused NeRF point MLP: packing, plain bodies and the three point-MLP
+kernels.
 
-Port of the layout half of nerf_pl_tpu/ops/fused_mlp.py: `pack_params`
+Port of nerf_pl_tpu/ops/fused_mlp.py. The layout half: `pack_params`
 keeps its 17-buffer layout, `unpack_grads` maps gradients in that layout
-back onto the {layer: {w, b}} dict, `forward_body` computes what its Pallas
-`_forward_body` computes, and `mlp_grads` what its `_mlp_grads` computes
-from the activations `forward_body(keep_acts=True)` returns. The point-MLP
-kernels themselves (`fused_nerf_mlp`, `nerf_sigma_fused`) are not ported
-yet.
+back onto the {layer: {w, b}} dict, `forward_body` / `trunk_body` compute
+what its Pallas `_forward_body` / `_sigma_kernel` compute, and `mlp_grads`
+what its `_mlp_grads` computes from the activations
+`forward_body(keep_acts=True)` returns. `pack_mlp` packs one MLP once for
+many kernel calls (`PackedMLP`), and the training kernels' gradient
+buffer maps onto the 17 buffers here too (`_pack_layout_grads`).
+
+The kernel half: `fused_nerf_mlp` (the point MLP with its custom VJP, a
+`torch.autograd.Function`; `nerf_apply_fused` is its drop-in for embed +
+nerf_apply) and `nerf_sigma_fused`. Each pass dispatches on the device of
+the points:
+  * a CPU tensor goes to the plain version (`mlp_forward_reference`,
+    `mlp_backward_reference`, `sigma_forward_reference`);
+  * a CUDA tensor launches the hand-written kernels of `csrc/fused_mlp.cu`
+    (mlp_fwd, mlp_bwd, sigma_fwd; built on first use by `_build.py`) or
+    raises. There is no path from a kernel to its plain version. Each launch
+    adds one to `mlp_fwd_launches`, `mlp_bwd_launches` or
+    `sigma_fwd_launches`.
 
 Numerics of `forward_body`, as in the TPU kernel:
   * every MLP product takes bf16 operands and sums in f32, emulated as
@@ -25,7 +39,10 @@ The f32 products need TF32 off on a GPU
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, NamedTuple, Tuple
+import dataclasses
+import functools
+import math
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,6 +62,12 @@ N_PACKED = 17       # number of packed weight buffers
 # Indices of the matmul-weight buffers in the packed tuple (bf16 operands);
 # biases and the placeholder stay f32.
 MATMUL_IDX = frozenset({0, 1, 2, 3, 4, 6, 8, 9, 10, 12, 14})
+
+# Launch counts of the three kernels (plain ints; set them to 0 to start a
+# count).
+mlp_fwd_launches = 0
+mlp_bwd_launches = 0
+sigma_fwd_launches = 0
 
 
 def phase_consts(n_freqs: int, padded: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -282,3 +305,352 @@ def unpack_grads(grads: Tuple[torch.Tensor, ...]
     out["sigma"] = {"w": gws[:, :1], "b": gbs[0, :1]}
     out["rgb"] = {"w": gwr[:, :3], "b": gbr[0, :3]}
     return out
+
+
+# ------------------------------------------------------------- packing ----
+
+@dataclasses.dataclass(frozen=True)
+class PackedMLP:
+    """One MLP packed once for many kernel calls: the 17 `pack_params`
+    buffers (matmul buffers in bf16) and, on a GPU, the kernels' layout."""
+    packed: Tuple[torch.Tensor, ...]
+    kernel: Optional[Dict[str, torch.Tensor]]
+
+
+def kernel_layout(packed: Tuple[torch.Tensor, ...]) -> Dict[str, torch.Tensor]:
+    """The kernels' buffers from the precast 17-buffer pack.
+
+    The raw-input rows (8) and the sin/cos rows of layer 0, of the layer-4
+    skip and of the view layer are stacked into one K dimension with 8
+    zero rows between them, so every product has a depth that is a
+    multiple of 16: [raw (8) | zero (8) | sin/cos]."""
+    (w0r, w0e, wskr, wske, wt, bt, wf, bf, wdf, wddr, wdde, bd,
+     ws, bs, wr, br, _) = packed
+
+    def x_rows(raw, sincos):
+        return torch.cat([raw, torch.zeros_like(raw), sincos]).contiguous()
+
+    return {"w0": x_rows(w0r, w0e), "wt": wt.contiguous(),
+            "wsk": x_rows(wskr, wske), "bt": bt.contiguous(),
+            "ws": ws[:, 0].contiguous(), "bs": bs[0, :1].contiguous(),
+            "wf": wf.contiguous(), "bf": bf[0].contiguous(),
+            "wdf": wdf.contiguous(), "wdd": x_rows(wddr, wdde),
+            "bd": bd[0].contiguous(), "wr": wr[:, :4].contiguous(),
+            "br": br[0, :4].contiguous()}
+
+
+def packed_for(packed: Tuple[torch.Tensor, ...],
+               device: torch.device | str) -> PackedMLP:
+    """The 17 f32 `pack_params` buffers, precast, for the kernels on
+    `device`."""
+    device = torch.device(device)
+    bufs = tuple(t.to(device) for t in precast(packed))
+    return PackedMLP(bufs, kernel_layout(bufs) if device.type == "cuda"
+                     else None)
+
+
+def pack_mlp(params: Mapping[str, Mapping[str, torch.Tensor]],
+             device: torch.device | str) -> PackedMLP:
+    """Pack one MLP's {layer: {w, b}} for the kernels on `device`."""
+    return packed_for(pack_params(params), device)
+
+
+MLPArg = Union[PackedMLP, Mapping[str, Mapping[str, torch.Tensor]]]
+
+
+def _as_packed(params: MLPArg, device: torch.device) -> PackedMLP:
+    if isinstance(params, PackedMLP):
+        return params
+    return pack_mlp(params, device)
+
+
+# Gradient buffer of the training kernels (mse_render, mlp_bwd): the weight
+# gradients in the kernels' layout (`kernel_layout`), one block per product
+# act^T @ dz, then the bias gradients. Mirrors csrc/mlp_grad.cuh.
+_W_BLOCKS = (("w0", (80, W)), ("wt", (D - 1, W, W)), ("wsk", (80, W)),
+             ("wf", (W, W)), ("wdf", (W, WD)), ("wdd", (48, WD)),
+             ("ws16", (W, 16)), ("wr16", (WD, 16)))
+_B_BLOCKS = (("bt", (D, W)), ("bf", (W,)), ("bd", (WD,)), ("br", (3,)),
+             ("bs", (1,)))
+
+
+GRAD_FLOATS = sum(math.prod(s) for _, s in _W_BLOCKS + _B_BLOCKS)
+
+
+def _split_grad(g: torch.Tensor) -> Dict[str, torch.Tensor]:
+    out, o = {}, 0
+    for name, shape in _W_BLOCKS + _B_BLOCKS:
+        n = math.prod(shape)
+        out[name] = g[o:o + n].view(shape)
+        o += n
+    return out
+
+
+def _pack_layout_grads(g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """A kernel's gradient buffer -> 17 buffers in the `pack_params`
+    layout. The x and dir blocks are [raw (8) | zero (8) | sin/cos]; the
+    sigma and rgb heads were computed 16 columns wide (col 3 = sigma,
+    cols 0..2 = rgb) and land in their 8-wide padded buffers."""
+    b = _split_grad(g)
+    ws = g.new_zeros((W, 8))
+    ws[:, 0] = b["ws16"][:, 3]
+    wr = g.new_zeros((WD, 8))
+    wr[:, :3] = b["wr16"][:, :3]
+    bs = g.new_zeros((1, 8))
+    bs[0, :1] = b["bs"]
+    br = g.new_zeros((1, 8))
+    br[0, :3] = b["br"]
+    return (b["w0"][:IN_P], b["w0"][2 * IN_P:], b["wsk"][:IN_P],
+            b["wsk"][2 * IN_P:], b["wt"], b["bt"], b["wf"], b["bf"][None],
+            b["wdf"], b["wdd"][:IN_P], b["wdd"][2 * IN_P:], b["bd"][None],
+            ws, bs, wr, br, g.new_zeros((1, 1)))
+
+
+def _train_weights(mlp: PackedMLP) -> Dict[str, torch.Tensor]:
+    """The kernels' weight buffers plus the transposed matrices the
+    backward's data-gradient products stream (dz @ W^T)."""
+    k = mlp.kernel
+    return {**k, "wdfT": k["wdf"].t().contiguous(),
+            "wfT": k["wf"].t().contiguous(),
+            "wtT": k["wt"].transpose(1, 2).contiguous()}
+
+
+# ---------------------------------------------------------------- plain ----
+
+def mlp_forward_reference(packed, x8: torch.Tensor,
+                          d8: torch.Tensor) -> torch.Tensor:
+    """Plain `fused_nerf_mlp` forward on precast buffers: (P, 8)
+    [rgb (3), raw sigma, 0, 0, 0, 0]."""
+    sigma, rgb = forward_body(x8, d8, packed)
+    return torch.cat([rgb, sigma[:, None], rgb.new_zeros((rgb.shape[0], 4))],
+                     dim=-1)
+
+
+def mlp_backward_reference(packed, x8: torch.Tensor, d8: torch.Tensor,
+                           g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain `fused_nerf_mlp` backward: recompute the forward, then the
+    weight gradients for the cotangent g (P, 8) = [d rgb (3), d sigma, ...]
+    (17 f32 buffers in the `pack_params` layout)."""
+    _, _, acts = forward_body(x8, d8, packed, keep_acts=True)
+    return mlp_grads(x8, d8, packed, acts, g[:, 0:3], g[:, 3])
+
+
+def sigma_forward_reference(packed, x8: torch.Tensor) -> torch.Tensor:
+    """Plain `nerf_sigma_fused` on precast buffers: raw sigma (P,)."""
+    return trunk_body(x8, packed)[0]
+
+
+# ---------------------------------------------------------------- CUDA ----
+
+_FULL = ("w0", "wt", "wsk", "bt", "ws", "bs", "wf", "bf", "wdf", "wdd", "bd",
+         "wr", "br")
+_MAX_POINTS = 2 ** 31 - 1       # the kernels index points with an int
+
+
+def _raise_on(err: int, kernel: str):
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def _checked_library():
+    """The kernels' library, its gradient layout checked against ours."""
+    from ._build import load_library
+    lib = load_library()
+    n = lib.nerf_grad_floats()
+    if n != GRAD_FLOATS:
+        raise RuntimeError(f"gradient layout mismatch: kernel {n} floats, "
+                           f"wrapper {GRAD_FLOATS}")
+    return lib
+
+
+def _check_points(mlp: PackedMLP, **points: torch.Tensor):
+    if mlp.kernel is None:
+        raise ValueError("weights were packed for the CPU, not for a GPU")
+    first = next(iter(points.values()))
+    for name, t in points.items():
+        if t.dim() != 2 or t.shape != (first.shape[0], IN_P):
+            raise ValueError(f"want {', '.join(points)} of shape (P, {IN_P});"
+                             f" got {name} {tuple(t.shape)}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+        if t.device != first.device:
+            raise ValueError(f"{name} is not on {first.device}")
+    if first.shape[0] > _MAX_POINTS:
+        raise ValueError(f"P = {first.shape[0]} above {_MAX_POINTS}")
+    for name, t in mlp.kernel.items():
+        if t.device != first.device or not t.is_contiguous():
+            raise ValueError(f"weight buffer {name} is not a contiguous "
+                             f"tensor on {first.device}")
+
+
+def _mlp_fwd_cuda(mlp: PackedMLP, x8, d8):
+    global mlp_fwd_launches
+    _check_points(mlp, x8=x8, d8=d8)
+    P = x8.shape[0]
+    out = torch.empty((P, 8), dtype=torch.float32, device=x8.device)
+    if P == 0:
+        return out
+    from ._build import load_library
+    lib, k = load_library(), mlp.kernel
+    with torch.cuda.device(x8.device):
+        err = lib.nerf_mlp_fwd(x8.data_ptr(), d8.data_ptr(), P,
+                               *(k[n].data_ptr() for n in _FULL),
+                               out.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "mlp_fwd")
+    mlp_fwd_launches += 1
+    return out
+
+
+def _sigma_fwd_cuda(mlp: PackedMLP, x8):
+    global sigma_fwd_launches
+    _check_points(mlp, x8=x8)
+    P = x8.shape[0]
+    sigma = torch.empty((P,), dtype=torch.float32, device=x8.device)
+    if P == 0:
+        return sigma
+    from ._build import load_library
+    lib, k = load_library(), mlp.kernel
+    with torch.cuda.device(x8.device):
+        err = lib.nerf_sigma_fwd(x8.data_ptr(), P,
+                                 *(k[n].data_ptr() for n in _FULL[:6]),
+                                 sigma.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "sigma_fwd")
+    sigma_fwd_launches += 1
+    return sigma
+
+
+def _mlp_bwd_cuda(mlp: PackedMLP, x8, d8, g):
+    global mlp_bwd_launches
+    _check_points(mlp, x8=x8, d8=d8, g=g)
+    P, dev = x8.shape[0], x8.device
+    if P == 0:
+        return _pack_layout_grads(torch.zeros((GRAD_FLOATS,), device=dev))
+    lib = _checked_library()
+    workspace = torch.empty((lib.nerf_mlp_workspace_bytes(P),),
+                            dtype=torch.uint8, device=dev)
+    grad = torch.empty((GRAD_FLOATS,), dtype=torch.float32, device=dev)
+    k = _train_weights(mlp)
+    with torch.cuda.device(dev):
+        err = lib.nerf_mlp_bwd(
+            x8.data_ptr(), d8.data_ptr(), g.data_ptr(), P,
+            *(k[n].data_ptr() for n in _FULL + ("wdfT", "wfT", "wtT")),
+            workspace.data_ptr(), grad.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "mlp_bwd")
+    mlp_bwd_launches += 1
+    return _pack_layout_grads(grad)
+
+
+# ------------------------------------------------------------ dispatch ----
+
+def _on(kernel: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {kernel} kernel for device {t.device}")
+    return t.device.type == "cuda"
+
+
+def mlp_forward(mlp: PackedMLP, x8: torch.Tensor,
+                d8: torch.Tensor) -> torch.Tensor:
+    """The point-MLP forward on packed weights: (P, 8) raw points and
+    directions -> (P, 8) [rgb (3), raw sigma, 0, 0, 0, 0]."""
+    if _on("mlp_fwd", x8):
+        return _mlp_fwd_cuda(mlp, x8, d8)
+    return mlp_forward_reference(mlp.packed, x8, d8)
+
+
+def mlp_backward(mlp: PackedMLP, x8: torch.Tensor, d8: torch.Tensor,
+                 g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The weight gradients of the point MLP for the cotangent g (P, 8) of
+    its output: 17 f32 buffers in the `pack_params` layout."""
+    if _on("mlp_bwd", x8):
+        return _mlp_bwd_cuda(mlp, x8, d8, g)
+    return mlp_backward_reference(mlp.packed, x8, d8, g)
+
+
+def sigma_forward(mlp: PackedMLP, x8: torch.Tensor) -> torch.Tensor:
+    """The sigma-only point MLP on packed weights: raw sigma (P,)."""
+    if _on("sigma_fwd", x8):
+        return _sigma_fwd_cuda(mlp, x8)
+    return sigma_forward_reference(mlp.packed, x8)
+
+
+class _FusedNeRFMLP(torch.autograd.Function):
+    """`fused_nerf_mlp` with its custom VJP. The primal weights are the 17
+    f32 `pack_params` buffers and the bf16 cast happens in here, so the
+    gradients come back in f32, as from the JAX custom VJP, whose primal
+    is the f32 pack. The points get no gradients."""
+
+    @staticmethod
+    def forward(ctx, x8, d8, *packed):
+        ctx.mlp = packed_for(packed, x8.device)
+        ctx.save_for_backward(x8, d8)
+        return mlp_forward(ctx.mlp, x8, d8)
+
+    @staticmethod
+    def backward(ctx, g):
+        x8, d8 = ctx.saved_tensors
+        grads = mlp_backward(ctx.mlp, x8, d8, g.contiguous())
+        return (None, None, *grads)
+
+
+def fused_nerf_mlp(packed: Tuple[torch.Tensor, ...], x8: torch.Tensor,
+                   d8: torch.Tensor, tile: int = 1024) -> torch.Tensor:
+    """Fused NeRF MLP on packed raw points, differentiable in `packed`.
+
+    Args:
+      packed: the 17 f32 buffers of `pack_params`.
+      x8, d8: (P, IN_P) raw positions and view directions in cols 0..2.
+      tile: accepted for the JAX signature and not used: the kernel's tile
+        is its own and a ragged P is masked, not padded.
+
+    Returns (P, 8): cols 0..2 rgb (after the sigmoid), col 3 raw sigma.
+    """
+    return _FusedNeRFMLP.apply(x8, d8, *packed)
+
+
+def _rows8(v: torch.Tensor) -> torch.Tensor:
+    """(P, 3) -> (P, IN_P) f32 with zero columns 3.."""
+    v = v.float()
+    return torch.cat([v, v.new_zeros((v.shape[0], IN_P - 3))], dim=-1)
+
+
+def nerf_apply_fused(params: MLPArg, xyz: torch.Tensor, dirs: torch.Tensor,
+                     tile: int = 1024):
+    """Drop-in fused replacement for embed + models.nerf.nerf_apply.
+
+    Args:
+      params: one MLP's {layer: {w, b}} (differentiable through
+        `pack_params` and `fused_nerf_mlp`), or a PackedMLP from
+        `pack_mlp` (inference).
+      xyz: (..., 3) RAW sample positions (not embedded).
+      dirs: raw view directions broadcastable to xyz's batch shape.
+      tile: accepted for the JAX signature and not used.
+
+    Returns (rgb (..., 3), sigma (..., 1)) like nerf_apply.
+    """
+    batch_shape = xyz.shape[:-1]
+    x8 = _rows8(xyz.reshape(-1, 3))
+    d8 = _rows8(torch.broadcast_to(dirs, batch_shape + (3,)).reshape(-1, 3))
+    if isinstance(params, PackedMLP):
+        out = mlp_forward(params, x8, d8)
+    else:
+        out = fused_nerf_mlp(pack_params(params), x8, d8)
+    rgb = out[:, 0:3].reshape(*batch_shape, 3)
+    sigma = out[:, 3:4].reshape(*batch_shape, 1)
+    return rgb, sigma
+
+
+def nerf_sigma_fused(params: MLPArg, xyz: torch.Tensor, tile: int = 1024):
+    """Fused sigma-only inference: raw xyz (..., 3) -> sigma (..., 1).
+
+    No gradient flows back (the JAX kernel defines none either); `tile` is
+    accepted for the JAX signature and not used."""
+    batch_shape = xyz.shape[:-1]
+    x8 = _rows8(xyz.reshape(-1, 3))
+    with torch.no_grad():
+        sigma = sigma_forward(_as_packed(params, x8.device), x8)
+    return sigma.reshape(*batch_shape, 1)

@@ -21,12 +21,12 @@ its tile size is its own, so `points_per_tile` is not taken here.
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Optional
 
 import torch
 
-from .fused_mlp import IN_P, forward_body, pack_params, precast, trunk_body
+from .fused_mlp import (IN_P, MLPArg, PackedMLP, _as_packed, _raise_on,
+                        forward_body, trunk_body)
 
 # Launch counts of the two kernels (plain ints; set them to 0 to start a
 # count).
@@ -34,54 +34,6 @@ sigma_render_launches = 0
 render_eval_launches = 0
 
 MAX_SAMPLES = 1024      # per-ray samples the kernels' shared memory holds
-
-
-@dataclasses.dataclass(frozen=True)
-class PackedMLP:
-    """One MLP packed once for many render calls: the 17 `pack_params`
-    buffers (matmul buffers in bf16) and, on a GPU, the kernels' layout."""
-    packed: Tuple[torch.Tensor, ...]
-    kernel: Optional[Dict[str, torch.Tensor]]
-
-
-def kernel_layout(packed: Tuple[torch.Tensor, ...]) -> Dict[str, torch.Tensor]:
-    """The kernels' buffers from the precast 17-buffer pack.
-
-    The raw-input rows (8) and the sin/cos rows of layer 0, of the layer-4
-    skip and of the view layer are stacked into one K dimension with 8
-    zero rows between them, so every product has a depth that is a
-    multiple of 16: [raw (8) | zero (8) | sin/cos]."""
-    (w0r, w0e, wskr, wske, wt, bt, wf, bf, wdf, wddr, wdde, bd,
-     ws, bs, wr, br, _) = packed
-
-    def x_rows(raw, sincos):
-        return torch.cat([raw, torch.zeros_like(raw), sincos]).contiguous()
-
-    return {"w0": x_rows(w0r, w0e), "wt": wt.contiguous(),
-            "wsk": x_rows(wskr, wske), "bt": bt.contiguous(),
-            "ws": ws[:, 0].contiguous(), "bs": bs[0, :1].contiguous(),
-            "wf": wf.contiguous(), "bf": bf[0].contiguous(),
-            "wdf": wdf.contiguous(), "wdd": x_rows(wddr, wdde),
-            "bd": bd[0].contiguous(), "wr": wr[:, :4].contiguous(),
-            "br": br[0, :4].contiguous()}
-
-
-def pack_mlp(params: Mapping[str, Mapping[str, torch.Tensor]],
-             device: torch.device | str) -> PackedMLP:
-    """Pack one MLP's {layer: {w, b}} for the render kernels on `device`."""
-    device = torch.device(device)
-    packed = tuple(t.to(device) for t in precast(pack_params(params)))
-    kernel = kernel_layout(packed) if device.type == "cuda" else None
-    return PackedMLP(packed, kernel)
-
-
-MLPArg = Union[PackedMLP, Mapping[str, Mapping[str, torch.Tensor]]]
-
-
-def _as_packed(params: MLPArg, device: torch.device) -> PackedMLP:
-    if isinstance(params, PackedMLP):
-        return params
-    return pack_mlp(params, device)
 
 
 # --------------------------------------------------------------- plain ----
@@ -165,11 +117,6 @@ def _check_inputs(mlp: PackedMLP, rays: torch.Tensor, z: torch.Tensor):
                              f"tensor on {rays.device}")
     if z.device != rays.device:
         raise ValueError("rays and z_vals are on different devices")
-
-
-def _raise_on(err: int, kernel: str):
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
 def _sigma_render_cuda(mlp: PackedMLP, rays, z):

@@ -22,15 +22,14 @@ gradients: z is detached by the hierarchical sampler and the rest is data.
 """
 from __future__ import annotations
 
-import functools
-import math
-from typing import Dict, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-from .fused_mlp import D, IN_P, W, WD, forward_body, mlp_grads
-from .fused_render import (MAX_SAMPLES, MLPArg, PackedMLP, _as_packed,
-                           _points, _raise_on)
+from .fused_mlp import (GRAD_FLOATS, MLPArg, PackedMLP, _as_packed,
+                        _checked_library, _pack_layout_grads, _raise_on,
+                        _train_weights, forward_body, mlp_grads)
+from .fused_render import MAX_SAMPLES, _points
 
 # Launches of the kernel (a plain int; set it to 0 to start a count).
 mse_render_launches = 0
@@ -121,57 +120,6 @@ def fused_mse_render_reference(params: MLPArg, rays: torch.Tensor,
 
 # ---------------------------------------------------------------- CUDA ----
 
-# Gradient buffer of the kernel: the weight gradients in the kernels'
-# layout (ops/fused_render.py kernel_layout), one block per product
-# act^T @ dz, then the bias gradients. Mirrors csrc/fused_train.cu.
-_W_BLOCKS = (("w0", (80, W)), ("wt", (D - 1, W, W)), ("wsk", (80, W)),
-             ("wf", (W, W)), ("wdf", (W, WD)), ("wdd", (48, WD)),
-             ("ws16", (W, 16)), ("wr16", (WD, 16)))
-_B_BLOCKS = (("bt", (D, W)), ("bf", (W,)), ("bd", (WD,)), ("br", (3,)),
-             ("bs", (1,)))
-
-
-GRAD_FLOATS = sum(math.prod(s) for _, s in _W_BLOCKS + _B_BLOCKS)
-
-
-def _split_grad(g: torch.Tensor) -> Dict[str, torch.Tensor]:
-    out, o = {}, 0
-    for name, shape in _W_BLOCKS + _B_BLOCKS:
-        n = math.prod(shape)
-        out[name] = g[o:o + n].view(shape)
-        o += n
-    return out
-
-
-def _pack_layout_grads(g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """The kernel's gradient buffer -> 17 buffers in the `pack_params`
-    layout. The x and dir blocks are [raw (8) | zero (8) | sin/cos]; the
-    sigma and rgb heads were computed 16 columns wide (col 3 = sigma,
-    cols 0..2 = rgb) and land in their 8-wide padded buffers."""
-    b = _split_grad(g)
-    ws = g.new_zeros((W, 8))
-    ws[:, 0] = b["ws16"][:, 3]
-    wr = g.new_zeros((WD, 8))
-    wr[:, :3] = b["wr16"][:, :3]
-    bs = g.new_zeros((1, 8))
-    bs[0, :1] = b["bs"]
-    br = g.new_zeros((1, 8))
-    br[0, :3] = b["br"]
-    return (b["w0"][:IN_P], b["w0"][2 * IN_P:], b["wsk"][:IN_P],
-            b["wsk"][2 * IN_P:], b["wt"], b["bt"], b["wf"], b["bf"][None],
-            b["wdf"], b["wdd"][:IN_P], b["wdd"][2 * IN_P:], b["bd"][None],
-            ws, bs, wr, br, g.new_zeros((1, 1)))
-
-
-def _train_weights(mlp: PackedMLP) -> Dict[str, torch.Tensor]:
-    """The render kernels' weight buffers plus the transposed matrices the
-    backward's data-gradient products stream (dz @ W^T)."""
-    k = mlp.kernel
-    return {**k, "wdfT": k["wdf"].t().contiguous(),
-            "wfT": k["wf"].t().contiguous(),
-            "wtT": k["wt"].transpose(1, 2).contiguous()}
-
-
 def _check_inputs(mlp: PackedMLP, rays, z, noise, gt):
     if mlp.kernel is None:
         raise ValueError("weights were packed for the CPU, not for a GPU")
@@ -193,17 +141,6 @@ def _check_inputs(mlp: PackedMLP, rays, z, noise, gt):
         if t.device != rays.device or not t.is_contiguous():
             raise ValueError(f"weight buffer {name} is not a contiguous "
                              f"tensor on {rays.device}")
-
-
-@functools.lru_cache(maxsize=None)
-def _checked_library():
-    from ._build import load_library
-    lib = load_library()
-    n = lib.nerf_mse_grad_floats()
-    if n != GRAD_FLOATS:
-        raise RuntimeError(f"gradient layout mismatch: kernel {n} floats, "
-                           f"wrapper {GRAD_FLOATS}")
-    return lib
 
 
 def _mse_render_cuda(mlp: PackedMLP, rays, z, noise, gt, white_back: bool,

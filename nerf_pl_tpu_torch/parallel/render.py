@@ -12,7 +12,7 @@ from typing import Any, Callable, Dict, Mapping
 import torch
 
 from ..models.nerf import params_from_numpy
-from ..ops.fused_render import pack_mlp
+from ..ops.fused_mlp import pack_mlp
 from ..rendering.render import ModelConfig, RenderConfig, render_rays
 
 
@@ -25,8 +25,10 @@ def make_render_fn(rcfg: RenderConfig, chunk: int,
     `rays` (R, 8), numpy or tensor, is padded to whole chunks with zero
     rays whose far is 1 (near < far keeps their depths sane; their
     direction is 0, so their weights are 0), rendered chunk by chunk, and
-    the padding is sliced off. On the fused path both MLPs are packed to
-    the kernels' bf16 device buffers once per call, not once per chunk.
+    the padding is sliced off. With rcfg.fused both MLPs are packed to the
+    kernels' bf16 device buffers once per call, not once per chunk: the
+    render kernels take them at test time, the point-MLP forward kernel
+    otherwise (the validation config).
     With device_out the outputs stay tensors on `device`; otherwise they
     are numpy arrays.
     """

@@ -2,18 +2,20 @@
 resampling, at test time and at train time.
 
 Port of nerf_pl_tpu/rendering/render.py:
-  * test time, fused (`cfg.fused`): `fused_sigma_render` -> `sample_pdf` ->
-    `fused_render_eval`, the two render kernels on a GPU;
-  * unfused, test or train time (perturb, sigma noise): embed +
-    `nerf_apply` + `volume_quadrature`, plain PyTorch and differentiable by
-    autograd, the reference for the training step as a whole;
+  * test time, fused, no perturb and no noise: `fused_sigma_render` ->
+    `sample_pdf` -> `fused_render_eval`, the two render kernels on a GPU;
+  * everything else goes through `_evaluate_field` per pass and the plain,
+    differentiable `volume_quadrature`. With `cfg.fused` the MLP is the
+    fused point MLP (`nerf_apply_fused`, its forward and backward kernels on
+    a GPU, differentiable by autograd; `nerf_sigma_fused` for a sigma-only
+    test-time coarse pass); without it, embed + `nerf_apply`, plain
+    PyTorch, the reference for the training step as a whole;
   * `fused_mse_train_step`: the loss-fused training step, one
     `fused_mse_render` (the training kernel on a GPU) per pass, gradients
     out of the kernel instead of autograd.
-Still raising NotImplementedError, with their ROADMAP items: the fused
-point-MLP kernels (`fused` at train time, or with perturb or noise: B4,
-B5), the two-kernel `fused_train_render` (`fused_train` in `render_rays`:
-B6) and occupancy placement (`occm`: A5).
+Still raising NotImplementedError, with their ROADMAP items: the two-kernel
+`fused_train_render` (`fused_train` in `render_rays`: B6) and occupancy
+placement (`occm`: A5).
 
 torch cannot reproduce JAX's random streams, so where JAX splits a key
 into (perturb, coarse noise, importance u, fine noise), these functions
@@ -32,7 +34,7 @@ import torch
 
 from ..models.embedding import EmbeddingConfig, embed
 from ..models.nerf import NeRFConfig, nerf_apply
-from ..ops.fused_mlp import unpack_grads
+from ..ops.fused_mlp import nerf_apply_fused, nerf_sigma_fused, unpack_grads
 from ..ops.fused_render import fused_render_eval, fused_sigma_render
 from ..ops.fused_train import fused_mse_render
 from ..ops.sample_pdf import sample_pdf
@@ -132,12 +134,6 @@ def _check_ported(cfg: RenderConfig, occm=None):
             "fused_train renders through fused_train_render, whose two "
             "kernels are not ported yet: ROADMAP item B6 (the loss-fused "
             "step, fused_mse_train_step, is)")
-    if cfg.fused and (not cfg.test_time or cfg.perturb > 0
-                      or cfg.noise_std > 0):
-        raise NotImplementedError(
-            "fused with training, perturb or sigma noise runs the fused "
-            "point-MLP kernels (fused_nerf_mlp, nerf_sigma_fused), which "
-            "are not ported yet: ROADMAP items B4, B5")
 
 
 def coarse_z_vals(rays: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
@@ -174,15 +170,22 @@ def _fine_z_vals(z_vals, weights, cfg: RenderConfig,
     return torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
 
 
-def _evaluate_field(params, xyz, dir_emb, z_vals, dir_norms, noise,
+def _evaluate_field(params, xyz, rays_d, dir_emb, z_vals, dir_norms, noise,
                     cfg: RenderConfig, mcfg: ModelConfig, sigma_only: bool):
-    """Embed sampled points, run the MLP, integrate."""
-    xyz_emb = embed(xyz, mcfg.emb_xyz)
-    if sigma_only:
+    """Run the MLP on the sampled points (the fused point MLP on raw
+    points, or embed + nerf_apply), then integrate."""
+    if cfg.fused and not sigma_only:
+        rgbs, sigma = nerf_apply_fused(params, xyz, rays_d[:, None, :])
+    elif cfg.fused:
+        sigma = nerf_sigma_fused(params, xyz)
+        rgbs = None
+    elif sigma_only:
+        xyz_emb = embed(xyz, mcfg.emb_xyz)
         sigma = nerf_apply(params, xyz_emb, None, mcfg.nerf, sigma_only=True,
                            compute_dtype=cfg.compute_dtype)
         rgbs = None
     else:
+        xyz_emb = embed(xyz, mcfg.emb_xyz)
         rgbs, sigma = nerf_apply(params, xyz_emb, dir_emb[:, None, :],
                                  mcfg.nerf, sigma_only=False,
                                  compute_dtype=cfg.compute_dtype)
@@ -202,14 +205,16 @@ def render_rays(params: Mapping[str, Any],
 
     Args:
       params: {'nerf_coarse': MLP, 'nerf_fine': MLP (iff N_importance > 0)},
-        each a {layer: {w, b}} dict or, on the fused branch, a PackedMLP.
+        each a {layer: {w, b}} dict or, with cfg.fused, a PackedMLP
+        (inference only: autograd reaches the weights through the dict).
       rays: (R, 8) = [origin(3), direction(3), near(1), far(1)].
       generator, draws: the random draws of perturb and sigma noise (see
         the module docstring); unused when perturb = noise_std = 0.
 
     Returns rgb_coarse/depth_coarse/opacity_coarse (opacity only at test
     time), and rgb_fine/depth_fine/opacity_fine when N_importance > 0,
-    keyed like the JAX package. The unfused branch is differentiable.
+    keyed like the JAX package. Differentiable in dict params, except
+    through the test-time render kernels and the sigma-only fused pass.
     """
     _check_ported(cfg, occm)
     rng = functools.partial((draws or TrainDraws()).take,
@@ -221,7 +226,8 @@ def render_rays(params: Mapping[str, Any],
             cfg.perturb * rng("perturb", z_vals.shape))
     z_vals = z_vals.contiguous()
 
-    if cfg.fused:
+    if (cfg.fused and cfg.test_time and cfg.perturb == 0
+            and cfg.noise_std == 0):
         weights_c, opacity_c = fused_sigma_render(params["nerf_coarse"],
                                                   rays, z_vals)
         result = {"opacity_coarse": opacity_c}
@@ -243,9 +249,10 @@ def render_rays(params: Mapping[str, Any],
     dir_norms = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     dir_emb = embed(rays_d, mcfg.emb_dir)
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    coarse = _evaluate_field(params["nerf_coarse"], xyz, dir_emb, z_vals,
-                             dir_norms, noise("noise_coarse", z_vals.shape),
-                             cfg, mcfg, sigma_only=cfg.test_time)
+    coarse = _evaluate_field(params["nerf_coarse"], xyz, rays_d, dir_emb,
+                             z_vals, dir_norms,
+                             noise("noise_coarse", z_vals.shape), cfg, mcfg,
+                             sigma_only=cfg.test_time)
     if cfg.test_time:
         result = {"opacity_coarse": coarse["opacity"]}
     else:
@@ -257,9 +264,10 @@ def render_rays(params: Mapping[str, Any],
              if cfg.perturb > 0 else None)
         z_all = _fine_z_vals(z_vals, coarse["weights"], cfg, u)
         xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
-        fine = _evaluate_field(params["nerf_fine"], xyz, dir_emb, z_all,
-                               dir_norms, noise("noise_fine", z_all.shape),
-                               cfg, mcfg, sigma_only=False)
+        fine = _evaluate_field(params["nerf_fine"], xyz, rays_d, dir_emb,
+                               z_all, dir_norms,
+                               noise("noise_fine", z_all.shape), cfg, mcfg,
+                               sigma_only=False)
         result["rgb_fine"] = fine["rgb"]
         result["depth_fine"] = fine["depth"]
         result["opacity_fine"] = fine["opacity"]

@@ -10,18 +10,19 @@ the JAX package's shared parser, `nerf_pl_tpu.config`, which imports no
 jax), writing `ckpts/<exp>/epoch=*.ckpt`, `last.ckpt` and `topk.json` in
 the format both packages load, and resuming from either package's
 checkpoints (--ckpt_path). `--fused_train` takes the loss-fused training
-kernel; without it the step runs autograd over the plain render. It runs
-on cuda:0 and raises without CUDA; only a caller of main(device="cpu")
-trains on the CPU.
+kernel; without it the step runs autograd over the render, through the
+fused point-MLP kernels with `--fused_mlp` (which validation then runs
+too) or the plain MLP without. It runs on cuda:0 and raises without CUDA;
+only a caller of main(device="cpu") trains on the CPU.
 
 `--scan_steps` is the number of steps between two reads of the metrics.
 `--compile_cache` is accepted and does nothing. TensorBoard logging needs
 tensorboardX; without it the CLI says so and trains without logs.
 
 Flags of later slices are rejected, naming their ROADMAP item: --occ_* (A5),
---num_gpus > 1 (A10), --optimizer radam|ranger (A4), --fused_mlp without
---fused_train (B4) and --precision bfloat16 with the fused kernels (bf16
-master weights, A4). The datasets need PIL.
+--num_gpus > 1 (A10), --optimizer radam|ranger (A4) and --precision
+bfloat16 with the fused kernels (bf16 master weights, A4). The datasets
+need PIL.
 """
 import sys
 

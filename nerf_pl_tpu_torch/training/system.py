@@ -8,10 +8,9 @@ checkpoints both packages load. The dataset classes are the JAX package's
 (`_occ_tighten`, --occ_*) is ROADMAP item A5.
 
 Validation renders clean (no jitter or noise) full images through
-`make_render_fn`. With --fused_mlp (and a fine pass) that is the test-time
-path of the two render kernels, which renders no coarse rgb, so val/loss is
-the fine term alone there; otherwise val/loss sums the coarse and fine
-terms, as in the JAX package.
+`make_render_fn` with the training passes (test_time off), as the JAX
+package does: with --fused_mlp both passes run the fused point MLP's
+forward kernel, and val/loss sums the coarse and fine terms either way.
 """
 from __future__ import annotations
 
@@ -44,9 +43,6 @@ def unported(hp) -> Optional[str]:
         return "--num_gpus > 1: data parallel training (ROADMAP A10)"
     if hp.optimizer in ("radam", "ranger"):
         return f"--optimizer {hp.optimizer} (ROADMAP A4)"
-    if hp.fused_mlp and not hp.fused_train:
-        return ("--fused_mlp without --fused_train: training through the "
-                "fused point-MLP kernel (ROADMAP B4)")
     if hp.precision == "bfloat16" and (hp.fused_train or hp.fused_mlp):
         return ("--precision bfloat16 with the fused kernels: bf16 master "
                 "weights (ROADMAP A4)")
@@ -95,12 +91,11 @@ class NeRFSystem:
             fused_train=hp.fused_train,
             # the loss-fused step is exactly the reference MSE
             fused_loss=(hp.fused_train and hp.loss_type == "mse"))
-        fused_val = hp.fused_mlp and hp.N_importance > 0
         self.rcfg_val = RenderConfig(
             N_samples=hp.N_samples, N_importance=hp.N_importance,
-            use_disp=hp.use_disp, white_back=white_back,
-            compute_dtype=compute_dtype, fused=fused_val,
-            test_time=fused_val)
+            use_disp=hp.use_disp, perturb=0.0, noise_std=0.0,
+            white_back=white_back, compute_dtype=compute_dtype,
+            fused=hp.fused_mlp)
 
         # ceil: the store pads the tail batch, as Trainer.set_data does
         self.steps_per_epoch = max(

@@ -8,15 +8,19 @@ does: the machine with the card has no jax.
 Tolerances are the JAX kernels' test bars: weights 5e-3, rgb and opacity
 1e-2, depth 5e-2 (bf16 operands; the kernel and the plain version sum in
 different orders, and a bf16 rounding of an activation can flip). The
-training kernel's gradients are held per leaf to a relative max error
+training kernels' gradients are held per leaf to a relative max error
 (max |kernel - plain| / max |plain|) of GRAD_TOL = 0.03, the bar of
 tests/test_fused_train.py::TestGradientParity: a flipped bf16 rounding or
-ReLU mask of one activation moves every product downstream of it.
+ReLU mask of one activation moves every product downstream of it. The
+point-MLP forward kernels hold rgb to 5e-3 (TestFusedForward's bar) and
+raw sigma to 5e-3 x max(1, max |sigma|): the x50 sigma head of
+dense_params scales raw sigma, and its rounding with it.
 """
 import pytest
 import torch
 
 from nerf_pl_tpu_torch.models import init_nerf_params
+from nerf_pl_tpu_torch.ops import fused_mlp as fm
 from nerf_pl_tpu_torch.ops import fused_render as fr
 from nerf_pl_tpu_torch.ops import fused_train as ft
 from nerf_pl_tpu_torch.parallel import make_render_fn
@@ -64,7 +68,7 @@ def max_err(a, b):
                                             (1, 24, False), (37, 24, True),
                                             (5, 300, False)])
 def test_kernels_match_plain(dev, R, S, white_back):
-    mlp = fr.pack_mlp(dense_params(0, dev), dev)
+    mlp = fm.pack_mlp(dense_params(0, dev), dev)
     rays, z = rays_z(R, S, dev)
     n0 = (fr.sigma_render_launches, fr.render_eval_launches)
     w_k, op_k = fr.fused_sigma_render(mlp, rays, z)
@@ -82,7 +86,7 @@ def test_kernels_match_plain(dev, R, S, white_back):
 
 
 def test_pad_rows_give_zero_weights(dev):
-    mlp = fr.pack_mlp(dense_params(0, dev), dev)
+    mlp = fm.pack_mlp(dense_params(0, dev), dev)
     rays = torch.zeros((9, 8), device=dev)
     rays[:, 7] = 1.0
     z = torch.linspace(0, 1, 64, device=dev).expand(9, 64).contiguous()
@@ -94,14 +98,14 @@ def test_pad_rows_give_zero_weights(dev):
 
 
 def test_bad_inputs_raise(dev):
-    mlp = fr.pack_mlp(dense_params(0, dev), dev)
+    mlp = fm.pack_mlp(dense_params(0, dev), dev)
     rays, z = rays_z(8, 32, dev)
     with pytest.raises(ValueError):
         fr.fused_sigma_render(mlp, rays, z.t().contiguous().t())
     with pytest.raises(ValueError):
         fr.fused_render_eval(mlp, rays.double(), z, white_back=False)
     with pytest.raises(ValueError):
-        fr.fused_sigma_render(fr.pack_mlp(dense_params(0, "cpu"), "cpu"),
+        fr.fused_sigma_render(fm.pack_mlp(dense_params(0, "cpu"), "cpu"),
                               rays, z)
 
 
@@ -139,7 +143,7 @@ def _rel(a, b):
                                             (1032, 192, False),
                                             (5, 300, True)])
 def test_mse_render_matches_plain(dev, R, S, white_back):
-    mlp = fr.pack_mlp(dense_params(0, dev), dev)
+    mlp = fm.pack_mlp(dense_params(0, dev), dev)
     rays, z, noise, gt = _mse_inputs(R, S, dev)
     scale = 1.0 / (R * 3)
     n0 = ft.mse_render_launches
@@ -166,7 +170,7 @@ def test_mse_render_matches_plain(dev, R, S, white_back):
 
 
 def test_mse_render_is_deterministic(dev):
-    mlp = fr.pack_mlp(dense_params(1, dev), dev)
+    mlp = fm.pack_mlp(dense_params(1, dev), dev)
     rays, z, noise, gt = _mse_inputs(1032, 128, dev, seed=3)
     first = ft.fused_mse_render(mlp, rays, z, noise, gt, True, 1e-3)
     second = ft.fused_mse_render(mlp, rays, z, noise, gt, True, 1e-3)
@@ -175,3 +179,90 @@ def test_mse_render_is_deterministic(dev):
     assert torch.equal(first[1], second[1])
     for a, b in zip(first[2], second[2]):
         assert torch.equal(a, b)
+
+
+def _point_inputs(P, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    x8 = torch.zeros((P, 8))
+    x8[:, :3] = 2 * torch.randn((P, 3), generator=g)
+    d8 = torch.zeros((P, 8))
+    d8[:, :3] = torch.nn.functional.normalize(torch.randn((P, 3),
+                                                          generator=g), dim=-1)
+    cot = torch.zeros((P, 8))
+    cot[:, :4] = torch.randn((P, 4), generator=g) / P
+    return x8.to(dev), d8.to(dev), cot.to(dev)
+
+
+@pytest.mark.parametrize("P", [1, 300, 4099, 131075])
+@pytest.mark.parametrize("weights", ["dense", "init"])
+def test_point_mlp_kernels_match_plain(dev, P, weights):
+    params = (dense_params(0, dev) if weights == "dense" else
+              init_nerf_params(torch.Generator().manual_seed(5), device=dev))
+    mlp = fm.pack_mlp(params, dev)
+    x8, d8, cot = _point_inputs(P, dev, seed=P)
+    n0 = (fm.mlp_fwd_launches, fm.sigma_fwd_launches, fm.mlp_bwd_launches)
+    out = fm.mlp_forward(mlp, x8, d8)
+    sigma = fm.sigma_forward(mlp, x8)
+    grads = fm.mlp_backward(mlp, x8, d8, cot)
+    assert (fm.mlp_fwd_launches, fm.sigma_fwd_launches,
+            fm.mlp_bwd_launches) == (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    ref = fm.mlp_forward_reference(mlp.packed, x8, d8)
+    ref_sigma = fm.sigma_forward_reference(mlp.packed, x8)
+    ref_g = fm.mlp_backward_reference(mlp.packed, x8, d8, cot)
+    torch.cuda.synchronize()
+    sig_tol = 5e-3 * max(1.0, ref[:, 3].abs().max().item())
+    assert torch.isfinite(out).all() and not out[:, 4:].any()
+    assert max_err(out[:, :3], ref[:, :3]) <= 5e-3
+    assert max_err(out[:, 3], ref[:, 3]) <= sig_tol
+    assert max_err(sigma, ref_sigma) <= sig_tol
+    for i, (a, b) in enumerate(zip(grads, ref_g)):
+        assert a.shape == b.shape and a.dtype == torch.float32, i
+        if b.abs().max() > 0:
+            assert _rel(a, b) <= GRAD_TOL, (i, _rel(a, b))
+        else:
+            assert not a.any(), i
+
+
+def test_mlp_bwd_is_deterministic(dev):
+    mlp = fm.pack_mlp(dense_params(1, dev), dev)
+    x8, d8, cot = _point_inputs(65537, dev, seed=3)
+    first = fm.mlp_backward(mlp, x8, d8, cot)
+    second = fm.mlp_backward(mlp, x8, d8, cot)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["mlp_fwd", "sigma_fwd", "mlp_bwd"])
+def test_failed_launch_raises_without_fallback(dev, kernel, monkeypatch):
+    """A launch that returns a CUDA error raises; the plain version is
+    never run in its place and the count does not move."""
+    from nerf_pl_tpu_torch.ops import _build
+    real = _build.load_library()
+
+    class FailingLib:
+        def __getattr__(self, name):
+            if name in ("nerf_mlp_fwd", "nerf_sigma_fwd", "nerf_mlp_bwd"):
+                return lambda *a: 700          # cudaErrorIllegalAddress
+            return getattr(real, name)
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain version run for a CUDA tensor")
+
+    monkeypatch.setattr(_build, "load_library", lambda: FailingLib())
+    monkeypatch.setattr(fm, "_checked_library", lambda: FailingLib())
+    for name in ("mlp_forward_reference", "sigma_forward_reference",
+                 "mlp_backward_reference"):
+        monkeypatch.setattr(fm, name, no_plain)
+    mlp = fm.pack_mlp(dense_params(0, dev), dev)
+    x8, d8, cot = _point_inputs(64, dev, seed=0)
+    count = f"{kernel}_launches"
+    before = getattr(fm, count)
+    with pytest.raises(RuntimeError, match=f"{kernel} kernel launch failed"):
+        if kernel == "mlp_fwd":
+            fm.mlp_forward(mlp, x8, d8)
+        elif kernel == "sigma_fwd":
+            fm.sigma_forward(mlp, x8)
+        else:
+            fm.mlp_backward(mlp, x8, d8, cot)
+    assert getattr(fm, count) == before

@@ -85,7 +85,7 @@ def test_pack_params_matches_jax(params):
 
 
 def test_kernel_layout_shapes(params):
-    k = tfr.kernel_layout(tfm.precast(tfm.pack_params(
+    k = tfm.kernel_layout(tfm.precast(tfm.pack_params(
         params_from_numpy(params))))
     assert k["w0"].shape == (80, 256) and k["wsk"].shape == (80, 256)
     assert k["wdd"].shape == (48, 128) and k["wt"].shape == (7, 256, 256)

@@ -23,7 +23,8 @@ def _modules():
 
 def test_port_imports_no_jax_and_no_pil():
     mods = _modules()
-    for name in ("ops.fused_render", "ops.fused_train", "parallel.spmd",
+    for name in ("ops.fused_mlp", "ops.fused_render", "ops.fused_train",
+                 "datasets.synthetic", "parallel.spmd",
                  "training.system", "training.optimizers",
                  "training.lr_schedule", "training.losses", "device"):
         assert f"nerf_pl_tpu_torch.{name}" in mods, name

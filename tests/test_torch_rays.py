@@ -32,3 +32,22 @@ def test_rays_match_numpy(H, W, focal):
     rays = frame_rays(torch.from_numpy(c2w), H, W, focal, 2.0, 6.0)
     assert rays.shape == (H * W, 8)
     assert torch.all(rays[:, 6] == 2.0) and torch.all(rays[:, 7] == 6.0)
+
+
+def test_synthetic_scene_entry_point(tmp_path):
+    """`python -m nerf_pl_tpu_torch.datasets.synthetic DIR` writes the
+    shared Blender-format scene the verify recipe and chip_smoke train on."""
+    import json
+
+    from PIL import Image
+
+    from nerf_pl_tpu_torch.datasets import synthetic
+    root = synthetic.main([str(tmp_path / "s")])
+    for split, n in (("train", 12), ("val", 2), ("test", 2)):
+        meta = json.loads((tmp_path / "s" / f"transforms_{split}.json")
+                          .read_text())
+        assert len(meta["frames"]) == n
+        pngs = sorted((tmp_path / "s" / split).glob("*.png"))
+        assert len(pngs) == n
+        assert Image.open(pngs[0]).size == (40, 40)
+    assert root == str(tmp_path / "s")

@@ -3,14 +3,16 @@ numpy rays and JAX-initialised weights.
 
 render_rays compares every output key at atol 2e-2, the bar of
 tests/test_fused.py::test_render_rays_fused_test_time_path: the fused
-branch runs bf16 products, and the resampled fine depths follow the
+branches run bf16 products, and the resampled fine depths follow the
 coarse weights. The unfused f32 branch and volume_quadrature are held
-tighter."""
+tighter. With perturb or sigma noise the JAX render's draws are made from
+its key, as it splits it, and injected on the torch side (TrainDraws)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_fused_train import _step_draws
 
 from nerf_pl_tpu.models import init_nerf_params as jinit
 from nerf_pl_tpu.rendering import RenderConfig as JRenderConfig
@@ -92,16 +94,19 @@ def test_render_rays_coarse_only_and_disparity(params):
                                np.asarray(ref["opacity_coarse"]), atol=1e-4)
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
-def test_make_render_fn_matches_trainer(params, fused):
+@pytest.mark.parametrize("fused,test_time", [(False, True), (True, True),
+                                             (True, False)],
+                         ids=["unfused", "fused", "fused_validation"])
+def test_make_render_fn_matches_trainer(params, fused, test_time):
     """A ragged ray count, padded with far=1 zero rays, against the JAX
-    Trainer.render_fn on a one-device mesh."""
+    Trainer.render_fn on a one-device mesh. test_time off with fused is
+    the validation config: both passes through the point-MLP kernel."""
     from nerf_pl_tpu.parallel import Trainer, make_mesh
     from nerf_pl_tpu.rendering import ModelConfig as JModelConfig
     from nerf_pl_tpu.training import get_optimizer, loss_dict
 
     rays = _rays(101, seed=1)
-    base = dict(N_samples=16, N_importance=8, test_time=True,
+    base = dict(N_samples=16, N_importance=8, test_time=test_time,
                 white_back=True, fused=fused)
     rcfg = JRenderConfig(**base)
     mesh = make_mesh(num_data=1)
@@ -127,13 +132,50 @@ def test_make_render_fn_device_out_and_chunked(params):
         torch.testing.assert_close(out[k], chunked[k])
 
 
-@pytest.mark.parametrize("change", [dict(test_time=False, fused_train=True),
-                                    dict(test_time=False, fused=True),
-                                    dict(perturb=1.0, fused=True),
-                                    dict(noise_std=1.0, fused=True)])
+@pytest.mark.parametrize("perturb,noise_std", [(1.0, 1.0), (1.0, 0.0),
+                                               (0.0, 1.0)])
+def test_render_rays_fused_perturbed_test_time_matches_jax(params, perturb,
+                                                           noise_std):
+    """Test time with perturb or sigma noise leaves the render kernels:
+    the coarse pass runs nerf_sigma_fused, the fine nerf_apply_fused, each
+    followed by the plain volume_quadrature."""
+    R = 40
+    rays = _rays(R, seed=4)
+    base = dict(N_samples=32, N_importance=16, test_time=True,
+                white_back=True, fused=True, perturb=perturb,
+                noise_std=noise_std)
+    key = jax.random.PRNGKey(3)
+    ref = jrender(params, jnp.asarray(rays), key, JRenderConfig(**base))
+    cfg = RenderConfig(**base)
+    ours = render_rays(_torch_params(params), torch.from_numpy(rays), cfg,
+                       draws=_step_draws(key, R, cfg))
+    assert set(ours) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]),
+                                   atol=2e-2, err_msg=k)
+
+
+def test_render_rays_fused_train_time_matches_jax(params):
+    """Train time with fused (perturb 1, noise 1): both passes through
+    nerf_apply_fused and the plain volume_quadrature."""
+    R = 40
+    rays = _rays(R, seed=5)
+    base = dict(N_samples=32, N_importance=16, white_back=True, fused=True,
+                perturb=1.0, noise_std=1.0)
+    key = jax.random.PRNGKey(4)
+    ref = jrender(params, jnp.asarray(rays), key, JRenderConfig(**base))
+    cfg = RenderConfig(**base)
+    ours = render_rays(_torch_params(params), torch.from_numpy(rays), cfg,
+                       draws=_step_draws(key, R, cfg))
+    assert set(ours) == set(ref) and "rgb_coarse" in ours
+    for k in ref:
+        np.testing.assert_allclose(ours[k].detach().numpy(),
+                                   np.asarray(ref[k]), atol=2e-2, err_msg=k)
+
+
+@pytest.mark.parametrize("change", [dict(test_time=False, fused_train=True)])
 def test_unported_configs_raise(params, change):
-    """The branches of later slices: fused_train_render (B6) and the fused
-    point-MLP kernels at train time or with perturb / noise (B4, B5)."""
+    """The branch of a later slice: fused_train_render (B6)."""
     cfg = RenderConfig(**{**dict(N_samples=8, test_time=True), **change})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_rays(_torch_params(params), torch.from_numpy(_rays(2)), cfg)
