@@ -64,8 +64,28 @@
    batch 1024, lr 5e-4, 10 epochs, in a temporary directory): val/psnr past
    20 dB by epoch 10, `last.ckpt` written, and a second process resumes
    from it for one more epoch.
-8. Prints one JSON line about the kernels, the nvidia-smi line, and last
-   {"ok": true, "device": {...}}.
+8. Two-kernel fused training render (`fused_train` without the loss-fused
+   step: autograd through fused_train_render). Holds train_fwd and
+   train_bwd against their plain versions at R = 8, 1024, 4104 and S = 64,
+   128, 192: out8 and weights at TOL, and every train_bwd gradient leaf
+   within GRAD_TOL under four cotangent mixes (the rgb MSE on a white
+   background, depth^2 + 0.3 opacity and mean(weights^2) on black, and
+   the sum of the three on white), two launches of each bit-identical,
+   train_fwd's out8 and weights equal to mse_render's bit for bit, and
+   train_bwd on the MSE cotangent within 1e-3 relative of mse_render's
+   gradients. Times both and their
+   plain versions at R = 1024, S = 64 and 128. Then a Trainer at the dense
+   bench config with RenderConfig(fused_train=True) fits the store of 4
+   for the same 350 steps: exactly 2 train_fwd and 2 train_bwd launches
+   per step and no other kernel, the loss falling, and the gradient cosine
+   >= 0.95 per leaf against the plain autograd step. Prints train rays/s.
+9. Prints one JSON line about the kernels (each with its launches on its
+   path, its error, its ms and its plain version's at the main shape, its
+   bound: the larger of the bytes it must move over 3.35 TB/s and its
+   bf16 operations over 989 TFLOP/s (mlp_flops_per_point), and
+   library_ms, null: no single
+   PyTorch call computes a fused NeRF MLP with its quadrature or its
+   gradients), the nvidia-smi line, and last {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero without those lines.
 """
 import dataclasses
@@ -118,6 +138,10 @@ KERNELS = {   # name: (TPU kernel it replaces, source of the port's)
                 "nerf_pl_tpu_torch/csrc/fused_mlp.cu"),
     "sigma_fwd": ("nerf_pl_tpu/ops/fused_mlp.py:465",
                   "nerf_pl_tpu_torch/csrc/fused_mlp.cu"),
+    "train_fwd": ("nerf_pl_tpu/ops/fused_train.py:220",
+                  "nerf_pl_tpu_torch/csrc/fused_train.cu"),
+    "train_bwd": ("nerf_pl_tpu/ops/fused_train.py:250",
+                  "nerf_pl_tpu_torch/csrc/fused_train.cu"),
 }
 COUNTERS = {   # kernel: (wrapper module, its launch count)
     "sigma_render": (fr, "sigma_render_launches"),
@@ -126,6 +150,8 @@ COUNTERS = {   # kernel: (wrapper module, its launch count)
     "mlp_fwd": (fm, "mlp_fwd_launches"),
     "mlp_bwd": (fm, "mlp_bwd_launches"),
     "sigma_fwd": (fm, "sigma_fwd_launches"),
+    "train_fwd": (ft, "train_fwd_launches"),
+    "train_bwd": (ft, "train_bwd_launches"),
 }
 GRAD_TOL = 0.03
 COS_BAR = 0.95
@@ -134,6 +160,9 @@ TRAIN_BATCH = 1024
 TRAIN_SEED = 7
 WARMUP_STEPS, SEGMENTS, SEGMENT_STEPS = 50, 3, 100
 CLI_EPOCHS, CLI_PSNR_BAR = 10, 20.0
+MSE_VS_TRAIN_TOL = 1e-3  # train_bwd on the MSE cotangent vs mse_render
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
+BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, same source
 
 
 def reset_counts():
@@ -184,6 +213,41 @@ def median_ms(fn, reps=10, warmup=2):
 
 def max_err(a, b):
     return float((a - b).abs().max().item())
+
+
+def rel_errs(got, ref):
+    """Relative max error of each gradient leaf against its plain version
+    (a zero plain leaf: 0 if the kernel's is zero too, else 1)."""
+    return [((a - b).abs().max() / b.abs().max()).item()
+            if b.abs().max() > 0 else float(a.abs().max() > 0)
+            for a, b in zip(got, ref)]
+
+
+def check_train_kernel(what, got, ref):
+    """A training kernel's (out8, weights, gradients) against its plain
+    version's: prints the errors and raises past TOL or GRAD_TOL. Returns
+    (max abs errors of out8 and weights, max abs gradient error, relative
+    gradient errors)."""
+    (out8, w, grads), (ref8, ref_w, ref_g) = got, ref
+    errs = {"rgb": max_err(out8[:, 0:3], ref8[:, 0:3]),
+            "depth": max_err(out8[:, 3], ref8[:, 3]),
+            "opacity": max_err(out8[:, 4], ref8[:, 4]),
+            "weights": max_err(w, ref_w)}
+    rels = rel_errs(grads, ref_g)
+    e_g = max(max_err(a, b) for a, b in zip(grads, ref_g))
+    print(f"[compare] {what}: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; grad abs {e_g:.3e}, rel max {max(rels):.3e} (tol "
+          f"{GRAD_TOL}); bit-identical twice")
+    if out8[:, 5:].any():
+        raise AssertionError(f"{what}: out8 columns 5..7 not zero")
+    for k, v in errs.items():
+        if not v <= TOL[k]:
+            raise AssertionError(f"{what} {k}: max abs error {v}")
+    for i, v in enumerate(rels):
+        if not v <= GRAD_TOL:
+            raise AssertionError(f"{what} grad {i}: relative error {v}")
+    return errs, e_g, rels
 
 
 def compare_kernels(mlp, dev):
@@ -338,25 +402,9 @@ def compare_mse(mlp, dev):
             if not same:
                 raise AssertionError(f"mse_render R={R} S={S}: two launches "
                                      f"differ")
-            out8, w, grads = k1
-            errs = {"rgb": max_err(out8[:, 0:3], ref8[:, 0:3]),
-                    "depth": max_err(out8[:, 3], ref8[:, 3]),
-                    "opacity": max_err(out8[:, 4], ref8[:, 4]),
-                    "weights": max_err(w, ref_w)}
-            rels = [((a - b).abs().max() / b.abs().max()).item()
-                    if b.abs().max() > 0 else float(a.abs().max() > 0)
-                    for a, b in zip(grads, ref_g)]
-            print(f"[compare] mse_render R={R} S={S} white={white}: "
-                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                  + f", grad rel max {max(rels):.3e} (tol {GRAD_TOL}); "
-                  f"bit-identical twice")
-            for k, v in errs.items():
-                if not v <= TOL[k]:
-                    raise AssertionError(f"mse_render R={R} S={S} {k}: {v}")
-            for i, v in enumerate(rels):
-                if not v <= GRAD_TOL:
-                    raise AssertionError(f"mse_render R={R} S={S} grad {i}:"
-                                         f" relative error {v}")
+            errs, _, rels = check_train_kernel(
+                f"mse_render R={R} S={S} white={white}", k1,
+                (ref8, ref_w, ref_g))
             worst_abs = max(worst_abs, *errs.values())
             worst_rel = max(worst_rel, *rels)
             del k1, k2, ref8, ref_w, ref_g
@@ -549,9 +597,7 @@ def compare_point_mlp(dev):
             e_sig = max_err(out[:, 3], ref[:, 3])
             e_sfwd = max_err(sigma, ref_sigma)
             e_g = max(max_err(a, b) for a, b in zip(g1, ref_g))
-            rels = [((a - b).abs().max() / b.abs().max()).item()
-                    if b.abs().max() > 0 else float(a.abs().max() > 0)
-                    for a, b in zip(g1, ref_g)]
+            rels = rel_errs(g1, ref_g)
             print(f"[compare] point MLP {weights} P={P}: mlp_fwd rgb "
                   f"{e_rgb:.3e} (tol {POINT_TOL}), sigma {e_sig:.3e}; "
                   f"sigma_fwd {e_sfwd:.3e} (tol {sig_tol:.3e}); mlp_bwd "
@@ -603,6 +649,179 @@ def time_point_mlp(mlp, dev):
     print(f"[time] sigma_fwd P={P}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms "
           f"({t_p / t_k:.2f}x)")
     return times
+
+
+# (cotangent mix, white background): the last puts every term of a_k, the
+# white background's among them, into one backward
+TRAIN_MIXES = (("rgb", True), ("depth_opacity", False), ("weights", False),
+               ("all", True))
+
+
+def train_cotangent(mix, out8, w, gt):
+    """(g8, gw) of a mean loss over the batch: the rgb MSE, depth^2 + 0.3
+    opacity, mean(weights^2), or "all", their sum (gw None where the loss
+    has no weights term, as autograd gives it)."""
+    R, S = w.shape
+    g8, gw = torch.zeros_like(out8), None
+    if mix in ("rgb", "all"):
+        g8[:, 0:3] = 2.0 * (out8[:, 0:3] - gt) / (R * 3)
+    if mix in ("depth_opacity", "all"):
+        g8[:, 3] = 2.0 * out8[:, 3] / R
+        g8[:, 4] = 0.3 / R
+    if mix in ("weights", "all"):
+        gw = 2.0 * w / (R * S)
+    return g8, gw
+
+
+def compare_train(mlp, dev):
+    """train_fwd and train_bwd vs their plain versions, relaunches, and
+    train_bwd vs mse_render; returns {kernel: max abs error} (train_bwd's
+    over the gradient leaves)."""
+    errs = {"train_fwd": 0.0, "train_bwd": 0.0}
+    worst_rel = 0.0
+    for R in (8, 1024, 4104):
+        for S in (64, 128, 192):
+            rays, z, noise, gt = mse_inputs(R, S, dev, seed=7 * R + S)
+            for mix, white in TRAIN_MIXES:
+                f1 = ft.train_forward(mlp, rays, z, noise, white)
+                f2 = ft.train_forward(mlp, rays, z, noise, white)
+                ref8, ref_w = ft.fused_train_render_reference(
+                    mlp, rays, z, noise, white)
+                g8, gw = train_cotangent(mix, ref8, ref_w, gt)
+                b1 = ft.train_backward(mlp, rays, z, noise, white, g8, gw)
+                b2 = ft.train_backward(mlp, rays, z, noise, white, g8, gw)
+                ref_g = ft.fused_train_render_backward_reference(
+                    mlp, rays, z, noise, white, g8, gw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(f1 + b1,
+                                                             f2 + b2)):
+                    raise AssertionError(f"train kernels R={R} S={S} {mix}:"
+                                         f" two launches differ")
+                fe, e_g, rels = check_train_kernel(
+                    f"train_fwd + train_bwd R={R} S={S} {mix} white={white}",
+                    (*f1, b1), (ref8, ref_w, ref_g))
+                errs["train_fwd"] = max(errs["train_fwd"], *fe.values())
+                errs["train_bwd"] = max(errs["train_bwd"], e_g)
+                worst_rel = max(worst_rel, *rels)
+            scale = 1.0 / (R * 3)
+            m8, m_w, m_g = ft.fused_mse_render(mlp, rays, z, noise, gt, True,
+                                               scale)
+            f8, f_w = ft.train_forward(mlp, rays, z, noise, True)
+            g8 = torch.zeros_like(m8)
+            g8[:, 0:3] = 2.0 * scale * (m8[:, 0:3] - gt)
+            t_g = ft.train_backward(mlp, rays, z, noise, True, g8, None)
+            torch.cuda.synchronize()
+            rel = max(rel_errs(t_g, m_g))
+            same = torch.equal(f8, m8) and torch.equal(f_w, m_w)
+            print(f"[compare] train_bwd vs mse_render R={R} S={S}: grad rel "
+                  f"max {rel:.3e} (tol {MSE_VS_TRAIN_TOL}); train_fwd out8 "
+                  f"and weights bit-identical to mse_render's: {same}")
+            if not rel <= MSE_VS_TRAIN_TOL:
+                raise AssertionError(f"train_bwd vs mse_render R={R} S={S}:"
+                                     f" {rel}")
+            if not same:
+                raise AssertionError(f"train_fwd R={R} S={S}: out8 or "
+                                     f"weights differ from mse_render's")
+            del rays, z, noise, gt, f1, f2, b1, b2, ref_g, m_g, t_g
+            torch.cuda.empty_cache()
+    print(f"[compare] train_bwd worst gradient relative error "
+          f"{worst_rel:.3e}")
+    return errs
+
+
+def time_train(mlp, dev):
+    """Median ms of train_fwd and train_bwd (the rgb MSE cotangent, no
+    weights cotangent, as on the main path) and their plain versions at
+    the batch's R."""
+    times = {}
+    for S in (64, 128):
+        rays, z, noise, gt = mse_inputs(TRAIN_BATCH, S, dev, seed=5000 + S)
+        g8, _ = train_cotangent("rgb", *ft.fused_train_render_reference(
+            mlp, rays, z, noise, True), gt)
+        pairs = {
+            "train_fwd": (lambda: ft.train_forward(mlp, rays, z, noise, True),
+                          lambda: ft.fused_train_render_reference(
+                              mlp, rays, z, noise, True)),
+            "train_bwd": (lambda: ft.train_backward(mlp, rays, z, noise, True,
+                                                    g8, None),
+                          lambda: ft.fused_train_render_backward_reference(
+                              mlp, rays, z, noise, True, g8, None)),
+        }
+        for name, (kern, plain) in pairs.items():
+            t_k, t_p = median_ms(kern), median_ms(plain, reps=5, warmup=1)
+            times[(name, S)] = (t_k, t_p)
+            print(f"[time] {name} R={TRAIN_BATCH} S={S}: kernel {t_k:.3f} "
+                  f"ms, plain {t_p:.3f} ms ({t_p / t_k:.2f}x)")
+    return times
+
+
+def mlp_layers(full):
+    """(fan_in, fan_out, input is an embedding) of each product of one
+    point through the MLP, at the function's own widths: gamma(x) is 3 +
+    6 FX = 63 wide and gamma(d) 3 + 6 FD = 27 (the kernels' zero padding
+    of K is not work). The trunk with its skip (its x part a product of
+    its own) and the sigma head, and with `full` the feature, view (its
+    direction part apart) and rgb layers."""
+    kx, kd = 3 + 6 * fm.FX, 3 + 6 * fm.FD
+    layers = ([(kx, fm.W, True), (kx, fm.W, True)]
+              + [(fm.W, fm.W, False)] * (fm.D - 1) + [(fm.W, 1, False)])
+    if full:
+        layers += [(fm.W, fm.W, False), (fm.W, fm.WD, False),
+                   (kd, fm.WD, True), (fm.WD, 3, False)]
+    return layers
+
+
+def mlp_flops_per_point(full, backward=False):
+    """2 x the multiply-adds of one point through the MLP. A backward
+    recomputes the forward, forms every weight gradient, and forms the data
+    gradient of every product's input except the embeddings (layer 0's,
+    the skip's x part and the view layer's direction part need none)."""
+    layers = mlp_layers(full)
+    fwd = sum(k * n for k, n, _ in layers)
+    if not backward:
+        return 2 * fwd
+    data = sum(k * n for k, n, embedding in layers if not embedding)
+    return 2 * (fwd + data + fwd)
+
+
+def bound(name, shape, mlp):
+    """(least ms, what bounds it) of one call at `shape` ((R, S) rays and
+    samples, or P points): the larger of the bytes it must move (each
+    input read once, each output written once) over the HBM rate and its
+    bf16 operations over the tensor cores' dense peak
+    (mlp_flops_per_point). The element-wise work (bias adds, ReLUs, the
+    embeddings' sin/cos, the quadrature: a few thousand f32 operations a
+    point) runs beside the tensor cores, at under a tenth of this time at
+    the 67 TFLOP/s f32 rate."""
+    def wbytes(names):
+        return sum(mlp.kernel[n].numel() * mlp.kernel[n].element_size()
+                   for n in names)
+    full, trunk = wbytes(fm._FULL), wbytes(fm._FULL[:6])
+    grads = 4 * fm.GRAD_FLOATS
+    f_full, f_sig = mlp_flops_per_point(True), mlp_flops_per_point(False)
+    f_bwd = mlp_flops_per_point(True, backward=True)
+    if isinstance(shape, tuple):            # (R, S): rays and samples
+        R, S = shape
+        P, rays, ps = R * S, 32 * R, 4 * R * S
+        ops, nbytes = {   # inputs: rays, z (, noise, gt or g8); outputs
+            "sigma_render": (P * f_sig, rays + ps + trunk + ps + 4 * R),
+            "render_eval": (P * f_full, rays + ps + full + 20 * R),
+            "mse_render": (P * f_bwd, rays + 2 * ps + 12 * R + full
+                           + 32 * R + ps + grads),
+            "train_fwd": (P * f_full, rays + 2 * ps + full + 32 * R + ps),
+            "train_bwd": (P * f_bwd, rays + 2 * ps + 32 * R + full
+                          + grads),
+        }[name]
+    else:                                   # P points of 8 floats
+        P = shape
+        ops, nbytes = {
+            "mlp_fwd": (P * f_full, 64 * P + full + 32 * P),
+            "mlp_bwd": (P * f_bwd, 96 * P + full + grads),
+            "sigma_fwd": (P * f_sig, 32 * P + trunk + 4 * P),
+        }[name]
+    t_ops, t_bytes = ops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def validation_path(dev):
@@ -766,6 +985,14 @@ def main():
                            {"mlp_fwd": 2, "mlp_bwd": 2})
     launches["mlp_fwd"], launches["mlp_bwd"] = (counts["mlp_fwd"],
                                                 counts["mlp_bwd"])
+
+    errs.update(compare_train(mlp, dev))
+    times.update(time_train(mlp, dev))
+    counts, _ = train_path(dev, store, "fused_train",
+                           RenderConfig(**base, fused_train=True),
+                           {"train_fwd": 2, "train_bwd": 2})
+    launches["train_fwd"], launches["train_bwd"] = (counts["train_fwd"],
+                                                    counts["train_bwd"])
     del store
     torch.cuda.empty_cache()
     params, rays, _ = validation_path(dev)
@@ -774,15 +1001,29 @@ def main():
 
     fine_S = N_SAMPLES + N_IMPORTANCE
     times[("mse_render", fine_S)] = mse_times[fine_S]
-    main_shape = {"sigma_render": N_SAMPLES, "render_eval": fine_S,
-                  "mse_render": fine_S, "mlp_fwd": TRAIN_BATCH * fine_S,
+    main_shape = {"sigma_render": (CHUNK, N_SAMPLES),
+                  "render_eval": (CHUNK, fine_S),
+                  "mse_render": (TRAIN_BATCH, fine_S),
+                  "mlp_fwd": TRAIN_BATCH * fine_S,
                   "mlp_bwd": TRAIN_BATCH * fine_S,
-                  "sigma_fwd": CHUNK * N_SAMPLES}
-    kernels = [{"name": k, "route": "cuda", "source": src, "replaces": tpu,
-                "launches": launches[k], "max_abs_err": errs[k],
-                "ms": times[(k, main_shape[k])][0],
-                "plain_ms": times[(k, main_shape[k])][1]}
-               for k, (tpu, src) in KERNELS.items()]
+                  "sigma_fwd": CHUNK * N_SAMPLES,
+                  "train_fwd": (TRAIN_BATCH, fine_S),
+                  "train_bwd": (TRAIN_BATCH, fine_S)}
+    # the timings are keyed by S for a ray batch and by P for points
+    time_key = {k: v[1] if isinstance(v, tuple) else v
+                for k, v in main_shape.items()}
+    kernels = []
+    for k, (tpu, src) in KERNELS.items():
+        ms, plain_ms = times[(k, time_key[k])]
+        bound_ms, bound_by = bound(k, main_shape[k], mlp)
+        kernels.append({"name": k, "route": "cuda", "source": src,
+                        "replaces": tpu, "launches": launches[k],
+                        "max_abs_err": errs[k], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
+        print(f"[bound] {k} at {main_shape[k]}: {ms:.3f} ms against a "
+              f"bound of {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of the bound's rate")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -26,8 +26,8 @@
 // (The JAX wrapper pads P to its tile with zero points instead and slices
 // them off, so their cotangents are zero there too.)
 //
-// What bounds them: tensor-core work, 1.21 MFLOP per point forward (1.0
-// for sigma only) and 3x that for the backward. Device memory sees the
+// What bounds them: tensor-core work, 1.19 MFLOP per point forward (0.98
+// for sigma only) and 2.94x that for the backward. Device memory sees the
 // points and outputs (~32 bytes a point each way) and, for mlp_bwd, ~10 KB
 // of bf16 scratch per point, written by A' and read by B, as in
 // mse_render.

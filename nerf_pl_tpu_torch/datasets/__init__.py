@@ -1,2 +1,9 @@
-"""Camera geometry in torch. The dataset classes are shared with the JAX
-package (nerf_pl_tpu.datasets, numpy + PIL)."""
+"""Datasets: the port's own copies of the JAX package's numpy dataset classes
+(blender, llff and their ray, pose and depth utilities; PIL only where an
+image is read) and camera rays in torch (`rays`)."""
+from .blender import BlenderDataset
+from .llff import LLFFDataset
+
+dataset_dict = {"blender": BlenderDataset, "llff": LLFFDataset}
+
+__all__ = ["BlenderDataset", "LLFFDataset", "dataset_dict"]

@@ -3,8 +3,8 @@
 Counterpart of `get_ray_directions` / `get_rays` in
 nerf_pl_tpu/datasets/ray_utils.py (OpenGL camera looking down -z, no +0.5
 pixel centering) and of `look_at_pose` in nerf_pl_tpu/utils/synthetic.py.
-The dataset classes stay shared with the JAX package; this module lets a
-caller build cameras without them (they import PIL).
+The dataset classes (`blender`, `llff`) build their rays in numpy; this
+module lets a caller build cameras on the device without them.
 """
 from __future__ import annotations
 

@@ -4,18 +4,18 @@ CLIs:
 
     python -m nerf_pl_tpu_torch.datasets.synthetic DIR
 
-The generator is the host code both packages share,
-`nerf_pl_tpu.utils.synthetic` (numpy and PIL, no jax), imported when the
-scene is written.
+The generator is the port's copy of the JAX package's,
+`nerf_pl_tpu_torch.utils.synthetic` (numpy; PIL to write the PNGs).
 """
 import argparse
+
+from ..utils.synthetic import make_blender_scene
 
 
 def main(argv=None) -> str:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("root", help="directory to write the scene into")
     args = parser.parse_args(argv)
-    from nerf_pl_tpu.utils.synthetic import make_blender_scene
     root = make_blender_scene(args.root, n_train=12, n_val=2, n_test=2,
                               wh=(40, 40))
     print(root)

@@ -14,8 +14,8 @@ Flags of later slices are rejected: the occupancy-culled renderer
 (--num_chips > 1, ROADMAP item A10). --compile_cache is accepted and does
 nothing: PyTorch runs eagerly and the kernels are cached under build/.
 
-The dataset classes are the JAX package's (numpy + PIL, no jax), imported
-inside main().
+The dataset classes are the port's copies of the JAX package's (numpy;
+PIL where an image is read).
 """
 import json
 import os
@@ -24,6 +24,8 @@ from argparse import ArgumentParser
 
 import numpy as np
 import torch
+
+from .config import COMPILE_CACHE_DEFAULT
 
 OCC_FLAGS = ("occ_grid", "occ_threshold", "occ_mode", "occ_range", "occ_N",
              "occ_tighten", "occ_budgets", "occ_segments", "occ_bucket_fracs",
@@ -104,8 +106,8 @@ def build_parser() -> ArgumentParser:
                         help='also save ground-truth PNGs (gt_###.png)')
     parser.add_argument('--frames_per_dispatch', type=int, default=4,
                         help='frames whose rays are rendered in one call')
-    from nerf_pl_tpu.utils.compile_cache import DEFAULT_DIR
-    parser.add_argument('--compile_cache', type=str, default=DEFAULT_DIR,
+    parser.add_argument('--compile_cache', type=str,
+                        default=COMPILE_CACHE_DEFAULT,
                         help='accepted for flag parity; does nothing here')
     return parser
 
@@ -139,9 +141,8 @@ def save_gif(path, frames, fps=30):
 def main(argv=None, device=None):
     from PIL import Image
 
-    from nerf_pl_tpu.datasets import dataset_dict
-    from nerf_pl_tpu.datasets.depth_utils import save_pfm
-
+    from .datasets import dataset_dict
+    from .datasets.depth_utils import save_pfm
     from .device import resolve_device
     from .models import init_nerf_params
     from .parallel import make_render_fn

@@ -111,6 +111,16 @@ def load_library() -> ctypes.CDLL:
     lib.nerf_mse_render.argtypes = [ptr] * 4 + [i32, i32] + [ptr] * 16 + \
         [i32, ctypes.c_float] + [ptr] * 5
     lib.nerf_mse_render.restype = i32
+    # rays, z, noise, R, S, 13 weight buffers, white_back, out8, weights,
+    # stream
+    lib.nerf_train_fwd.argtypes = [ptr] * 3 + [i32, i32] + [ptr] * 13 + \
+        [i32] + [ptr] * 3
+    lib.nerf_train_fwd.restype = i32
+    # rays, z, noise, g8, gw (null: zero), R, S, 13 weight buffers + 3
+    # transposed, white_back, workspace, grad, stream
+    lib.nerf_train_bwd.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 16 + \
+        [i32] + [ptr] * 3
+    lib.nerf_train_bwd.restype = i32
     # p8, d8, P, 13 weight buffers, out8, stream
     lib.nerf_mlp_fwd.argtypes = [ptr, ptr, i32] + [ptr] * 13 + [ptr, ptr]
     lib.nerf_mlp_fwd.restype = i32

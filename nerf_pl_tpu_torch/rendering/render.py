@@ -10,11 +10,13 @@ Port of nerf_pl_tpu/rendering/render.py:
     a GPU, differentiable by autograd; `nerf_sigma_fused` for a sigma-only
     test-time coarse pass); without it, embed + `nerf_apply`, plain
     PyTorch, the reference for the training step as a whole;
+  * train time with `cfg.fused_train`: one `fused_train_render` per pass
+    (its forward kernel on a GPU, and its backward kernel when autograd
+    differentiates the step), for any loss;
   * `fused_mse_train_step`: the loss-fused training step, one
     `fused_mse_render` (the training kernel on a GPU) per pass, gradients
     out of the kernel instead of autograd.
-Still raising NotImplementedError, with their ROADMAP items: the two-kernel
-`fused_train_render` (`fused_train` in `render_rays`: B6) and occupancy
+Still raising NotImplementedError, with its ROADMAP item: occupancy
 placement (`occm`: A5).
 
 torch cannot reproduce JAX's random streams, so where JAX splits a key
@@ -34,9 +36,10 @@ import torch
 
 from ..models.embedding import EmbeddingConfig, embed
 from ..models.nerf import NeRFConfig, nerf_apply
-from ..ops.fused_mlp import nerf_apply_fused, nerf_sigma_fused, unpack_grads
+from ..ops.fused_mlp import (nerf_apply_fused, nerf_sigma_fused, pack_params,
+                             unpack_grads)
 from ..ops.fused_render import fused_render_eval, fused_sigma_render
-from ..ops.fused_train import fused_mse_render
+from ..ops.fused_train import fused_mse_render, fused_train_render
 from ..ops.sample_pdf import sample_pdf
 
 
@@ -127,15 +130,6 @@ def _check_occm(occm):
             "yet: ROADMAP item A5")
 
 
-def _check_ported(cfg: RenderConfig, occm=None):
-    _check_occm(occm)
-    if cfg.fused_train and not cfg.test_time:
-        raise NotImplementedError(
-            "fused_train renders through fused_train_render, whose two "
-            "kernels are not ported yet: ROADMAP item B6 (the loss-fused "
-            "step, fused_mse_train_step, is)")
-
-
 def coarse_z_vals(rays: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     """(R, N_samples) stratified depths, linear in depth or disparity."""
     near, far = rays[:, 6:7], rays[:, 7:8]
@@ -216,7 +210,7 @@ def render_rays(params: Mapping[str, Any],
     keyed like the JAX package. Differentiable in dict params, except
     through the test-time render kernels and the sigma-only fused pass.
     """
-    _check_ported(cfg, occm)
+    _check_occm(occm)
     rng = functools.partial((draws or TrainDraws()).take,
                             generator=generator, device=rays.device)
     z_vals = coarse_z_vals(rays, cfg)
@@ -239,6 +233,9 @@ def render_rays(params: Mapping[str, Any],
             result["depth_fine"] = fine["depth"]
             result["opacity_fine"] = fine["opacity"]
         return result
+
+    if cfg.fused_train and not cfg.test_time:
+        return _render_fused_train(params, rays, z_vals, cfg, rng)
 
     def noise(name, shape):
         if cfg.noise_std > 0:
@@ -274,6 +271,40 @@ def render_rays(params: Mapping[str, Any],
     return result
 
 
+def _kernel_noise(cfg: RenderConfig, rng, name: str, shape, device):
+    """The sigma noise of one training-kernel pass: zeros when noise_std
+    is 0 (the kernels always add it)."""
+    if cfg.noise_std > 0:
+        return (cfg.noise_std * rng(name, shape)).contiguous()
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def _render_fused_train(params, rays, z_vals, cfg: RenderConfig, rng):
+    """Both passes through `fused_train_render` (the JAX render_rays'
+    fused_train branch): one forward kernel per pass, and its backward when
+    autograd differentiates the result. The fine depths follow the detached
+    coarse weights."""
+    def noise(name, shape):
+        return _kernel_noise(cfg, rng, name, shape, rays.device)
+
+    out_c, weights_c = fused_train_render(
+        pack_params(params["nerf_coarse"]), rays, z_vals,
+        noise("noise_coarse", z_vals.shape), cfg.white_back)
+    result = {"rgb_coarse": out_c[:, 0:3], "depth_coarse": out_c[:, 3],
+              "opacity_coarse": out_c[:, 4]}
+    if cfg.N_importance > 0:
+        u = (rng("u", (rays.shape[0], cfg.N_importance))
+             if cfg.perturb > 0 else None)
+        z_all = _fine_z_vals(z_vals, weights_c, cfg, u).contiguous()
+        out_f, _ = fused_train_render(
+            pack_params(params["nerf_fine"]), rays, z_all,
+            noise("noise_fine", z_all.shape), cfg.white_back)
+        result["rgb_fine"] = out_f[:, 0:3]
+        result["depth_fine"] = out_f[:, 3]
+        result["opacity_fine"] = out_f[:, 4]
+    return result
+
+
 def fused_mse_train_step(params: Mapping[str, Any],
                          rays: torch.Tensor,
                          rgbs: torch.Tensor,
@@ -306,9 +337,7 @@ def fused_mse_train_step(params: Mapping[str, Any],
     z_vals = z_vals.contiguous()
 
     def noise(name, shape):
-        if cfg.noise_std > 0:
-            return (cfg.noise_std * rng(name, shape)).contiguous()
-        return torch.zeros(shape, dtype=torch.float32, device=rays.device)
+        return _kernel_noise(cfg, rng, name, shape, rays.device)
 
     scale = 1.0 / (global_batch * 3)
     out_c, weights_c, g_c = fused_mse_render(

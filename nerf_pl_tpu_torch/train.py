@@ -6,8 +6,8 @@
         --decay_step 2 4 8 --decay_gamma 0.5 --exp_name exp
 
 Port of the repository's train.py: the same flags and defaults (parsed by
-the JAX package's shared parser, `nerf_pl_tpu.config`, which imports no
-jax), writing `ckpts/<exp>/epoch=*.ckpt`, `last.ckpt` and `topk.json` in
+the port's copy of the JAX package's parser, `nerf_pl_tpu_torch.config`),
+writing `ckpts/<exp>/epoch=*.ckpt`, `last.ckpt` and `topk.json` in
 the format both packages load, and resuming from either package's
 checkpoints (--ckpt_path). `--fused_train` takes the loss-fused training
 kernel; without it the step runs autograd over the render, through the
@@ -21,15 +21,14 @@ tensorboardX; without it the CLI says so and trains without logs.
 
 Flags of later slices are rejected, naming their ROADMAP item: --occ_* (A5),
 --num_gpus > 1 (A10), --optimizer radam|ranger (A4) and --precision
-bfloat16 with the fused kernels (bf16 master weights, A4). The datasets
-need PIL.
+bfloat16 with the fused kernels (bf16 master weights, A4). Reading the
+datasets' images needs PIL.
 """
 import sys
 
 
 def main(argv=None, device=None):
-    from nerf_pl_tpu.config import get_opts
-
+    from .config import get_opts
     from .training.system import NeRFSystem, unported
 
     argv = sys.argv[1:] if argv is None else list(argv)

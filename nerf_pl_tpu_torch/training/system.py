@@ -3,8 +3,9 @@
 Port of nerf_pl_tpu/training/system.py: dataset preparation, the trainer,
 the epoch loop (segments of --scan_steps steps), full-image validation
 with TensorBoard panels, top-k checkpointing, `last.ckpt` and resume, in
-checkpoints both packages load. The dataset classes are the JAX package's
-(numpy and PIL, no jax), imported in prepare_data(). Occupancy tightening
+checkpoints both packages load. The dataset classes, the flag checks and
+the host utilities are the port's copies of the JAX package's
+(`datasets/`, `config.py`, `utils/`). Occupancy tightening
 (`_occ_tighten`, --occ_*) is ROADMAP item A5.
 
 Validation renders clean (no jitter or noise) full images through
@@ -21,10 +22,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..config import validate_hparams
+from ..datasets import dataset_dict
 from ..device import resolve_device
 from ..parallel.render import make_render_fn
 from ..parallel.spmd import Trainer, seed_for
 from ..rendering.render import ModelConfig, RenderConfig
+from ..utils.profiling import PhaseTimer
+from ..utils.visualization import visualize_depth
 from .checkpoints import (TopKCheckpoints, load_checkpoint, load_ckpt,
                           save_checkpoint)
 from .losses import loss_dict
@@ -63,7 +68,6 @@ class NeRFSystem:
 
     # ----------------------------------------------------------------- data
     def prepare_data(self):
-        from nerf_pl_tpu.datasets import dataset_dict
         hp = self.hparams
         dataset = dataset_dict[hp.dataset_name]
         kwargs = {"root_dir": hp.root_dir, "img_wh": tuple(hp.img_wh)}
@@ -75,7 +79,6 @@ class NeRFSystem:
 
     # ---------------------------------------------------------------- setup
     def setup(self):
-        from nerf_pl_tpu.config import validate_hparams
         hp = validate_hparams(self.hparams)
         why = unported(hp)
         if why:
@@ -144,7 +147,6 @@ class NeRFSystem:
     # ------------------------------------------------------------- validate
     def validate(self, global_step: int, max_items: Optional[int] = None
                  ) -> Dict[str, float]:
-        from nerf_pl_tpu.utils.visualization import visualize_depth
         hp = self.hparams
         W, H = hp.img_wh
         render = make_render_fn(self.rcfg_val, min(hp.val_chunk, hp.chunk),
@@ -182,7 +184,6 @@ class NeRFSystem:
 
     # ------------------------------------------------------------------ fit
     def fit(self) -> Dict[str, float]:
-        from nerf_pl_tpu.utils.profiling import PhaseTimer
         hp = self.hparams
         timer = self.timer = PhaseTimer()
         with timer.phase("prepare_data"):

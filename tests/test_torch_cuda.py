@@ -8,8 +8,9 @@ does: the machine with the card has no jax.
 Tolerances are the JAX kernels' test bars: weights 5e-3, rgb and opacity
 1e-2, depth 5e-2 (bf16 operands; the kernel and the plain version sum in
 different orders, and a bf16 rounding of an activation can flip). The
-training kernels' gradients are held per leaf to a relative max error
-(max |kernel - plain| / max |plain|) of GRAD_TOL = 0.03, the bar of
+training kernels' gradients (mse_render, train_bwd, mlp_bwd) are held
+per leaf to a relative max error (max |kernel - plain| / max |plain|) of
+GRAD_TOL = 0.03, the bar of
 tests/test_fused_train.py::TestGradientParity: a flipped bf16 rounding or
 ReLU mask of one activation moves every product downstream of it. The
 point-MLP forward kernels hold rgb to 5e-3 (TestFusedForward's bar) and
@@ -233,7 +234,8 @@ def test_mlp_bwd_is_deterministic(dev):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kernel", ["mlp_fwd", "sigma_fwd", "mlp_bwd"])
+@pytest.mark.parametrize("kernel", ["mlp_fwd", "sigma_fwd", "mlp_bwd",
+                                    "train_fwd", "train_bwd"])
 def test_failed_launch_raises_without_fallback(dev, kernel, monkeypatch):
     """A launch that returns a CUDA error raises; the plain version is
     never run in its place and the count does not move."""
@@ -242,7 +244,8 @@ def test_failed_launch_raises_without_fallback(dev, kernel, monkeypatch):
 
     class FailingLib:
         def __getattr__(self, name):
-            if name in ("nerf_mlp_fwd", "nerf_sigma_fwd", "nerf_mlp_bwd"):
+            if name in ("nerf_mlp_fwd", "nerf_sigma_fwd", "nerf_mlp_bwd",
+                        "nerf_train_fwd", "nerf_train_bwd"):
                 return lambda *a: 700          # cudaErrorIllegalAddress
             return getattr(real, name)
 
@@ -250,19 +253,124 @@ def test_failed_launch_raises_without_fallback(dev, kernel, monkeypatch):
         raise AssertionError("plain version run for a CUDA tensor")
 
     monkeypatch.setattr(_build, "load_library", lambda: FailingLib())
-    monkeypatch.setattr(fm, "_checked_library", lambda: FailingLib())
-    for name in ("mlp_forward_reference", "sigma_forward_reference",
-                 "mlp_backward_reference"):
-        monkeypatch.setattr(fm, name, no_plain)
+    for mod in (fm, ft):
+        monkeypatch.setattr(mod, "_checked_library", lambda: FailingLib())
+    for mod, name in ((fm, "mlp_forward_reference"),
+                      (fm, "sigma_forward_reference"),
+                      (fm, "mlp_backward_reference"),
+                      (ft, "fused_train_render_reference"),
+                      (ft, "fused_train_render_backward_reference")):
+        monkeypatch.setattr(mod, name, no_plain)
     mlp = fm.pack_mlp(dense_params(0, dev), dev)
     x8, d8, cot = _point_inputs(64, dev, seed=0)
+    rays, z, noise, _ = _mse_inputs(8, 64, dev)
+    mod = ft if kernel.startswith("train") else fm
     count = f"{kernel}_launches"
-    before = getattr(fm, count)
+    before = getattr(mod, count)
     with pytest.raises(RuntimeError, match=f"{kernel} kernel launch failed"):
         if kernel == "mlp_fwd":
             fm.mlp_forward(mlp, x8, d8)
         elif kernel == "sigma_fwd":
             fm.sigma_forward(mlp, x8)
-        else:
+        elif kernel == "mlp_bwd":
             fm.mlp_backward(mlp, x8, d8, cot)
-    assert getattr(fm, count) == before
+        elif kernel == "train_fwd":
+            ft.train_forward(mlp, rays, z, noise, True)
+        else:
+            ft.train_backward(mlp, rays, z, noise, True,
+                              torch.zeros((8, 8), device=dev), None)
+    assert getattr(mod, count) == before
+
+
+# (cotangent mix, white background), as chip_smoke.py's TRAIN_MIXES
+_TRAIN_MIXES = (("rgb", True), ("depth_opacity", False), ("weights", False),
+                ("all", True))
+
+
+def _train_cotangent(mix, out8, w, gt):
+    """(g8, gw) of a mean loss over the batch: the rgb MSE, depth^2 + 0.3
+    opacity, mean(weights^2), or "all", their sum."""
+    R, S = w.shape
+    g8, gw = torch.zeros_like(out8), None
+    if mix in ("rgb", "all"):
+        g8[:, 0:3] = 2.0 * (out8[:, 0:3] - gt) / (R * 3)
+    if mix in ("depth_opacity", "all"):
+        g8[:, 3] = 2.0 * out8[:, 3] / R
+        g8[:, 4] = 0.3 / R
+    if mix in ("weights", "all"):
+        gw = 2.0 * w / (R * S)
+    return g8, gw
+
+
+@pytest.mark.parametrize("R", [8, 37, 1024, 4104])
+@pytest.mark.parametrize("S", [64, 128, 192])
+@pytest.mark.parametrize("weights", ["dense", "init"])
+def test_train_render_kernels_match_plain(dev, R, S, weights):
+    """train_fwd and train_bwd against their plain versions, the backward
+    under four cotangent mixes (rgb MSE on a white background, depth and
+    opacity, the weights, those two on black, and all three terms together
+    on white, so that a given depth, opacity and weights cotangent meets
+    the white background's term of a_k)."""
+    params = (dense_params(0, dev) if weights == "dense" else
+              init_nerf_params(torch.Generator().manual_seed(5), device=dev))
+    mlp = fm.pack_mlp(params, dev)
+    rays, z, noise, gt = _mse_inputs(R, S, dev, seed=R + S)
+    for mix, white in _TRAIN_MIXES:
+        n0 = (ft.train_fwd_launches, ft.train_bwd_launches)
+        out8, w = ft.train_forward(mlp, rays, z, noise, white)
+        ref8, ref_w = ft.fused_train_render_reference(mlp, rays, z, noise,
+                                                      white)
+        g8, gw = _train_cotangent(mix, ref8, ref_w, gt)
+        grads = ft.train_backward(mlp, rays, z, noise, white, g8, gw)
+        assert (ft.train_fwd_launches, ft.train_bwd_launches) == \
+            (n0[0] + 1, n0[1] + 1)
+        ref_g = ft.fused_train_render_backward_reference(
+            mlp, rays, z, noise, white, g8, gw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out8).all() and not out8[:, 5:].any()
+        assert max_err(w, ref_w) <= TOL["weights"]
+        for k, cols in (("rgb", slice(0, 3)), ("depth", slice(3, 4)),
+                        ("opacity", slice(4, 5))):
+            assert max_err(out8[:, cols], ref8[:, cols]) <= TOL[k], (mix, k)
+        for i, (a, b) in enumerate(zip(grads, ref_g)):
+            assert a.shape == b.shape and torch.isfinite(a).all(), (mix, i)
+            if b.abs().max() > 0:
+                assert _rel(a, b) <= GRAD_TOL, (mix, i, _rel(a, b))
+            else:
+                assert not a.any(), (mix, i)
+
+
+def test_train_render_kernels_are_deterministic(dev):
+    mlp = fm.pack_mlp(dense_params(1, dev), dev)
+    rays, z, noise, gt = _mse_inputs(1032, 128, dev, seed=3)
+    fwd = [ft.train_forward(mlp, rays, z, noise, False) for _ in range(2)]
+    g8, gw = _train_cotangent("weights", *fwd[0], gt)
+    g8[:, 3] = 1e-3
+    bwd = [ft.train_backward(mlp, rays, z, noise, False, g8, gw)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(fwd[0] + bwd[0], fwd[1] + bwd[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("R,S", [(8, 64), (1032, 128), (37, 192)])
+def test_train_bwd_matches_mse_render(dev, R, S):
+    """train_bwd with the MSE cotangent 2 scale (rgb - gt) gives
+    mse_render's gradients within 1e-3 relative per leaf; train_fwd gives
+    its out8 and weights."""
+    mlp = fm.pack_mlp(dense_params(0, dev), dev)
+    rays, z, noise, gt = _mse_inputs(R, S, dev, seed=S)
+    scale = 1.0 / (R * 3)
+    out8, w, ref_g = ft.fused_mse_render(mlp, rays, z, noise, gt, True,
+                                         scale)
+    f8, fw = ft.train_forward(mlp, rays, z, noise, True)
+    g8 = torch.zeros_like(out8)
+    g8[:, 0:3] = 2.0 * scale * (out8[:, 0:3] - gt)
+    grads = ft.train_backward(mlp, rays, z, noise, True, g8, None)
+    torch.cuda.synchronize()
+    assert max_err(f8, out8) <= 1e-6 and max_err(fw, w) <= 1e-6
+    for i, (a, b) in enumerate(zip(grads, ref_g)):
+        if b.abs().max() > 0:
+            assert _rel(a, b) <= 1e-3, (i, _rel(a, b))
+        else:
+            assert not a.any(), i

@@ -175,7 +175,12 @@ def test_render_rays_fused_train_time_matches_jax(params):
 
 @pytest.mark.parametrize("change", [dict(test_time=False, fused_train=True)])
 def test_unported_configs_raise(params, change):
-    """The branch of a later slice: fused_train_render (B6)."""
+    """What a later slice ports: occupancy placement of the coarse samples
+    (an occm mask, ROADMAP A5) raises before anything renders, here on the
+    fused_train branch, which renders since fused_train_render was
+    ported."""
     cfg = RenderConfig(**{**dict(N_samples=8, test_time=True), **change})
+    occm = torch.full((2,), 0xFFFF, dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_rays(_torch_params(params), torch.from_numpy(_rays(2)), cfg)
+        render_rays(_torch_params(params), torch.from_numpy(_rays(2)), cfg,
+                    occm=occm)

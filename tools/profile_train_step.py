@@ -3,13 +3,15 @@
 
     python tools/profile_train_step.py [K]
 
-Two Trainers at the dense bench config (64 + 64 samples, batch 1024,
+Three Trainers at the dense bench config (64 + 64 samples, batch 1024,
 perturb 1, noise 1, white background, Adam 5e-4, steplr [2, 4, 8] x 0.5)
-on a random 1 M-ray store, one on the loss-fused path (`--fused_train`:
-mse_render) and one on `--fused_mlp` alone (autograd through mlp_fwd and
-mlp_bwd). After 30 warm-up steps each, 100 unprofiled steps per path in
-the order loss-fused, fused_mlp, fused_mlp, loss-fused, each timed on the
-host clock between two syncs on a parameter (ms/step, rays/s). Then
+on a random 1 M-ray store, one per training path: loss-fused
+(`--fused_train`: mse_render), `--fused_mlp` alone (autograd through
+mlp_fwd and mlp_bwd) and fused_train without the loss-fused step (autograd
+through fused_train_render: train_fwd and train_bwd). After 30 warm-up
+steps each, 100 unprofiled steps per path in the order loss-fused,
+fused_mlp, fused_train, fused_train, fused_mlp, loss-fused, each timed on
+the host clock between two syncs on a parameter (ms/step, rays/s). Then
 torch.profiler over K steps (default 20) of each path: device time per
 step summed over device-side events only (a kernel also appears under the
 aten op that launched it, which is not counted), device events per step,
@@ -37,7 +39,9 @@ BATCH, STEPS = 1024, 100
 GROUPS = (   # substring of the kernel's name: the launch it belongs to
     ("point_fwd_kernel", "mlp_fwd (point_fwd_kernel<true>)"),
     ("mlp_bwd_kernel", "mlp_bwd A' (mlp_bwd_kernel)"),
-    ("mse_fwdbwd_kernel", "mse_render A (mse_fwdbwd_kernel)"),
+    ("fwdbwd_kernel<false>", "mse_render A (fwdbwd_kernel<false>)"),
+    ("fwdbwd_kernel<true>", "train_bwd A (fwdbwd_kernel<true>)"),
+    ("train_fwd_kernel", "train_fwd (train_fwd_kernel)"),
     ("wgrad_kernel", "B (wgrad_kernel)"),
     ("sum_slots", "C (sum_slots)"),
 )
@@ -52,7 +56,8 @@ def make_trainers(dev):
                 white_back=True)
     cfgs = {"loss-fused": RenderConfig(**base, fused_train=True,
                                        fused_loss=True),
-            "fused_mlp": RenderConfig(**base, fused=True)}
+            "fused_mlp": RenderConfig(**base, fused=True),
+            "fused_train": RenderConfig(**base, fused_train=True)}
     rng = np.random.default_rng(0)
     n = 1 << 20
     o = rng.normal(size=(n, 3)).astype(np.float32)
@@ -92,7 +97,8 @@ def main(argv=None):
     trainers = make_trainers(dev)
 
     wall = {name: [] for name in trainers}
-    for name in ("loss-fused", "fused_mlp", "fused_mlp", "loss-fused"):
+    for name in ("loss-fused", "fused_mlp", "fused_train", "fused_train",
+                 "fused_mlp", "loss-fused"):
         tr, state = trainers[name]
         sync(state)
         t0 = time.perf_counter()
