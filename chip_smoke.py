@@ -71,9 +71,10 @@
    within GRAD_TOL under four cotangent mixes (the rgb MSE on a white
    background, depth^2 + 0.3 opacity and mean(weights^2) on black, and
    the sum of the three on white), two launches of each bit-identical,
-   train_fwd's out8 and weights equal to mse_render's bit for bit, and
-   train_bwd on the MSE cotangent within 1e-3 relative of mse_render's
-   gradients. Times both and their
+   train_fwd's out8 and weights within TOL of mse_render's (train_fwd
+   keeps the WMMA forward, mse_render's runs on wgmma), and train_bwd on
+   the MSE cotangent within 1e-3 relative of mse_render's gradients (the
+   same launch A; printed whether bit for bit). Times both and their
    plain versions at R = 1024, S = 64 and 128. Then a Trainer at the dense
    bench config with RenderConfig(fused_train=True) fits the store of 4
    for the same 350 steps: exactly 2 train_fwd and 2 train_bwd launches
@@ -712,16 +713,25 @@ def compare_train(mlp, dev):
             t_g = ft.train_backward(mlp, rays, z, noise, True, g8, None)
             torch.cuda.synchronize()
             rel = max(rel_errs(t_g, m_g))
-            same = torch.equal(f8, m8) and torch.equal(f_w, m_w)
+            bitwise = all(torch.equal(a, b) for a, b in zip(t_g, m_g))
+            # train_fwd keeps the WMMA forward, mse_render's forward runs
+            # on wgmma and sums in another order: held at the kernels'
+            # bars, no longer bit for bit
+            fwd = {"rgb": max_err(f8[:, 0:3], m8[:, 0:3]),
+                   "depth": max_err(f8[:, 3], m8[:, 3]),
+                   "opacity": max_err(f8[:, 4], m8[:, 4]),
+                   "weights": max_err(f_w, m_w)}
             print(f"[compare] train_bwd vs mse_render R={R} S={S}: grad rel "
-                  f"max {rel:.3e} (tol {MSE_VS_TRAIN_TOL}); train_fwd out8 "
-                  f"and weights bit-identical to mse_render's: {same}")
+                  f"max {rel:.3e} (tol {MSE_VS_TRAIN_TOL}), bit-identical: "
+                  f"{bitwise}; train_fwd vs mse_render's forward: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in fwd.items()))
             if not rel <= MSE_VS_TRAIN_TOL:
                 raise AssertionError(f"train_bwd vs mse_render R={R} S={S}:"
                                      f" {rel}")
-            if not same:
-                raise AssertionError(f"train_fwd R={R} S={S}: out8 or "
-                                     f"weights differ from mse_render's")
+            for k, v in fwd.items():
+                if not v <= TOL[k]:
+                    raise AssertionError(f"train_fwd R={R} S={S}: {k} "
+                                         f"{v} from mse_render's")
             del rays, z, noise, gt, f1, f2, b1, b2, ref_g, m_g, t_g
             torch.cuda.empty_cache()
     print(f"[compare] train_bwd worst gradient relative error "

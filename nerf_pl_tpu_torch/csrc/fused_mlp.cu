@@ -205,10 +205,13 @@ int nerf_mlp_bwd(const void* p8, const void* d8, const void* g8, int P,
       mlp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L.total));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_bwd_kernel<<<wsp.grid_a, NTHREADS, L.total, st>>>(a);
+  ScratchMaps maps;
+  if (!scratch_maps(a.s, &maps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  mlp_bwd_kernel<<<wsp.bias_rows, NTHREADS, L.total, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_weight_grads(
-      a.s, wsp, base, a.bias_part, static_cast<float*>(grad), st));
+      maps, wsp, base, a.bias_part, static_cast<float*>(grad), st));
 }
 
 }  // extern "C"

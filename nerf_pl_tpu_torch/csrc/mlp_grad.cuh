@@ -1,22 +1,23 @@
-// The weight-gradient backward of the NeRF point MLP, shared by the two
-// training kernels (fused_train.cu's mse_render and fused_mlp.cu's mlp_bwd).
+// The weight-gradient backward of the NeRF point MLP, shared by the
+// training kernels (fused_train.cu's mse_render and train_bwd, fused_mlp.cu's
+// mlp_bwd).
 //
-// Both start from per-point cotangents of the MLP's heads (the rgb head's
+// All start from per-point cotangents of the MLP's heads (the rgb head's
 // pre-activation and raw sigma) and a forward that kept every bf16
-// activation of its points in a global scratch (nerf_mlp.cuh's KEEP sink).
-// What they share:
+// activation of its points in a global scratch. What they share:
 //
-//   backward_from_heads  per tile of TP points, the data-gradient chain
-//                        dz_i = mask_i (dz_{i+1} @ W_i^T) on the tensor cores
+//   backward_from_heads  mlp_bwd's data-gradient chain, per tile of TP
+//                        points: dz_i = mask_i (dz_{i+1} @ W_i^T) on WMMA
 //                        (transposed weights streamed like the forward's),
 //                        each dz_i stored as bf16 (exactly what the TPU's
 //                        _dot_t casts) and its f32 column sums added to the
-//                        block's own row of bias partials;
-//   launch B  wgrad      every dW = act^T dz, K = points, as a split-K WMMA
-//                        product: 64 x 64 output tiles, the points in fixed
-//                        chunks, each chunk into its own partial slot;
-//   launch C  sum_slots  the slots, then the blocks' bias partials, summed in
-//                        a fixed order.
+//                        block's own row of bias partials (fused_train.cu's
+//                        launch A has its own chain on wgmma);
+//   the scratch layout and its TMA maps;
+//   launch B  wgrad      every dW = act^T dz, K = points, as a split-K
+//                        wgmma product (see "weight gradients" below);
+//   launch C  sum_slots  the slots, then the rows of bias partials, each
+//             sum_rows   summed in a fixed order.
 //
 // No float atomics: two launches on the same inputs give bit-identical
 // gradients. The gradient buffer is the weight gradients in the kernels'
@@ -28,6 +29,9 @@
 
 #include <cuda_runtime.h>
 
+#include <initializer_list>
+
+#include "hopper.cuh"
 #include "nerf_mlp.cuh"
 
 namespace nerf {
@@ -196,98 +200,150 @@ inline __device__ void backward_from_heads(const GradArgs& a, const Smem& sm,
 }
 
 // ------------------------------------------------------ weight gradients --
+//
+// Launch B replaces the weight-gradient half of _mlp_grads
+// (nerf_pl_tpu/ops/fused_mlp.py), reached from _mse_fwdbwd_kernel and
+// _train_bwd_kernel (ops/fused_train.py) and _bwd_kernel (fused_mlp.py),
+// which keep 2.4 MB of f32 gradients in VMEM across a sequential grid.
+// Here every dW = act^T dz (K = points) is a split-K product into fixed
+// slots, summed in order by launch C.
+//
+// What bounds it: it reads the whole scratch once (~10 KB a point, 1.3 GB
+// at P = 131,072: 0.39 ms at 3.35 TB/s) and does 1.19 MFLOP a point (0.16
+// ms at 989 TFLOP/s), so bytes. The design keeps the tensor cores fed and
+// the scratch read once from device memory:
+//   - an output tile of 128 x 256 (two consumer warpgroups of m64n256, the
+//     accumulators in registers); the 14 products make 24 tiles;
+//   - points in stages of GK = 64 through a ring of GSTAGES TMA stages
+//     filled by one producer warp, with full / empty mbarriers;
+//   - both operands are point-major in the scratch, so A = act^T and B =
+//     dz are read MN-major through wgmma's transpose flags, not copied;
+//   - ragged P and the narrow products (M = 80 and 48 for the embeddings,
+//     N = 16 for the heads' dzr block, N = 128 for the view layer) rely on
+//     TMA's zero fill out of bounds: a tile computes zeros there and
+//     stores only the job's block;
+//   - nchunk = WAVE / 24 = 5 slots of at least 1024 points, so that the
+//     grid is one wave of at most WAVE = 132 blocks (the H100's SMs);
+//     blocks of one chunk run side by side and share each dz and act
+//     stage through L2.
+
+// The scratch matrices as TMA maps (boxes of 64 points x 64 columns).
+enum ScratchMap { MAP_X, MAP_D, MAP_ACT, MAP_HD, MAP_DZ, MAP_DZD, MAP_DZR,
+                  N_SCRATCH_MAPS };
+struct ScratchMaps {
+  CUtensorMap m[N_SCRATCH_MAPS];
+};
 
 struct GJob {
-  const bf16* A;    // (P, M) activations
-  const bf16* B;    // (P, N) cotangents
-  int M, N, off;    // out block (M, N) at `off` of a slot
-  int tiles_n, tile0;
+  int amap, alayer;   // act side: map and layer (point-major, M wide)
+  int bmap, blayer;   // cotangent side (point-major, N wide)
+  int M, N, off;      // out block (M, N) at `off` of a slot
+  int tile0;          // first tile of this job
 };
 struct GJobs {
   GJob j[NJOBS];
+  int ntiles;
 };
 
-constexpr int GT = 64;          // output tile
-constexpr int GK = 32;          // points per shared-memory stage
-constexpr int GLD = GT + 8;
+constexpr int GT_M = 128;                 // output rows of a tile
+constexpr int GK = 64;                    // points per stage
+constexpr int GSTAGES = 4;
+constexpr int G_THREADS = 288;            // 2 consumer warpgroups + 1 warp
+constexpr int WAVE = 132;                 // SMs of an H100 SXM
+constexpr uint32_t BOX_BYTES = 64 * SWZ_ROW;             // 64 x 64 bf16
+constexpr uint32_t GSTAGE_BYTES = 6 * BOX_BYTES;         // A 2, B 4 boxes
+constexpr size_t G_SMEM = GSTAGES * GSTAGE_BYTES + 2 * GSTAGES * 8 + 1024;
 
-using FragAc =
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-
-// One 16-byte vector of the A and the B stage per thread; rows past k_end
-// and columns past M / N are zero.
-__device__ __forceinline__ void load_stage(bf16* As, bf16* Bs, const GJob& jb,
-                                           int m0, int n0, int k, int k_end) {
-  const int lr = threadIdx.x >> 3, lc = (threadIdx.x & 7) * 8;
-  const int kr = k + lr;
-  bf16* da = As + lr * GLD + lc;
-  bf16* db = Bs + lr * GLD + lc;
-  if (kr < k_end && m0 + lc < jb.M)
-    cp_async16(da, jb.A + (size_t)kr * jb.M + m0 + lc);
-  else
-    *reinterpret_cast<uint4*>(da) = make_uint4(0, 0, 0, 0);
-  if (kr < k_end && n0 + lc < jb.N)
-    cp_async16(db, jb.B + (size_t)kr * jb.N + n0 + lc);
-  else
-    *reinterpret_cast<uint4*>(db) = make_uint4(0, 0, 0, 0);
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
 }
 
-// Block (tile, chunk): out tile of one job over points [k_begin, k_end),
-// into slot blockIdx.y. Warp w owns rows (w / 2) * 16 and 32 columns.
-static __global__ void __launch_bounds__(256)
-wgrad_kernel(GJobs jobs, int P, int kchunk, float* __restrict__ part) {
-  constexpr int STAGE = GK * GLD;
-  __shared__ __align__(128) unsigned char raw[4 * STAGE * sizeof(bf16)];
-  bf16* As = reinterpret_cast<bf16*>(raw);           // 2 stages
-  bf16* Bs = As + 2 * STAGE;                          // 2 stages
-  const int t = blockIdx.x;
+// Block (tile, chunk): the out tile of one job over points [k_begin,
+// k_end), into slot blockIdx.y. Warpgroup g owns out rows 64 g .. 64 g + 63
+// of the tile and all 256 columns.
+static __global__ void __launch_bounds__(G_THREADS, 1)
+wgrad_kernel(const __grid_constant__ ScratchMaps maps, GJobs jobs, int P,
+             int kchunk, float* __restrict__ part) {
+  extern __shared__ __align__(1024) unsigned char graw[];
+  unsigned char* base = align1024(graw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + GSTAGES * GSTAGE_BYTES);
+  uint64_t* empty = full + GSTAGES;
+  const int tid = threadIdx.x;
   int ji = 0;
+  const int t = blockIdx.x;
   while (ji + 1 < NJOBS && t >= jobs.j[ji + 1].tile0) ++ji;
   const GJob& jb = jobs.j[ji];
-  const int local = t - jb.tile0;
-  const int m0 = (local / jb.tiles_n) * GT, n0 = (local % jb.tiles_n) * GT;
+  const int m0 = (t - jb.tile0) * GT_M;
   const int k_begin = blockIdx.y * kchunk;
-  const int k_end = min(P, k_begin + kchunk);
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 16, wn = (warp & 1) * 32;
-
-  FragC acc[2];
-  zero(acc);
-  const int nstage = (k_end - k_begin + GK - 1) / GK;
-  if (nstage > 0) load_stage(As, Bs, jb, m0, n0, k_begin, k_end);
-  for (int s = 0; s < nstage; ++s) {
-    if (s + 1 < nstage) {
-      const int nb = ((s + 1) & 1) * STAGE;
-      load_stage(As + nb, Bs + nb, jb, m0, n0, k_begin + (s + 1) * GK,
-                 k_end);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+  const int nk = (min(P, k_begin + kchunk) - k_begin + GK - 1) / GK;
+  if (tid == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);               // one arrival per consumer warp
     }
-    __syncthreads();
-    const bf16* as = As + (s & 1) * STAGE;
-    const bf16* bs = Bs + (s & 1) * STAGE;
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {                          // producer warp
+    if (tid == 256) {
+      const CUtensorMap* am = &maps.m[jb.amap];
+      const CUtensorMap* bm = &maps.m[jb.bmap];
+      for (int k = 0; k < nk; ++k) {
+        const int s = k % GSTAGES;
+        mbar_wait(&empty[s], ((k / GSTAGES) & 1) ^ 1);
+        unsigned char* st = base + s * GSTAGE_BYTES;
+        const int row = k_begin + k * GK;
+        mbar_expect_tx(&full[s], GSTAGE_BYTES);
+        tma_load(st, am, &full[s], m0, row, jb.alayer);
+        tma_load(st + BOX_BYTES, am, &full[s], m0 + 64, row, jb.alayer);
 #pragma unroll
-    for (int kk = 0; kk < GK; kk += 16) {
-      FragAc fa;
-      wmma::load_matrix_sync(fa, as + kk * GLD + wm, GLD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, bs + kk * GLD + wn + j * 16, GLD);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+        for (int b = 0; b < 4; ++b)
+          tma_load(st + (2 + b) * BOX_BYTES, bm, &full[s], 64 * b, row,
+                   jb.blayer);
       }
     }
-    __syncthreads();
+    return;
   }
-  float* out = part + (size_t)blockIdx.y * EW + jb.off;
+
+  const int g = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  float acc[128];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int m = m0 + wm, n = n0 + wn + j * 16;
-    if (m < jb.M && n < jb.N)
-      wmma::store_matrix_sync(out + (size_t)m * jb.N + n, acc[j], jb.N,
-                              wmma::mem_row_major);
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int k = 0; k < nk; ++k) {
+    const int s = k % GSTAGES;
+    mbar_wait(&full[s], (k / GSTAGES) & 1);
+    const unsigned char* st = base + s * GSTAGE_BYTES;
+    const uint64_t da = desc_mn(st + g * BOX_BYTES, BOX_BYTES);
+    const uint64_t db = desc_mn(st + 2 * BOX_BYTES, BOX_BYTES);
+    wgmma_fence();
+    acc_fence(acc);
+#pragma unroll
+    for (int kk = 0; kk < GK / 16; ++kk)
+      wgmma_n256<1, 1>(acc, da + kk * (16 * SWZ_ROW >> 4),
+                       db + kk * (16 * SWZ_ROW >> 4), 1);
+    wgmma_commit();
+    acc_fence(acc);
+    wgmma_wait<1>();                         // stage k - 1 is read
+    if (k > 0 && lane == 0) mbar_arrive(&empty[(k - 1) % GSTAGES]);
+  }
+  wgmma_wait<0>();
+  acc_fence(acc);
+
+  float* out = part + (size_t)blockIdx.y * EW + jb.off;
+  const int m = m0 + g * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int n = 8 * j + 2 * (lane & 3);
+    if (n < jb.N) {
+      if (m < jb.M)
+        *reinterpret_cast<float2*>(out + (size_t)m * jb.N + n) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (m + 8 < jb.M)
+        *reinterpret_cast<float2*>(out + (size_t)(m + 8) * jb.N + n) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
   }
 }
 
@@ -303,97 +359,141 @@ static __global__ void sum_slots(const float* __restrict__ part, int nslot,
   }
 }
 
+// out[c] = the sum over rows r of part[r * ld + c], in a fixed order: 32
+// row groups (rows g, g + 32, ...) summed by one thread each, then the
+// groups in order. For the many rows of bias partials.
+static __global__ void __launch_bounds__(1024)
+sum_rows(const float* __restrict__ part, int nrow, int ncol, size_t ld,
+         float* __restrict__ out) {
+  __shared__ float s[32][33];
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  float v = 0.f;
+  if (c < ncol)
+    for (int r = g; r < nrow; r += 32) v += part[(size_t)r * ld + c];
+  s[g][lane] = v;
+  __syncthreads();
+  if (g == 0 && c < ncol) {
+    float t = 0.f;
+    for (int k = 0; k < 32; ++k) t += s[k][lane];
+    out[c] = t;
+  }
+}
+
 // ------------------------------------------------------------------ host --
 
 inline size_t align256(size_t n) { return (n + 255) & ~static_cast<size_t>(255); }
 
-// Workspace of P points whose launch A runs grid_a blocks: bf16 scratch,
-// weight-gradient slots, bias partials (one row per block of launch A).
-struct Workspace {
-  size_t P;
-  int grid_a, kchunk, nchunk;
-  size_t part, bias, total;   // byte offsets
-  Workspace(size_t P_, int grid_a_) : P(P_), grid_a(grid_a_) {
-    // >= 2048 points per chunk and at most 64 slots
-    const size_t per = (P + 63) / 64;
-    kchunk = static_cast<int>(per > 2048 ? (per + GK - 1) / GK * GK : 2048);
-    nchunk = static_cast<int>((P + kchunk - 1) / kchunk);
-    part = align256(sizeof(bf16) * P * SCRATCH_W);
-    bias = part + align256(sizeof(float) * (size_t)nchunk * EW);
-    total = bias + align256(sizeof(float) * (size_t)grid_a * NBIAS);
-  }
-};
-
-inline Scratch scratch_at(void* base, size_t P) {
-  Scratch s;
-  bf16* o = static_cast<bf16*>(base);
-  s.P = P;
-  s.x = o;      o += P * KX;
-  s.d = o;      o += P * KD;
-  s.act = o;    o += P * D * W;
-  s.feat = o;   o += P * W;
-  s.hd = o;     o += P * WD;
-  s.dz = o;     o += P * D * W;
-  s.dfeat = o;  o += P * W;
-  s.dzd = o;    o += P * WD;
-  s.dzr = o;
-  return s;
-}
-
-inline GJobs make_jobs(const Scratch& s) {
-  const size_t PW = s.P * W;
+// The 14 products and their tiles, in the gradient buffer's order.
+inline GJobs make_jobs() {
   const GJob spec[NJOBS] = {
-      {s.x, s.dz, KX, W},                           // w0
-      {s.act + 0 * PW, s.dz + 1 * PW, W, W},        // wt[0..6]
-      {s.act + 1 * PW, s.dz + 2 * PW, W, W},
-      {s.act + 2 * PW, s.dz + 3 * PW, W, W},
-      {s.act + 3 * PW, s.dz + 4 * PW, W, W},
-      {s.act + 4 * PW, s.dz + 5 * PW, W, W},
-      {s.act + 5 * PW, s.dz + 6 * PW, W, W},
-      {s.act + 6 * PW, s.dz + 7 * PW, W, W},
-      {s.x, s.dz + SKIP * PW, KX, W},               // wsk
-      {s.act + 7 * PW, s.dfeat, W, W},              // wf
-      {s.feat, s.dzd, W, WD},                       // wdf
-      {s.d, s.dzd, KD, WD},                         // wdd
-      {s.act + 7 * PW, s.dzr, W, DZR_W},            // ws (col 3)
-      {s.hd, s.dzr, WD, DZR_W},                     // wr (cols 0..2)
+      {MAP_X, 0, MAP_DZ, 0, KX, W},            // w0
+      {MAP_ACT, 0, MAP_DZ, 1, W, W},           // wt[0..6]
+      {MAP_ACT, 1, MAP_DZ, 2, W, W},
+      {MAP_ACT, 2, MAP_DZ, 3, W, W},
+      {MAP_ACT, 3, MAP_DZ, 4, W, W},
+      {MAP_ACT, 4, MAP_DZ, 5, W, W},
+      {MAP_ACT, 5, MAP_DZ, 6, W, W},
+      {MAP_ACT, 6, MAP_DZ, 7, W, W},
+      {MAP_X, 0, MAP_DZ, SKIP, KX, W},         // wsk
+      {MAP_ACT, D - 1, MAP_DZ, D, W, W},       // wf (dfeat is dz layer D)
+      {MAP_ACT, D, MAP_DZD, 0, W, WD},         // wdf (feat is act layer D)
+      {MAP_D, 0, MAP_DZD, 0, KD, WD},          // wdd
+      {MAP_ACT, D - 1, MAP_DZR, 0, W, DZR_W},  // ws (col 3)
+      {MAP_HD, 0, MAP_DZR, 0, WD, DZR_W},      // wr (cols 0..2)
   };
   GJobs jobs;
   int off = 0, tile = 0;
   for (int i = 0; i < NJOBS; ++i) {
     GJob j = spec[i];
     j.off = off;
-    j.tiles_n = (j.N + GT - 1) / GT;
     j.tile0 = tile;
     off += j.M * j.N;
-    tile += ((j.M + GT - 1) / GT) * j.tiles_n;
+    tile += (j.M + GT_M - 1) / GT_M;
     jobs.j[i] = j;
   }
+  jobs.ntiles = tile;
   return jobs;
 }
 
-inline int n_tiles(const GJobs& jobs) {
-  const GJob& l = jobs.j[NJOBS - 1];
-  return l.tile0 + ((l.M + GT - 1) / GT) * l.tiles_n;
+// Workspace of P scratch points, `bias_rows` rows of bias partials and
+// `extra` bytes for the launch A that fills them: bf16 scratch,
+// weight-gradient slots, bias partials, the extra bytes.
+struct Workspace {
+  size_t P;
+  int bias_rows, kchunk, nchunk;
+  size_t part, bias, extra, total;   // byte offsets
+  Workspace(size_t P_, int bias_rows_, size_t extra_bytes = 0)
+      : P(P_), bias_rows(bias_rows_) {
+    const size_t nslot = WAVE / make_jobs().ntiles;
+    const size_t per = (P + nslot - 1) / nslot;
+    kchunk = static_cast<int>(per > 1024 ? (per + GK - 1) / GK * GK : 1024);
+    nchunk = static_cast<int>((P + kchunk - 1) / kchunk);
+    size_t o = 0;
+    for (int w : {KX, KD, (D + 1) * W, WD, (D + 1) * W, WD, DZR_W})
+      o += align256(sizeof(bf16) * P * w);
+    part = o;
+    bias = part + align256(sizeof(float) * (size_t)nchunk * EW);
+    extra = bias + align256(sizeof(float) * (size_t)bias_rows * NBIAS);
+    total = extra + align256(extra_bytes);
+  }
+};
+
+inline Scratch scratch_at(void* base, size_t P) {
+  Scratch s;
+  unsigned char* o = static_cast<unsigned char*>(base);
+  auto take = [&](int w) {
+    bf16* p = reinterpret_cast<bf16*>(o);
+    o += align256(sizeof(bf16) * P * w);
+    return p;
+  };
+  s.P = P;
+  s.x = take(KX);
+  s.d = take(KD);
+  s.act = take((D + 1) * W);     // trunk layers 0..D-1, then feat
+  s.feat = s.act + (size_t)D * P * W;
+  s.hd = take(WD);
+  s.dz = take((D + 1) * W);      // trunk layers 0..D-1, then dfeat
+  s.dfeat = s.dz + (size_t)D * P * W;
+  s.dzd = take(WD);
+  s.dzr = take(DZR_W);
+  return s;
 }
 
-// Launches B and C after a launch A over the scratch `s`: the weight
-// gradients into grad[0, EW), the bias partials' sums into grad[EW, EW +
+// TMA maps of the scratch, boxes of 64 points. False if the driver's
+// encoder is missing or refuses one.
+inline bool scratch_maps(const Scratch& s, ScratchMaps* maps) {
+  const size_t P = s.P;
+  return make_map(&maps->m[MAP_X], s.x, KX, P, 1, GK) &&
+         make_map(&maps->m[MAP_D], s.d, KD, P, 1, GK) &&
+         make_map(&maps->m[MAP_ACT], s.act, W, P, D + 1, GK) &&
+         make_map(&maps->m[MAP_HD], s.hd, WD, P, 1, GK) &&
+         make_map(&maps->m[MAP_DZ], s.dz, W, P, D + 1, GK) &&
+         make_map(&maps->m[MAP_DZD], s.dzd, WD, P, 1, GK) &&
+         make_map(&maps->m[MAP_DZR], s.dzr, DZR_W, P, 1, GK);
+}
+
+// Launches B and C after a launch A over the scratch: the weight gradients
+// into grad[0, EW), the sums of the bias partials' rows into grad[EW, EW +
 // NBIAS). Returns the first CUDA error.
-static cudaError_t launch_weight_grads(const Scratch& s, const Workspace& wsp,
+static cudaError_t launch_weight_grads(const ScratchMaps& maps,
+                                       const Workspace& wsp,
                                        unsigned char* base,
                                        const float* bias_part, float* grad,
                                        cudaStream_t st) {
   float* part = reinterpret_cast<float*>(base + wsp.part);
-  const GJobs jobs = make_jobs(s);
-  wgrad_kernel<<<dim3(n_tiles(jobs), wsp.nchunk), 256, 0, st>>>(
-      jobs, static_cast<int>(wsp.P), wsp.kchunk, part);
-  cudaError_t err;
+  const GJobs jobs = make_jobs();
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(G_SMEM));
+  if (err != cudaSuccess) return err;
+  wgrad_kernel<<<dim3(jobs.ntiles, wsp.nchunk), G_THREADS, G_SMEM, st>>>(
+      maps, jobs, static_cast<int>(wsp.P), wsp.kchunk, part);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   sum_slots<<<(EW + 255) / 256, 256, 0, st>>>(part, wsp.nchunk, EW, EW, grad);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  sum_slots<<<(NBIAS + 255) / 256, 256, 0, st>>>(bias_part, wsp.grid_a, NBIAS,
-                                                 NBIAS, grad + EW);
+  sum_rows<<<(NBIAS + 31) / 32, 1024, 0, st>>>(bias_part, wsp.bias_rows,
+                                               NBIAS, NBIAS, grad + EW);
   return cudaGetLastError();
 }
 

@@ -7,7 +7,7 @@ seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -Xptxas=-v -c -o <src>.o csrc/<src>.cu
-    nvcc -shared -o <lib>.so *.o
+    nvcc -shared -o <lib>.so *.o -ldl
 
 The library goes to `build/torch_kernels/` at the repository root, named by
 a hash of the sources and flags, and is built on first use only. The
@@ -30,6 +30,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# hopper.cuh finds the driver's TMA encoder at run time (dlopen)
+LINK_FLAGS = ("-ldl",)
 
 
 def find_nvcc() -> str:
@@ -46,7 +48,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -80,7 +82,8 @@ def build() -> Path:
     log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
                     for s, o in zip(srcs, objs)])
     tmp = out.with_name(f"{tag}.tmp.so")
-    log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs),
+                      *LINK_FLAGS]])
     for o in objs:
         o.unlink()
     out.with_suffix(".log").write_text(log)
@@ -106,9 +109,9 @@ def load_library() -> ctypes.CDLL:
     lib.nerf_mse_workspace_bytes.restype = ctypes.c_longlong
     lib.nerf_grad_floats.argtypes = []
     lib.nerf_grad_floats.restype = i32
-    # rays, z, noise, gt, R, S, 13 weight buffers + 3 transposed, white_back,
-    # scale, out8, weights, workspace, grad, stream
-    lib.nerf_mse_render.argtypes = [ptr] * 4 + [i32, i32] + [ptr] * 16 + \
+    # rays, z, noise, gt, R, S, 13 weight buffers, white_back, scale, out8,
+    # weights, workspace, grad, stream
+    lib.nerf_mse_render.argtypes = [ptr] * 4 + [i32, i32] + [ptr] * 13 + \
         [i32, ctypes.c_float] + [ptr] * 5
     lib.nerf_mse_render.restype = i32
     # rays, z, noise, R, S, 13 weight buffers, white_back, out8, weights,
@@ -116,9 +119,9 @@ def load_library() -> ctypes.CDLL:
     lib.nerf_train_fwd.argtypes = [ptr] * 3 + [i32, i32] + [ptr] * 13 + \
         [i32] + [ptr] * 3
     lib.nerf_train_fwd.restype = i32
-    # rays, z, noise, g8, gw (null: zero), R, S, 13 weight buffers + 3
-    # transposed, white_back, workspace, grad, stream
-    lib.nerf_train_bwd.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 16 + \
+    # rays, z, noise, g8, gw (null: zero), R, S, 13 weight buffers,
+    # white_back, workspace, grad, stream
+    lib.nerf_train_bwd.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 13 + \
         [i32] + [ptr] * 3
     lib.nerf_train_bwd.restype = i32
     # p8, d8, P, 13 weight buffers, out8, stream

@@ -407,8 +407,9 @@ def _pack_layout_grads(g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 
 def _train_weights(mlp: PackedMLP) -> Dict[str, torch.Tensor]:
-    """The kernels' weight buffers plus the transposed matrices the
-    backward's data-gradient products stream (dz @ W^T)."""
+    """The kernels' weight buffers plus the transposed matrices that
+    mlp_bwd's data-gradient products stream (dz @ W^T). The training
+    render kernels read W^T through wgmma's transpose flag and take none."""
     k = mlp.kernel
     return {**k, "wdfT": k["wdf"].t().contiguous(),
             "wfT": k["wf"].t().contiguous(),

@@ -40,7 +40,7 @@ import torch
 
 from .fused_mlp import (_FULL, GRAD_FLOATS, Acts, MLPArg, PackedMLP,
                         _as_packed, _checked_library, _on, _pack_layout_grads,
-                        _raise_on, _train_weights, forward_body, mlp_grads,
+                        _raise_on, forward_body, mlp_grads,
                         packed_for)
 from .fused_render import MAX_SAMPLES, _points
 
@@ -247,11 +247,11 @@ def _mse_render_cuda(mlp: PackedMLP, rays, z, noise, gt, white_back: bool,
     lib = _checked_library()
     workspace = torch.empty((lib.nerf_mse_workspace_bytes(R, S),),
                             dtype=torch.uint8, device=dev)
-    k = _train_weights(mlp)
+    k = mlp.kernel
     with torch.cuda.device(dev):
         err = lib.nerf_mse_render(
             rays.data_ptr(), z.data_ptr(), noise.data_ptr(), gt3.data_ptr(),
-            R, S, *(k[n].data_ptr() for n in _FULL + ("wdfT", "wfT", "wtT")),
+            R, S, *(k[n].data_ptr() for n in _FULL),
             int(bool(white_back)), float(scale), out8.data_ptr(),
             weights.data_ptr(), workspace.data_ptr(), grad.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
@@ -319,12 +319,12 @@ def _train_bwd_cuda(mlp: PackedMLP, rays, z, noise, white_back: bool, g8,
     lib = _checked_library()
     workspace = torch.empty((lib.nerf_mse_workspace_bytes(R, S),),
                             dtype=torch.uint8, device=dev)
-    k = _train_weights(mlp)
+    k = mlp.kernel
     with torch.cuda.device(dev):
         err = lib.nerf_train_bwd(
             rays.data_ptr(), z.data_ptr(), noise.data_ptr(), g8.data_ptr(),
             None if gw is None else gw.data_ptr(), R, S,
-            *(k[n].data_ptr() for n in _FULL + ("wdfT", "wfT", "wtT")),
+            *(k[n].data_ptr() for n in _FULL),
             int(bool(white_back)), workspace.data_ptr(), grad.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "train_bwd")

@@ -43,7 +43,8 @@ GROUPS = (   # substring of the kernel's name: the launch it belongs to
     ("fwdbwd_kernel<true>", "train_bwd A (fwdbwd_kernel<true>)"),
     ("train_fwd_kernel", "train_fwd (train_fwd_kernel)"),
     ("wgrad_kernel", "B (wgrad_kernel)"),
-    ("sum_slots", "C (sum_slots)"),
+    ("sum_slots", "C (sum_slots, sum_rows)"),
+    ("sum_rows", "C (sum_slots, sum_rows)"),
 )
 
 
