@@ -67,14 +67,16 @@
 8. Two-kernel fused training render (`fused_train` without the loss-fused
    step: autograd through fused_train_render). Holds train_fwd and
    train_bwd against their plain versions at R = 8, 1024, 4104 and S = 64,
-   128, 192: out8 and weights at TOL, and every train_bwd gradient leaf
-   within GRAD_TOL under four cotangent mixes (the rgb MSE on a white
-   background, depth^2 + 0.3 opacity and mean(weights^2) on black, and
-   the sum of the three on white), two launches of each bit-identical,
-   train_fwd's out8 and weights within TOL of mse_render's (train_fwd
-   keeps the WMMA forward, mse_render's runs on wgmma), and train_bwd on
-   the MSE cotangent within 1e-3 relative of mse_render's gradients (the
-   same launch A; printed whether bit for bit). Times both and their
+   128, 192, and on rays longer than ~390 samples (R, S = 5, 400 and 3,
+   1024, where launch A's ring drops to two stages): out8 and weights at
+   TOL, and every train_bwd gradient leaf within GRAD_TOL under four
+   cotangent mixes (the rgb MSE on a white background, depth^2 + 0.3
+   opacity and mean(weights^2) on black, and the sum of the three on
+   white), two launches of each bit-identical, train_fwd's out8 and
+   weights bit for bit equal to mse_render's (the same forward and
+   quadrature; the max difference is printed), and train_bwd on the MSE
+   cotangent within 1e-3 relative of mse_render's gradients (the same
+   launch A; printed whether bit for bit). Times both and their
    plain versions at R = 1024, S = 64 and 128. Then a Trainer at the dense
    bench config with RenderConfig(fused_train=True) fits the store of 4
    for the same 350 steps: exactly 2 train_fwd and 2 train_bwd launches
@@ -656,6 +658,11 @@ def time_point_mlp(mlp, dev):
 # white background's among them, into one backward
 TRAIN_MIXES = (("rgb", True), ("depth_opacity", False), ("weights", False),
                ("all", True))
+# (R, S) of the training kernels' checks: small, main and large batches at
+# the coarse and fine sample counts, and rays longer than ~390 samples
+# (launch A's ring takes two stages; train_fwd's at S = 1024 too)
+TRAIN_SHAPES = ([(R, S) for R in (8, 1024, 4104) for S in (64, 128, 192)]
+                + [(5, 400), (3, 1024)])
 
 
 def train_cotangent(mix, out8, w, gt):
@@ -679,63 +686,61 @@ def compare_train(mlp, dev):
     train_bwd vs mse_render; returns {kernel: max abs error} (train_bwd's
     over the gradient leaves)."""
     errs = {"train_fwd": 0.0, "train_bwd": 0.0}
-    worst_rel = 0.0
-    for R in (8, 1024, 4104):
-        for S in (64, 128, 192):
-            rays, z, noise, gt = mse_inputs(R, S, dev, seed=7 * R + S)
-            for mix, white in TRAIN_MIXES:
-                f1 = ft.train_forward(mlp, rays, z, noise, white)
-                f2 = ft.train_forward(mlp, rays, z, noise, white)
-                ref8, ref_w = ft.fused_train_render_reference(
-                    mlp, rays, z, noise, white)
-                g8, gw = train_cotangent(mix, ref8, ref_w, gt)
-                b1 = ft.train_backward(mlp, rays, z, noise, white, g8, gw)
-                b2 = ft.train_backward(mlp, rays, z, noise, white, g8, gw)
-                ref_g = ft.fused_train_render_backward_reference(
-                    mlp, rays, z, noise, white, g8, gw)
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) for a, b in zip(f1 + b1,
-                                                             f2 + b2)):
-                    raise AssertionError(f"train kernels R={R} S={S} {mix}:"
-                                         f" two launches differ")
-                fe, e_g, rels = check_train_kernel(
-                    f"train_fwd + train_bwd R={R} S={S} {mix} white={white}",
-                    (*f1, b1), (ref8, ref_w, ref_g))
-                errs["train_fwd"] = max(errs["train_fwd"], *fe.values())
-                errs["train_bwd"] = max(errs["train_bwd"], e_g)
-                worst_rel = max(worst_rel, *rels)
-            scale = 1.0 / (R * 3)
-            m8, m_w, m_g = ft.fused_mse_render(mlp, rays, z, noise, gt, True,
-                                               scale)
-            f8, f_w = ft.train_forward(mlp, rays, z, noise, True)
-            g8 = torch.zeros_like(m8)
-            g8[:, 0:3] = 2.0 * scale * (m8[:, 0:3] - gt)
-            t_g = ft.train_backward(mlp, rays, z, noise, True, g8, None)
+    worst_rel = worst_fwd = 0.0
+    for R, S in TRAIN_SHAPES:
+        rays, z, noise, gt = mse_inputs(R, S, dev, seed=7 * R + S)
+        for mix, white in TRAIN_MIXES:
+            f1 = ft.train_forward(mlp, rays, z, noise, white)
+            f2 = ft.train_forward(mlp, rays, z, noise, white)
+            ref8, ref_w = ft.fused_train_render_reference(
+                mlp, rays, z, noise, white)
+            g8, gw = train_cotangent(mix, ref8, ref_w, gt)
+            b1 = ft.train_backward(mlp, rays, z, noise, white, g8, gw)
+            b2 = ft.train_backward(mlp, rays, z, noise, white, g8, gw)
+            ref_g = ft.fused_train_render_backward_reference(
+                mlp, rays, z, noise, white, g8, gw)
             torch.cuda.synchronize()
-            rel = max(rel_errs(t_g, m_g))
-            bitwise = all(torch.equal(a, b) for a, b in zip(t_g, m_g))
-            # train_fwd keeps the WMMA forward, mse_render's forward runs
-            # on wgmma and sums in another order: held at the kernels'
-            # bars, no longer bit for bit
-            fwd = {"rgb": max_err(f8[:, 0:3], m8[:, 0:3]),
-                   "depth": max_err(f8[:, 3], m8[:, 3]),
-                   "opacity": max_err(f8[:, 4], m8[:, 4]),
-                   "weights": max_err(f_w, m_w)}
-            print(f"[compare] train_bwd vs mse_render R={R} S={S}: grad rel "
-                  f"max {rel:.3e} (tol {MSE_VS_TRAIN_TOL}), bit-identical: "
-                  f"{bitwise}; train_fwd vs mse_render's forward: "
-                  + ", ".join(f"{k} {v:.3e}" for k, v in fwd.items()))
-            if not rel <= MSE_VS_TRAIN_TOL:
-                raise AssertionError(f"train_bwd vs mse_render R={R} S={S}:"
-                                     f" {rel}")
-            for k, v in fwd.items():
-                if not v <= TOL[k]:
-                    raise AssertionError(f"train_fwd R={R} S={S}: {k} "
-                                         f"{v} from mse_render's")
-            del rays, z, noise, gt, f1, f2, b1, b2, ref_g, m_g, t_g
-            torch.cuda.empty_cache()
+            if not all(torch.equal(a, b) for a, b in zip(f1 + b1,
+                                                         f2 + b2)):
+                raise AssertionError(f"train kernels R={R} S={S} {mix}:"
+                                     f" two launches differ")
+            fe, e_g, rels = check_train_kernel(
+                f"train_fwd + train_bwd R={R} S={S} {mix} white={white}",
+                (*f1, b1), (ref8, ref_w, ref_g))
+            errs["train_fwd"] = max(errs["train_fwd"], *fe.values())
+            errs["train_bwd"] = max(errs["train_bwd"], e_g)
+            worst_rel = max(worst_rel, *rels)
+        scale = 1.0 / (R * 3)
+        m8, m_w, m_g = ft.fused_mse_render(mlp, rays, z, noise, gt, True,
+                                           scale)
+        f8, f_w = ft.train_forward(mlp, rays, z, noise, True)
+        g8 = torch.zeros_like(m8)
+        g8[:, 0:3] = 2.0 * scale * (m8[:, 0:3] - gt)
+        t_g = ft.train_backward(mlp, rays, z, noise, True, g8, None)
+        torch.cuda.synchronize()
+        rel = max(rel_errs(t_g, m_g))
+        bitwise = all(torch.equal(a, b) for a, b in zip(t_g, m_g))
+        # train_fwd runs mse_render's forward and quadrature: bit for
+        # bit the same out8 and weights
+        fwd_same = torch.equal(f8, m8) and torch.equal(f_w, m_w)
+        fwd_diff = max(max_err(f8, m8), max_err(f_w, m_w))
+        worst_fwd = max(worst_fwd, fwd_diff)
+        print(f"[compare] train_bwd vs mse_render R={R} S={S}: grad rel "
+              f"max {rel:.3e} (tol {MSE_VS_TRAIN_TOL}), bit-identical: "
+              f"{bitwise}; train_fwd vs mse_render's out8 and weights: "
+              f"max difference {fwd_diff:.3e}, bit-identical: {fwd_same}")
+        if not rel <= MSE_VS_TRAIN_TOL:
+            raise AssertionError(f"train_bwd vs mse_render R={R} S={S}:"
+                                 f" {rel}")
+        if not fwd_same:
+            raise AssertionError(f"train_fwd R={R} S={S}: out8 or "
+                                 f"weights differ from mse_render's by "
+                                 f"{fwd_diff}")
+        del rays, z, noise, gt, f1, f2, b1, b2, ref_g, m_g, t_g
+        torch.cuda.empty_cache()
     print(f"[compare] train_bwd worst gradient relative error "
-          f"{worst_rel:.3e}")
+          f"{worst_rel:.3e}; train_fwd vs mse_render max difference "
+          f"{worst_fwd:.3e} over {len(TRAIN_SHAPES)} shapes")
     return errs
 
 

@@ -10,34 +10,49 @@
 //   mlp_bwd    replaces the backward of fused_nerf_mlp (_fused_bwd, body
 //              _bwd_kernel): the weight gradients for a per-point cotangent
 //              g (P, 8) = [d rgb (3), d raw sigma, ...], in three launches:
-//                A'  mlp_bwd    per tile, the forward again, keeping every
-//                               bf16 activation in the scratch; the rgb
-//                               head's cotangent g c (1 - c) from the f32
-//                               recomputed rgb c; then mlp_grad.cuh's
-//                               data-gradient chain;
-//                B, C           mlp_grad.cuh's wgrad and ordered sums.
+//                A'  point_fwdbwd  per tile of 128 points on wgmma
+//                                  (mlp_wgmma.cuh), the forward again,
+//                                  keeping every bf16 activation in the
+//                                  scratch; the rgb head's cotangent
+//                                  g c (1 - c) from the f32 recomputed rgb
+//                                  c and g[3] on raw sigma; then the tile's
+//                                  data-gradient chain;
+//                B, C              mlp_grad.cuh's wgrad and ordered sums.
 //              The points get no gradients (the TPU kernel returns zeros).
 //
-// A block takes PPB = 4 tiles of consecutive points and runs nerf_mlp.cuh's
-// tile on each, its inputs loaded from rows of p8 / d8
-// (build_point_inputs) instead of built from o + d z. A ragged P is masked:
-// rows past P are zero inputs whose outputs are never written and whose
-// cotangents are zero, so they add exactly nothing to any gradient sum.
-// (The JAX wrapper pads P to its tile with zero points instead and slices
-// them off, so their cotangents are zero there too.)
+// mlp_fwd and sigma_fwd: a block takes PPB = 4 tiles of consecutive points
+// and runs nerf_mlp.cuh's WMMA tile on each, its inputs loaded from rows
+// of p8 / d8 (build_point_inputs) instead of built from o + d z.
+//
+// Launch A': a point's backward needs only its own tile, not a whole ray,
+// so each tile's backward runs right after its forward, and a block walks
+// tiles t = blockIdx.x, + gridDim.x, ... of a persistent grid of at most
+// WAVE = 132 blocks (one a SM: a block takes 220,032 bytes of shared
+// memory). The producer streams each tile's forward slabs, then its
+// backward's, without a pause between tiles; a block zeroes its two rows
+// of bias partials once (264 rows for launch C to sum, not one pair a
+// tile). The mask bits of a tile are read back right after they were
+// written, while they are still in L2.
+//
+// A ragged P is masked: rows past P are zero inputs whose outputs are
+// never written and whose cotangents are zero, so they add exactly nothing
+// to any gradient sum. (The JAX wrapper pads P to its tile with zero
+// points instead and slices them off, so their cotangents are zero there
+// too.)
 //
 // What bounds them: tensor-core work, 1.19 MFLOP per point forward (0.98
-// for sigma only) and 2.94x that for the backward. Device memory sees the
-// points and outputs (~32 bytes a point each way) and, for mlp_bwd, ~10 KB
-// of bf16 scratch per point, written by A' and read by B, as in
-// mse_render.
+// for sigma only) and 2.94x that for the backward (0.4624 ms at P =
+// 131,072 on an H100 SXM's 989 TFLOP/s). Device memory sees the points
+// and outputs (~32 bytes a point each way) and, for mlp_bwd, ~10 KB of
+// bf16 scratch per point, written by A' and read by B, as in mse_render:
+// 0.39 ms each way at 3.35 TB/s, this design's floor.
 //
 // Launch contract: the caller's stream, no allocation (mlp_bwd takes a
 // workspace of nerf_mlp_workspace_bytes(P)), and the entry points return
 // the first CUDA error of their launches.
 #include <cuda_runtime.h>
 
-#include "mlp_grad.cuh"
+#include "mlp_wgmma.cuh"
 
 namespace nerf {
 
@@ -46,15 +61,8 @@ constexpr int PPB = 4 * TP;     // points per block
 inline int point_blocks(int P) { return (P + PPB - 1) / PPB; }
 
 // The render kernels' shared memory for one "ray" of TP samples (its ray
-// and depth regions go unused), plus mlp_bwd's TP x 4 head cotangents.
-struct PointLayout {
-  SmemLayout base;
-  size_t dzr, total;
-  __host__ __device__ explicit PointLayout(bool full) : base(TP, 1, full) {
-    dzr = base.total;
-    total = dzr + align128(sizeof(float) * TP * 4);
-  }
-};
+// and depth regions go unused).
+inline size_t point_smem(bool full) { return SmemLayout(TP, 1, full).total; }
 
 // FULL: out (P, 8) = [rgb, raw sigma, 0, 0, 0, 0]; else out (P,) raw sigma.
 template <bool FULL>
@@ -62,7 +70,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
 point_fwd_kernel(const float* __restrict__ p8, const float* __restrict__ d8,
                  int P, MlpWeights p, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem sm = smem_at(smem_raw, PointLayout(FULL).base);
+  const Smem sm = smem_at(smem_raw, SmemLayout(TP, 1, FULL));
   const int p0 = blockIdx.x * PPB;
   const int end = min(P, p0 + PPB);
   for (int t0 = p0; t0 < end; t0 += TP) {
@@ -84,57 +92,133 @@ point_fwd_kernel(const float* __restrict__ p8, const float* __restrict__ d8,
   }
 }
 
-struct PointGradArgs : GradArgs {
+struct PointArgs : GradArgs {
   const float* p8;
   const float* d8;
   const float* g8;          // (P, 8): d rgb in cols 0..2, d raw sigma col 3
   int P;
-  float* bias_part;         // (gridDim.x, NBIAS)
+  float* bias_part;         // (2 gridDim.x, NBIAS)
+  uint4* bits;              // the ReLU masks, MASK_TILE_BYTES a tile
 };
 
-__global__ void __launch_bounds__(NTHREADS, 2)
-mlp_bwd_kernel(PointGradArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const PointLayout L(true);
-  const Smem sm = smem_at(smem_raw, L.base);
-  float* dzr = reinterpret_cast<float*>(smem_raw + L.dzr);
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * PPB;
-  const int end = min(a.P, p0 + PPB);
-  float* bias = a.bias_part + (size_t)blockIdx.x * NBIAS;
-  for (int i = tid; i < NBIAS; i += NTHREADS) bias[i] = 0.f;
-  __syncthreads();
-
-  for (int t0 = p0; t0 < end; t0 += TP) {
-    const int nv = min(TP, end - t0);
-    const size_t g0 = t0;
-    build_point_inputs<true>(sm, a.p8, a.d8, t0, end);
-    __syncthreads();
-    copy_rows(sm.x, LDX, a.s.x + g0 * KX, KX, nv);
-    copy_rows(sm.d, LDD, a.s.d + g0 * KD, KD, nv);
-    const ActSink keep{a.s.act + g0 * W, a.s.P * W, a.s.feat + g0 * W,
-                       a.s.hd + g0 * WD};
-    mlp_tile<true, true>(a.p, sm, sm.sig, sm.rgb, nv, &keep);
-    __syncthreads();
-    float v0 = 0.f, v1 = 0.f, v2 = 0.f, gs = 0.f;
-    if (tid < nv) {
-      const float* g = a.g8 + (g0 + tid) * 8;
-      const float* c = sm.rgb + tid * 3;
-      v0 = g[0] * c[0] * (1.f - c[0]);
-      v1 = g[1] * c[1] * (1.f - c[1]);
-      v2 = g[2] * c[2] * (1.f - c[2]);
-      gs = g[3];
-    }
-    backward_from_heads(a, sm, dzr, v0, v1, v2, gs, nv, g0, bias);
-    __syncthreads();
+// Shared memory of launch A': the tile loops' regions (the warpgroups'
+// point rows in the column-sum stage) and the tile's raw sigma and f32
+// rgb.
+struct PtLayout {
+  size_t xd, h, ring, stage, dzr, bias, bar, sig, rgb, total;
+  __host__ __device__ explicit PtLayout(int nst) {
+    size_t o = 0;
+    xd = o;     o += 2 * ATILE;
+    h = o;      o += 4 * ATILE;
+    ring = o;   o += (size_t)nst * SLAB_BYTES;
+    stage = o;  o += sizeof(float) * 8 * ST_LD;
+    dzr = o;    o += sizeof(float) * AT * 4;
+    bias = o;   o += sizeof(float) * N_EPI_BIAS;
+    bar = o;    o += align128(2 * 8 * nst);
+    sig = o;    o += align128(sizeof(float) * AT);
+    rgb = o;    o += align128(sizeof(float) * AT * 3);
+    total = o + 1024;                     // room to align the base
   }
+};
+constexpr int PT_STAGES = 3;
+
+// The tiles of P points and the persistent grid over them.
+struct PShape {
+  int ntile, grid;
+  size_t rows;
+  __host__ __device__ explicit PShape(int P)
+      : ntile(static_cast<int>(((long long)P + AT - 1) / AT)),
+        grid(ntile < WAVE ? ntile : WAVE),
+        rows((size_t)ntile * AT) {}
+};
+
+inline Workspace point_workspace(int P) {
+  const PShape sh(P);
+  return Workspace(sh.rows, 2 * sh.grid, (size_t)sh.ntile * MASK_TILE_BYTES);
+}
+
+// The warpgroup's rows of the tile at point row0: each row's raw point
+// and direction (p8, d8 columns 0..2) into pts, zero at or past nv.
+__device__ __forceinline__ void row_points(const Wg& wg,
+                                           const float* __restrict__ p8,
+                                           const float* __restrict__ d8,
+                                           size_t row0, int nv, float* pts) {
+  if (wg.t < 64) {
+    const int r = 64 * wg.g + wg.t;
+    const size_t gp = row0 + r;
+    float* q = pts + wg.t * 6;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      q[c] = r < nv ? p8[gp * 8 + c] : 0.f;
+      q[3 + c] = r < nv ? d8[gp * 8 + c] : 0.f;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(A_THREADS, 1)
+point_fwdbwd_kernel(const __grid_constant__ WeightMaps wm,
+                    const __grid_constant__ ScratchMaps scm, PointArgs a,
+                    int nst) {
+  extern __shared__ __align__(1024) unsigned char araw[];
+  unsigned char* base = align1024(araw);
+  const PtLayout L(nst);
+  unsigned char* xd = base + L.xd;
+  unsigned char* h = base + L.h;
+  float* stage = reinterpret_cast<float*>(base + L.stage);
+  float* dzr_s = reinterpret_cast<float*>(base + L.dzr);
+  float* eb = reinterpret_cast<float*>(base + L.bias);
+  float* sig = reinterpret_cast<float*>(base + L.sig);
+  float* rgb = reinterpret_cast<float*>(base + L.rgb);
+  Ring ring = start_block(base + L.ring,
+                          reinterpret_cast<uint64_t*>(base + L.bar), nst,
+                          a.p, eb);
+  const int tid = threadIdx.x;
+  const int ntile = PShape(a.P).ntile;
+  __syncthreads();
+  if (tid >= 256) {                       // producer warpgroup
+    regs_dealloc<40>();
+    if (tid == 256)
+      for (int t = blockIdx.x; t < ntile; t += gridDim.x) {
+        produce_fwd(wm, ring);
+        produce_bwd(wm, ring);
+      }
+    return;
+  }
+  regs_alloc<232>();
+
+  const Wg wg = consumer_wg();
+  float* bias = a.bias_part + (size_t)(2 * blockIdx.x + wg.g) * NBIAS;
+  for (int i = wg.t; i < NBIAS; i += 128) bias[i] = 0.f;
+  float* pts = stage + wg.g * 4 * ST_LD;
+  int held = -1;
+  for (int t = blockIdx.x; t < ntile; t += gridDim.x) {
+    const size_t row0 = (size_t)t * AT;
+    const long long left = a.P - (long long)row0;
+    const int nv = left < AT ? static_cast<int>(left) : AT;
+    uint4* bits = a.bits + (size_t)t * MASK_LAYERS * 256;
+    wg.sync();                            // the stage's last column sums
+    row_points(wg, a.p8, a.d8, row0, nv, pts);
+    embed_tile<true>(wg, nv, pts, xd, a.s.x + row0 * KX, a.s.d + row0 * KD);
+    forward_tile<true>(wg, ring, held, a.p, eb, &scm, xd, h, bits, row0, nv,
+                       sig, rgb);
+    // the rgb head's cotangent g c (1 - c), and g[3] on raw sigma
+    backward_tile(wg, ring, held, a.p, scm, a.s, h, dzr_s, stage, bias,
+                  bits, row0, nv, [&](int row) {
+                    const float* g = a.g8 + (row0 + row) * 8;
+                    const float* c = rgb + row * 3;
+                    return make_float4(g[0] * c[0] * (1.f - c[0]),
+                                       g[1] * c[1] * (1.f - c[1]),
+                                       g[2] * c[2] * (1.f - c[2]), g[3]);
+                  });
+  }
+  if (wg.leader) bulk_wait_all();
 }
 
 template <bool FULL>
 int launch_fwd(const void* p8, const void* d8, int P, const MlpWeights& p,
                void* out, void* stream) {
   if (P <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = PointLayout(FULL).base.total;
+  const size_t smem = point_smem(FULL);
   cudaError_t err = cudaFuncSetAttribute(
       point_fwd_kernel<FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -170,9 +254,11 @@ int nerf_sigma_fwd(const void* p8, int P, const void* w0, const void* wt,
   return nerf::launch_fwd<false>(p8, nullptr, P, p, sigma, stream);
 }
 
+// Bytes of mlp_bwd's workspace: the scratch of whole tiles, launch B's
+// slots, two rows of bias partials a block of A' and the mask bits
+// (MASK_TILE_BYTES = 36 KB a tile).
 long long nerf_mlp_workspace_bytes(int P) {
-  return static_cast<long long>(
-      nerf::Workspace(P, nerf::point_blocks(P)).total);
+  return static_cast<long long>(nerf::point_workspace(P).total);
 }
 
 int nerf_mlp_bwd(const void* p8, const void* d8, const void* g8, int P,
@@ -180,38 +266,36 @@ int nerf_mlp_bwd(const void* p8, const void* d8, const void* g8, int P,
                  const void* bt, const void* ws, const void* bs,
                  const void* wf, const void* bf, const void* wdf,
                  const void* wdd, const void* bd, const void* wr,
-                 const void* br, const void* wdfT, const void* wfT,
-                 const void* wtT, void* workspace, void* grad,
+                 const void* br, void* workspace, void* grad,
                  void* stream) {
   using namespace nerf;
   if (P <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Workspace wsp(P, point_blocks(P));
+  const Workspace wsp = point_workspace(P);
   unsigned char* base = static_cast<unsigned char*>(workspace);
-  PointGradArgs a{};
+  PointArgs a{};
   a.p = weights_at(w0, wt, wsk, bt, ws, bs, wf, bf, wdf, wdd, bd, wr, br);
-  a.wdfT = static_cast<const bf16*>(wdfT);
-  a.wfT = static_cast<const bf16*>(wfT);
-  a.wtT = static_cast<const bf16*>(wtT);
   a.s = scratch_at(base, wsp.P);
   a.p8 = static_cast<const float*>(p8);
   a.d8 = static_cast<const float*>(d8);
   a.g8 = static_cast<const float*>(g8);
   a.P = P;
   a.bias_part = reinterpret_cast<float*>(base + wsp.bias);
-
-  const PointLayout L(true);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.total));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ScratchMaps maps;
-  if (!scratch_maps(a.s, &maps))
+  a.bits = reinterpret_cast<uint4*>(base + wsp.extra);
+  WeightMaps wm;
+  ScratchMaps scm;
+  if (!weight_maps(a.p, &wm) || !scratch_maps(a.s, &scm))
     return static_cast<int>(cudaErrorInvalidValue);
-  mlp_bwd_kernel<<<wsp.bias_rows, NTHREADS, L.total, st>>>(a);
+  const size_t smem = PtLayout(PT_STAGES).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      point_fwdbwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  point_fwdbwd_kernel<<<PShape(P).grid, A_THREADS, smem, st>>>(wm, scm, a,
+                                                               PT_STAGES);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_weight_grads(
-      maps, wsp, base, a.bias_part, static_cast<float*>(grad), st));
+      scm, wsp, base, a.bias_part, static_cast<float*>(grad), st));
 }
 
 }  // extern "C"

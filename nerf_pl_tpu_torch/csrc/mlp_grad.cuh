@@ -2,17 +2,12 @@
 // training kernels (fused_train.cu's mse_render and train_bwd, fused_mlp.cu's
 // mlp_bwd).
 //
-// All start from per-point cotangents of the MLP's heads (the rgb head's
-// pre-activation and raw sigma) and a forward that kept every bf16
-// activation of its points in a global scratch. What they share:
+// All start from a launch A on wgmma (mlp_wgmma.cuh's forward_tile and
+// backward_tile) that keeps every bf16 activation of its points and every
+// data gradient (each dz_i stored as bf16, exactly what the TPU's _dot_t
+// casts) in a global scratch, and the f32 column sums of the cotangents in
+// rows of bias partials. What they share here:
 //
-//   backward_from_heads  mlp_bwd's data-gradient chain, per tile of TP
-//                        points: dz_i = mask_i (dz_{i+1} @ W_i^T) on WMMA
-//                        (transposed weights streamed like the forward's),
-//                        each dz_i stored as bf16 (exactly what the TPU's
-//                        _dot_t casts) and its f32 column sums added to the
-//                        block's own row of bias partials (fused_train.cu's
-//                        launch A has its own chain on wgmma);
 //   the scratch layout and its TMA maps;
 //   launch B  wgrad      every dW = act^T dz, K = points, as a split-K
 //                        wgmma product (see "weight gradients" below);
@@ -55,148 +50,15 @@ struct Scratch {
 };
 constexpr int SCRATCH_W = KX + KD + D * W + W + WD + D * W + W + WD + DZR_W;
 
-// What the data-gradient chain reads: the forward's weights, the
-// transposed matrices its products stream (dz @ W^T), and the scratch.
+// What a training backward's launch A reads and fills: the forward's
+// weights and the scratch.
 struct GradArgs {
   MlpWeights p;
-  const bf16* wdfT;         // (WD, W)
-  const bf16* wfT;          // (W, W)
-  const bf16* wtT;          // (D - 1, W, W)
   Scratch s;
 };
 
 inline __device__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Epilogue of a backward product: v = acc (+ bf16(dL/dsigma) * ws when
-// SIG, dL/dsigma in column 3 of the TP x 4 dzr), zeroed where the layer's
-// bf16 activation is not > 0 (MASK) and on rows past nv; bf16(v) goes to h
-// (the next product's operand) and to the scratch `out`, and the f32
-// column sums of v are added to `bias`.
-template <bool MASK, bool SIG>
-__device__ __forceinline__ void store_grad(FragC (&acc)[8],
-                                           const bf16* __restrict__ act,
-                                           const float* dzr,
-                                           const bf16* __restrict__ ws,
-                                           const Smem& sm,
-                                           bf16* __restrict__ out,
-                                           float* __restrict__ bias, int nv) {
-  constexpr int NCB = 2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col0 = warp * 16 * NCB;
-  float* st = sm.stage + warp * 256;
-  float cs[NCB] = {0.f, 0.f};
-#pragma unroll
-  for (int f = 0; f < 4 * NCB; ++f) {
-    const int rb = f / NCB, j = f - rb * NCB;
-    wmma::store_matrix_sync(st, acc[f], 16, wmma::mem_row_major);
-    __syncwarp();
-    const int col = col0 + j * 16 + (lane & 15);
-    float part = 0.f;
-    for (int e = lane; e < 256; e += 32) {
-      const int row = rb * 16 + (e >> 4);
-      float v = st[e];
-      if (SIG)
-        v += bf16_round(dzr[row * 4 + 3]) * __bfloat162float(ws[col]);
-      bool keep = row < nv;
-      if (MASK && keep)
-        keep = __bfloat162float(act[(size_t)row * W + col]) > 0.f;
-      if (!keep) v = 0.f;
-      part += v;
-      const bf16 b = __float2bfloat16_rn(v);
-      sm.h[row * LDH + col] = b;
-      if (row < nv) out[(size_t)row * W + col] = b;
-    }
-    part += __shfl_xor_sync(0xffffffffu, part, 16);  // lanes l, l^16: col
-    cs[j] += part;
-    __syncwarp();
-  }
-  if (lane < 16) {
-#pragma unroll
-    for (int j = 0; j < NCB; ++j) bias[col0 + j * 16 + lane] += cs[j];
-  }
-}
-
-// The backward of the points [g0, g0 + nv) of the scratch, one tile, from
-// the cotangents of their heads: thread tid < TP holds those of point tid
-// (v0..v2 on the rgb head's pre-activation, gs on raw sigma; zero at or
-// past nv). Stores them as bf16 (scratch dzr) and in f32 in dzr_s (TP x 4,
-// shared memory), then every data gradient of the tile (dzd, dfeat, dz),
-// and adds the f32 column sums to the block's bias partials.
-inline __device__ void backward_from_heads(const GradArgs& a, const Smem& sm,
-                                           float* dzr_s, float v0, float v1,
-                                           float v2, float gs, int nv,
-                                           size_t g0,
-                                           float* __restrict__ bias) {
-  const int tid = threadIdx.x;
-  const size_t PW = a.s.P * W;
-  if (tid < TP) {
-    if (tid < nv) {
-      bf16* row = a.s.dzr + (g0 + tid) * DZR_W;
-      row[0] = __float2bfloat16_rn(v0);
-      row[1] = __float2bfloat16_rn(v1);
-      row[2] = __float2bfloat16_rn(v2);
-      row[3] = __float2bfloat16_rn(gs);
-      for (int c2 = 4; c2 < DZR_W; ++c2) row[c2] = __float2bfloat16_rn(0.f);
-    }
-    dzr_s[tid * 4 + 0] = v0;
-    dzr_s[tid * 4 + 1] = v1;
-    dzr_s[tid * 4 + 2] = v2;
-    dzr_s[tid * 4 + 3] = gs;
-  }
-  __syncthreads();
-  if (tid < 4) {                       // br (cols 0..2) and bs (col 3)
-    float s = 0.f;
-    for (int pt = 0; pt < TP; ++pt) s += dzr_s[pt * 4 + tid];
-    bias[tid < 3 ? BR + tid : BS] += s;
-  }
-
-  {  // view layer: dz_d = [hd > 0] (bf16(dz_r) @ wr^T), into h[:, :WD]
-    const int j = tid & (WD - 1);
-    const float w0 = __bfloat162float(a.p.wr[j * 4 + 0]);
-    const float w1 = __bfloat162float(a.p.wr[j * 4 + 1]);
-    const float w2 = __bfloat162float(a.p.wr[j * 4 + 2]);
-    float cs = 0.f;
-    for (int pt = tid / WD; pt < TP; pt += NTHREADS / WD) {
-      float v = 0.f;
-      if (pt < nv) {
-        const float* r4 = dzr_s + pt * 4;
-        const float dh = bf16_round(r4[0]) * w0 + bf16_round(r4[1]) * w1 +
-                         bf16_round(r4[2]) * w2;
-        if (__bfloat162float(a.s.hd[(g0 + pt) * WD + j]) > 0.f) v = dh;
-        a.s.dzd[(g0 + pt) * WD + j] = __float2bfloat16_rn(v);
-      }
-      cs += v;
-      sm.h[pt * LDH + j] = __float2bfloat16_rn(v);
-    }
-    sm.stage[tid] = cs;
-  }
-  __syncthreads();
-  if (tid < WD) bias[BD + tid] += sm.stage[tid] + sm.stage[tid + WD];
-
-  FragC acc[8];
-  zero(acc);                           // feature layer (linear)
-  gemm_acc<2>(acc, sm.h, LDH, a.wdfT, WD, sm.slab);
-  __syncthreads();
-  store_grad<false, false>(acc, nullptr, dzr_s, a.p.ws, sm,
-                           a.s.dfeat + g0 * W, bias + BF, nv);
-  __syncthreads();
-  zero(acc);                           // + sigma head -> last trunk layer
-  gemm_acc<2>(acc, sm.h, LDH, a.wfT, W, sm.slab);
-  __syncthreads();
-  store_grad<true, true>(acc, a.s.act + (D - 1) * PW + g0 * W, dzr_s,
-                         a.p.ws, sm, a.s.dz + (D - 1) * PW + g0 * W,
-                         bias + BT + (D - 1) * W, nv);
-  for (int i = D - 1; i >= 1; --i) {   // trunk layers 6 .. 0
-    __syncthreads();
-    zero(acc);
-    gemm_acc<2>(acc, sm.h, LDH, a.wtT + (size_t)(i - 1) * W * W, W, sm.slab);
-    __syncthreads();
-    store_grad<true, false>(acc, a.s.act + (i - 1) * PW + g0 * W, dzr_s,
-                            a.p.ws, sm, a.s.dz + (i - 1) * PW + g0 * W,
-                            bias + BT + (i - 1) * W, nv);
-  }
 }
 
 // ------------------------------------------------------ weight gradients --

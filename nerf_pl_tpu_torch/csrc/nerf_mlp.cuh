@@ -1,7 +1,9 @@
-// The NeRF point MLP on one tile of points, for every fused kernel. The
-// tile's inputs come from rays and depths (build_inputs: o + d z, the
-// render and loss-fused training kernels) or from rows of raw points
-// (build_point_inputs: the point-MLP kernels).
+// The NeRF point MLP on one tile of points with WMMA, for the render
+// kernels and the point-MLP forwards. The tile's inputs come from rays and
+// depths (build_inputs: o + d z, the render kernels) or from rows of raw
+// points (build_point_inputs: mlp_fwd, sigma_fwd). The training kernels
+// run the MLP on wgmma instead (mlp_wgmma.cuh); the weights' layout, the
+// embedding's columns and sincos_col are shared with them.
 //
 // Computes what `_forward_body` of nerf_pl_tpu/ops/fused_mlp.py computes:
 // in-kernel gamma(x) / gamma(d) as one sin() over an exact f32 phase block
@@ -20,8 +22,7 @@
 // columns, KS rows at a time, through a private double buffer (cp.async
 // fills one while the tensor cores read the other): the K loop waits on
 // no other warp, and the block meets at a barrier only between layers.
-// Weight traffic from L2 is ~1.2 MB per tile of 64 points; TMA, wgmma
-// and an epilogue in registers are later work.
+// Weight traffic from L2 is ~1.2 MB per tile of 64 points.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -345,45 +346,17 @@ __device__ void build_point_inputs(const Smem& sm,
   }
 }
 
-// Where a training forward keeps the bf16 activations of a tile: row r of
-// each buffer is point r of the tile (the pointers are offset to the
-// tile's first point); trunk layer i is at act + i * layer_stride.
-struct ActSink {
-  bf16* act;            // (D, P, W)
-  size_t layer_stride;  // P * W
-  bf16* feat;           // (P, W)
-  bf16* hd;             // (P, WD)
-};
-
-// Rows [0, n) of a shared-memory tile (row stride lds) to a dense global
-// matrix of `width` columns, 16 bytes per thread and step.
-__device__ __forceinline__ void copy_rows(const bf16* src, int lds,
-                                          bf16* __restrict__ dst, int width,
-                                          int n) {
-  const int vpr = width / 8;
-  for (int i = threadIdx.x; i < n * vpr; i += NTHREADS) {
-    const int r = i / vpr, c = i - r * vpr;
-    *reinterpret_cast<uint4*>(dst + (size_t)r * width + c * 8) =
-        *reinterpret_cast<const uint4*>(src + r * lds + c * 8);
-  }
-}
-
 // The MLP on the tile in sm.x (and sm.d): raw sigma of the first n_valid
-// points to sig_out, and (FULL) their sigmoid rgb to rgb_out. With KEEP,
-// every activation of those points is also copied to `keep`.
-template <bool FULL, bool KEEP = false>
+// points to sig_out, and (FULL) their sigmoid rgb to rgb_out.
+template <bool FULL>
 __device__ void mlp_tile(const MlpWeights& p, const Smem& sm, float* sig_out,
-                         float* rgb_out, int n_valid,
-                         const ActSink* keep = nullptr) {
+                         float* rgb_out, int n_valid) {
   FragC acc[8];
   zero(acc);
   gemm_acc<2>(acc, sm.x, LDX, p.w0, KX, sm.slab);
   store_act<2, true>(acc, p.bt, sm.h, sm.stage);
   for (int i = 1; i < D; ++i) {
     __syncthreads();              // h of layer i - 1 is complete
-    if constexpr (KEEP)
-      copy_rows(sm.h, LDH, keep->act + (i - 1) * keep->layer_stride, W,
-                n_valid);
     zero(acc);
     gemm_acc<2>(acc, sm.h, LDH, p.wt + (size_t)(i - 1) * W * W, W, sm.slab);
     if (i == SKIP) gemm_acc<2>(acc, sm.x, LDX, p.wsk, KX, sm.slab);
@@ -391,9 +364,6 @@ __device__ void mlp_tile(const MlpWeights& p, const Smem& sm, float* sig_out,
     store_act<2, true>(acc, p.bt + i * W, sm.h, sm.stage);
   }
   __syncthreads();
-  if constexpr (KEEP)
-    copy_rows(sm.h, LDH, keep->act + (D - 1) * keep->layer_stride, W,
-              n_valid);
 
   const int pt = threadIdx.x >> 2, q = threadIdx.x & 3;
   {  // sigma head: 4 threads per point, 64 products each
@@ -413,7 +383,6 @@ __device__ void mlp_tile(const MlpWeights& p, const Smem& sm, float* sig_out,
   __syncthreads();
   store_act<2, false>(acc, p.bf, sm.h, sm.stage);   // feature layer: linear
   __syncthreads();
-  if constexpr (KEEP) copy_rows(sm.h, LDH, keep->feat, W, n_valid);
   FragC acc4[4];
   zero(acc4);
   gemm_acc<1>(acc4, sm.h, LDH, p.wdf, W, sm.slab);
@@ -421,7 +390,6 @@ __device__ void mlp_tile(const MlpWeights& p, const Smem& sm, float* sig_out,
   __syncthreads();
   store_act<1, true>(acc4, p.bd, sm.h, sm.stage);   // h[:, :WD] = view act
   __syncthreads();
-  if constexpr (KEEP) copy_rows(sm.h, LDH, keep->hd, WD, n_valid);
 
   {  // rgb head: 4 threads per point, 32 rows each, 3 channels
     const bf16* hr = sm.h + pt * LDH + q * 32;

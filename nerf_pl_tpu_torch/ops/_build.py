@@ -22,9 +22,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -91,49 +93,73 @@ def build() -> Path:
     return out
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The library's C entries: (return type, argument types). Pointers and the
+# stream are c_void_p (ctypes would cut a bare Python int to 32 bits).
+SIGNATURES = {
+    # rays, z, R, S, 6 trunk buffers, weights, opacity, stream
+    "nerf_sigma_render": (_I, [_P, _P, _I, _I] + [_P] * 6 + [_P] * 3),
+    # rays, z, R, S, 13 weight buffers, white_back, rgb, depth, opacity,
+    # stream
+    "nerf_render_eval": (_I, [_P, _P, _I, _I] + [_P] * 13 + [_I]
+                         + [_P] * 4),
+    "nerf_mse_workspace_bytes": (ctypes.c_longlong, [_I, _I]),
+    "nerf_grad_floats": (_I, []),
+    # rays, z, noise, gt, R, S, 13 weight buffers, white_back, scale, out8,
+    # weights, workspace, grad, stream
+    "nerf_mse_render": (_I, [_P] * 4 + [_I, _I] + [_P] * 13 + [_I, _F]
+                        + [_P] * 5),
+    # rays, z, noise, R, S, 13 weight buffers, white_back, out8, weights,
+    # stream
+    "nerf_train_fwd": (_I, [_P] * 3 + [_I, _I] + [_P] * 13 + [_I]
+                       + [_P] * 3),
+    # rays, z, noise, g8, gw (null: zero), R, S, 13 weight buffers,
+    # white_back, workspace, grad, stream
+    "nerf_train_bwd": (_I, [_P] * 5 + [_I, _I] + [_P] * 13 + [_I]
+                       + [_P] * 3),
+    # p8, d8, P, 13 weight buffers, out8, stream
+    "nerf_mlp_fwd": (_I, [_P, _P, _I] + [_P] * 13 + [_P, _P]),
+    # p8, P, 6 trunk buffers, sigma, stream
+    "nerf_sigma_fwd": (_I, [_P, _I] + [_P] * 6 + [_P, _P]),
+    "nerf_mlp_workspace_bytes": (ctypes.c_longlong, [_I]),
+    # p8, d8, g8, P, 13 weight buffers, workspace, grad, stream
+    "nerf_mlp_bwd": (_I, [_P] * 3 + [_I] + [_P] * 13 + [_P] * 3),
+}
+
+# C types of the entries' arguments and results, as c_entries spells them.
+CTYPES = {"void*": _P, "int": _I, "float": _F, "long long": ctypes.c_longlong}
+
+
+def c_entries(source: str) -> Dict[str, Tuple[str, List[Tuple[str, str]]]]:
+    """The functions defined in the `extern "C"` blocks of a .cu source:
+    name -> (return type, [(argument type, argument name)]), `const`
+    dropped and a pointer's star joined to its type ("void*")."""
+    code = re.sub(r"//[^\n]*", "", re.sub(r"/\*.*?\*/", "", source,
+                                           flags=re.S))
+    out = {}
+    for m in re.finditer(r'extern\s+"C"\s*\{', code):
+        depth, end = 1, m.end()
+        while depth:
+            depth += {"{": 1, "}": -1}.get(code[end], 0)
+            end += 1
+        block = code[m.end():end - 1]
+        for f in re.finditer(r"^(long long|int)\s+(\w+)\s*\(([^)]*)\)"
+                             r"\s*\{", block, flags=re.M):
+            args = []
+            for arg in filter(None, map(str.strip, f.group(3).split(","))):
+                arg = re.sub(r"\bconst\s+", "", arg)
+                arg = re.sub(r"\s*\*\s*", "* ", arg)
+                kind, name = arg.rsplit(None, 1)
+                args.append((kind.strip(), name))
+            out[f.group(2)] = (f.group(1), args)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (first use) and load the kernels, with their C signatures."""
     lib = ctypes.CDLL(str(build()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # rays, z, R, S, 6 trunk buffers, weights, opacity, stream
-    lib.nerf_sigma_render.argtypes = [ptr, ptr, i32, i32] + [ptr] * 6 + \
-        [ptr, ptr, ptr]
-    lib.nerf_sigma_render.restype = i32
-    # rays, z, R, S, 13 weight buffers, white_back, rgb, depth, opacity,
-    # stream
-    lib.nerf_render_eval.argtypes = [ptr, ptr, i32, i32] + [ptr] * 13 + \
-        [i32, ptr, ptr, ptr, ptr]
-    lib.nerf_render_eval.restype = i32
-    lib.nerf_mse_workspace_bytes.argtypes = [i32, i32]
-    lib.nerf_mse_workspace_bytes.restype = ctypes.c_longlong
-    lib.nerf_grad_floats.argtypes = []
-    lib.nerf_grad_floats.restype = i32
-    # rays, z, noise, gt, R, S, 13 weight buffers, white_back, scale, out8,
-    # weights, workspace, grad, stream
-    lib.nerf_mse_render.argtypes = [ptr] * 4 + [i32, i32] + [ptr] * 13 + \
-        [i32, ctypes.c_float] + [ptr] * 5
-    lib.nerf_mse_render.restype = i32
-    # rays, z, noise, R, S, 13 weight buffers, white_back, out8, weights,
-    # stream
-    lib.nerf_train_fwd.argtypes = [ptr] * 3 + [i32, i32] + [ptr] * 13 + \
-        [i32] + [ptr] * 3
-    lib.nerf_train_fwd.restype = i32
-    # rays, z, noise, g8, gw (null: zero), R, S, 13 weight buffers,
-    # white_back, workspace, grad, stream
-    lib.nerf_train_bwd.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 13 + \
-        [i32] + [ptr] * 3
-    lib.nerf_train_bwd.restype = i32
-    # p8, d8, P, 13 weight buffers, out8, stream
-    lib.nerf_mlp_fwd.argtypes = [ptr, ptr, i32] + [ptr] * 13 + [ptr, ptr]
-    lib.nerf_mlp_fwd.restype = i32
-    # p8, P, 6 trunk buffers, sigma, stream
-    lib.nerf_sigma_fwd.argtypes = [ptr, i32] + [ptr] * 6 + [ptr, ptr]
-    lib.nerf_sigma_fwd.restype = i32
-    lib.nerf_mlp_workspace_bytes.argtypes = [i32]
-    lib.nerf_mlp_workspace_bytes.restype = ctypes.c_longlong
-    # p8, d8, g8, P, 13 weight buffers + 3 transposed, workspace, grad,
-    # stream
-    lib.nerf_mlp_bwd.argtypes = [ptr] * 3 + [i32] + [ptr] * 16 + [ptr] * 3
-    lib.nerf_mlp_bwd.restype = i32
+    for name, (restype, argtypes) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib

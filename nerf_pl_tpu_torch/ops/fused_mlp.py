@@ -406,16 +406,6 @@ def _pack_layout_grads(g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
             ws, bs, wr, br, g.new_zeros((1, 1)))
 
 
-def _train_weights(mlp: PackedMLP) -> Dict[str, torch.Tensor]:
-    """The kernels' weight buffers plus the transposed matrices that
-    mlp_bwd's data-gradient products stream (dz @ W^T). The training
-    render kernels read W^T through wgmma's transpose flag and take none."""
-    k = mlp.kernel
-    return {**k, "wdfT": k["wdf"].t().contiguous(),
-            "wfT": k["wf"].t().contiguous(),
-            "wtT": k["wt"].transpose(1, 2).contiguous()}
-
-
 # ---------------------------------------------------------------- plain ----
 
 def mlp_forward_reference(packed, x8: torch.Tensor,
@@ -533,11 +523,11 @@ def _mlp_bwd_cuda(mlp: PackedMLP, x8, d8, g):
     workspace = torch.empty((lib.nerf_mlp_workspace_bytes(P),),
                             dtype=torch.uint8, device=dev)
     grad = torch.empty((GRAD_FLOATS,), dtype=torch.float32, device=dev)
-    k = _train_weights(mlp)
+    k = mlp.kernel
     with torch.cuda.device(dev):
         err = lib.nerf_mlp_bwd(
             x8.data_ptr(), d8.data_ptr(), g.data_ptr(), P,
-            *(k[n].data_ptr() for n in _FULL + ("wdfT", "wfT", "wtT")),
+            *(k[n].data_ptr() for n in _FULL),
             workspace.data_ptr(), grad.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "mlp_bwd")

@@ -302,8 +302,15 @@ def _train_cotangent(mix, out8, w, gt):
     return g8, gw
 
 
-@pytest.mark.parametrize("R", [8, 37, 1024, 4104])
-@pytest.mark.parametrize("S", [64, 128, 192])
+# (R, S) of the training kernels against their plain versions: the main
+# path's batch at its coarse and fine sample counts, small and ragged
+# batches, and rays longer than ~390 samples, where launch A's ring drops
+# to two stages (train_fwd's keeps three at S = 400).
+TRAIN_SHAPES = [(R, S) for R in (8, 37, 1024, 4104) for S in (64, 128, 192)
+                ] + [(5, 400)]
+
+
+@pytest.mark.parametrize("R,S", TRAIN_SHAPES)
 @pytest.mark.parametrize("weights", ["dense", "init"])
 def test_train_render_kernels_match_plain(dev, R, S, weights):
     """train_fwd and train_bwd against their plain versions, the backward
@@ -357,9 +364,8 @@ def test_train_render_kernels_are_deterministic(dev):
 def test_train_bwd_matches_mse_render(dev, R, S):
     """train_bwd with the MSE cotangent 2 scale (rgb - gt) gives
     mse_render's gradients within 1e-3 relative per leaf (the same launch
-    A); train_fwd gives its out8 and weights within the kernels' bars:
-    train_fwd keeps the WMMA forward while mse_render's runs on wgmma,
-    whose sums go in another order, so they no longer agree bit for bit."""
+    A); train_fwd gives its out8 and weights bit for bit (the same forward
+    and quadrature)."""
     mlp = fm.pack_mlp(dense_params(0, dev), dev)
     rays, z, noise, gt = _mse_inputs(R, S, dev, seed=S)
     scale = 1.0 / (R * 3)
@@ -370,15 +376,35 @@ def test_train_bwd_matches_mse_render(dev, R, S):
     g8[:, 0:3] = 2.0 * scale * (out8[:, 0:3] - gt)
     grads = ft.train_backward(mlp, rays, z, noise, True, g8, None)
     torch.cuda.synchronize()
-    assert max_err(fw, w) <= TOL["weights"]
-    for k, cols in (("rgb", slice(0, 3)), ("depth", slice(3, 4)),
-                    ("opacity", slice(4, 5))):
-        assert max_err(f8[:, cols], out8[:, cols]) <= TOL[k], k
+    assert torch.equal(fw, w) and torch.equal(f8, out8)
     for i, (a, b) in enumerate(zip(grads, ref_g)):
         if b.abs().max() > 0:
             assert _rel(a, b) <= 1e-3, (i, _rel(a, b))
         else:
             assert not a.any(), i
+
+
+@pytest.mark.parametrize("R,S", [(8, 64), (1024, 64), (1024, 128),
+                                 (37, 192), (5, 400), (3, 1024)])
+@pytest.mark.parametrize("white_back", [True, False])
+def test_train_fwd_matches_mse_render_bitwise(dev, R, S, white_back):
+    """train_fwd runs mse_render's forward and quadrature without the
+    scratch, the mask bits and the backward: its out8 and weights equal
+    mse_render's bit for bit, at the batch's shapes and on long rays (at S
+    = 1024 both rings take two stages)."""
+    for weights, seed in (("dense", 0), ("init", 5)):
+        params = (dense_params(seed, dev) if weights == "dense" else
+                  init_nerf_params(torch.Generator().manual_seed(seed),
+                                   device=dev))
+        mlp = fm.pack_mlp(params, dev)
+        rays, z, noise, gt = _mse_inputs(R, S, dev, seed=R * S)
+        out8, w, _ = ft.fused_mse_render(mlp, rays, z, noise, gt, white_back,
+                                         1.0 / (R * 3))
+        f8, fw = ft.train_forward(mlp, rays, z, noise, white_back)
+        torch.cuda.synchronize()
+        assert torch.isfinite(f8).all() and torch.isfinite(fw).all()
+        assert torch.equal(fw, w), (weights, max_err(fw, w))
+        assert torch.equal(f8, out8), (weights, max_err(f8, out8))
 
 
 @pytest.mark.parametrize("R,S", [(37, 192)])
@@ -414,12 +440,13 @@ def test_backward_kernels_ragged_shapes(dev, R, S):
                 assert not a.any(), i
 
 
-@pytest.mark.parametrize("P", [300, 4099])
+@pytest.mark.parametrize("P", [300, 4099, 131075])
 def test_mlp_bwd_ragged_matches_plain_and_relaunches(dev, P):
-    """mlp_bwd runs the shared weight-gradient launch B: P not a multiple
-    of its 64-point stage leaves the last stage partly past the scratch
-    (TMA fills it with zeros). Against the plain version, and two launches
-    bit-identical."""
+    """mlp_bwd's launch A' on 128-point tiles and the shared launch B: a P
+    that is not a multiple of the tile leaves the last tile's rows past P
+    zero cotangents, and at P = 131,075 the persistent grid's 132 blocks
+    take 7 or 8 tiles each (1025 tiles). Against the plain version, and two
+    launches bit-identical."""
     mlp = fm.pack_mlp(dense_params(2, dev), dev)
     x8, d8, cot = _point_inputs(P, dev, seed=P + 1)
     g1 = fm.mlp_backward(mlp, x8, d8, cot)
@@ -432,3 +459,17 @@ def test_mlp_bwd_ragged_matches_plain_and_relaunches(dev, P):
             assert _rel(a, r) <= GRAD_TOL, (i, _rel(a, r))
         else:
             assert not a.any(), i
+
+
+def test_mlp_workspace_holds_the_mask_bits(dev):
+    """mlp_bwd's workspace holds the scratch of whole 128-point tiles
+    (10,016 bytes a point) and 36 KB of ReLU mask bits a tile (37.7 MB at P
+    = 131,072), like mse_render's at the same points, less the bias rows:
+    A' has two a block of at most 132, mse_render two a ray."""
+    from nerf_pl_tpu_torch.ops import _build
+    lib = _build.load_library()
+    for P, tiles in ((131072, 1024), (300, 3), (4099, 33)):
+        need = tiles * 128 * 10016 + tiles * 36864
+        assert lib.nerf_mlp_workspace_bytes(P) >= need, P
+    assert (lib.nerf_mlp_workspace_bytes(131072)
+            <= lib.nerf_mse_workspace_bytes(1024, 128))

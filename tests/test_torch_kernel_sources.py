@@ -7,15 +7,20 @@ sources as text (no compiler needed, so they run on the CPU):
   * no environment lookups and no preprocessor switch that could select
     another build of a kernel (the redesigned backward has no old copy);
   * every .cu names the function of nerf_pl_tpu/ops/*.py that it replaces;
-  * the training backward's launches A (fused_train.cu) and B
-    (mlp_grad.cuh) issue wgmma on operands that TMA brings in with
-    mbarriers.
+  * every training kernel (the backwards' launches A and A' and train_fwd
+    through mlp_wgmma.cuh's tile loops, and launch B) issues wgmma on
+    operands that TMA brings in with mbarriers, and no WMMA is left in
+    them; the WMMA training code they replaced is gone;
+  * no C entry takes transposed weights, and each C entry's arguments in
+    the sources match its ctypes signature in ops/_build.py.
 """
 import ast
 import re
 from pathlib import Path
 
 import pytest
+
+from nerf_pl_tpu_torch.ops import _build
 
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "nerf_pl_tpu_torch" / "csrc"
@@ -30,16 +35,14 @@ def code_of(path):
     return re.sub(r"//[^\n]*", "", text)
 
 
-def body_of(code, name):
-    """The brace-balanced body of the first function definition `name`."""
-    m = re.search(r"\b" + re.escape(name) + r"\s*\([^;{]*\)\s*\{", code)
-    assert m, f"no definition of {name}"
-    depth, i = 0, m.end() - 1
+def balanced(code, i):
+    """The brace-balanced block that opens at code[i]."""
+    depth = 0
     for j in range(i, len(code)):
         depth += {"{": 1, "}": -1}.get(code[j], 0)
         if depth == 0:
             return code[i:j + 1]
-    raise AssertionError(f"unbalanced body of {name}")
+    raise AssertionError(f"unbalanced block at {i}")
 
 
 def test_sources_found():
@@ -88,21 +91,72 @@ def test_each_cu_names_the_tpu_function_it_replaces(path):
     assert any(found.values()), (path.name, named)
 
 
-@pytest.mark.parametrize("kernel,path", [
-    ("fwdbwd_kernel", "fused_train.cu"), ("wgrad_kernel", "mlp_grad.cuh")])
-def test_backward_launches_use_wgmma_and_tma(kernel, path):
-    """Launch A (through slab_mma, fed by the producer's put_slab) and
-    launch B (inline) issue wgmma on TMA-loaded tiles behind mbarriers; no
-    WMMA fragment is left in either."""
-    code = code_of(CSRC / path)
-    body = body_of(code, kernel)
-    helpers = code if kernel == "fwdbwd_kernel" else body
-    if kernel == "fwdbwd_kernel":
-        assert "slab_mma<" in body and "produce(" in body
-        helpers = body_of(code, "slab_mma") + body_of(code, "put_slab")
-    assert re.search(r"wgmma_n(128|256)<", helpers)
-    assert "tma_load(" in helpers and "mbar_wait(" in helpers
-    assert "wmma::" not in body
+KEYWORDS = {"if", "for", "while", "switch", "return", "sizeof", "catch",
+            "constexpr"}
+
+
+def definitions():
+    """{name: body} of every function defined in the sources (the first
+    definition of a name; kernels, device and host functions alike)."""
+    defs = {}
+    for path in SOURCES:
+        code = code_of(path)
+        for m in re.finditer(r"\b(\w+)\s*(<[^;{()]*>)?\s*"
+                             r"\((?:[^;{()]|\([^()]*\))*\)\s*(const\s*)?\{",
+                             code):
+            if m.group(1) not in KEYWORDS and m.group(1) not in defs:
+                defs[m.group(1)] = balanced(code, m.end() - 1)
+    return defs
+
+
+def reach(name, defs):
+    """The body of `name` and of every function of the sources that it
+    calls, directly or through others."""
+    seen, todo, text = set(), [name], []
+    while todo:
+        n = todo.pop()
+        if n in seen or n not in defs:
+            continue
+        seen.add(n)
+        text.append(defs[n])
+        todo += re.findall(r"\b(\w+)\s*[<(]", defs[n])
+    return "\n".join(text)
+
+
+TRAINING_KERNELS = ("fwdbwd_kernel", "fwd_quad_kernel", "point_fwdbwd_kernel",
+                    "wgrad_kernel")
+
+
+@pytest.mark.parametrize("kernel", TRAINING_KERNELS)
+def test_backward_launches_use_wgmma_and_tma(kernel):
+    """Launches A of mse_render and train_bwd (fwdbwd), A' of mlp_bwd
+    (point_fwdbwd), train_fwd (fwd_quad) through mlp_wgmma.cuh's tile loops
+    (slab_mma, fed by the producer's put_slab), and launch B (wgrad,
+    inline) issue wgmma on TMA-loaded tiles behind mbarriers; no WMMA
+    fragment or WMMA tile loop is reached from any of them."""
+    defs = definitions()
+    assert kernel in defs
+    text = reach(kernel, defs)
+    assert re.search(r"wgmma_n(128|256)<", text)
+    assert "tma_load(" in text and "mbar_wait(" in text
+    assert "wmma::" not in text and "mlp_tile" not in text
+    if kernel != "wgrad_kernel":
+        body = defs[kernel]
+        assert "forward_tile<" in body and "produce_fwd(" in body
+        assert ("backward_tile(" in body) == (kernel != "fwd_quad_kernel")
+
+
+def test_wmma_training_code_is_gone():
+    """The WMMA launch A' of mlp_bwd, its data-gradient chain and
+    train_fwd's WMMA kernel have no definition left, and no training
+    kernel keeps a switch that could reach a WMMA tile."""
+    defs = definitions()
+    for gone in ("mlp_bwd_kernel", "train_fwd_kernel", "backward_from_heads",
+                 "store_grad", "ActSink", "copy_rows", "TrainLayout"):
+        assert gone not in defs, gone
+    for path in SOURCES:
+        assert not re.search(r"\b(ActSink|backward_from_heads)\b",
+                             code_of(path)), path.name
 
 
 def test_hopper_helpers_issue_the_ptx():
@@ -112,11 +166,37 @@ def test_hopper_helpers_issue_the_ptx():
         assert ptx in code, ptx
 
 
-def test_backward_c_entries_take_no_transposed_weights():
-    """Kernels 7 and 8 read W^T through wgmma's transpose flag; only
-    mlp_bwd's launch A' still takes the transposed copies."""
-    code = code_of(CSRC / "fused_train.cu")
-    for entry in ("nerf_mse_render", "nerf_train_bwd"):
-        sig = re.search(r"int " + entry + r"\(([^)]*)\)", code).group(1)
-        assert "wdfT" not in sig and "wtT" not in sig, entry
-    assert "wdfT" in code_of(CSRC / "fused_mlp.cu")
+@pytest.mark.parametrize("path", CU, ids=lambda p: p.name)
+def test_backward_c_entries_take_no_transposed_weights(path):
+    """Every product reads W^T through wgmma's transpose flag (the same W
+    read K-major), so no C entry takes a transposed copy (wdfT, wfT, wtT)
+    and no wrapper of ops/ builds one."""
+    entries = _build.c_entries(path.read_text())
+    assert entries
+    for name, (_, args) in entries.items():
+        names = {n for _, n in args}
+        assert not names & {"wdfT", "wfT", "wtT"}, (path.name, name)
+    for py in sorted((REPO / "nerf_pl_tpu_torch" / "ops").glob("*.py")):
+        assert not re.search(r"\bw(df|f|t)T\b", py.read_text()), py.name
+
+
+@pytest.mark.parametrize("path", CU, ids=lambda p: p.name)
+def test_c_entries_match_their_ctypes_signatures(path):
+    """Each C entry's arguments, counted and typed from the source, equal
+    its argtypes (and its result its restype) in ops/_build.py: a dropped
+    or added pointer fails here, not as a wild address on the card."""
+    entries = _build.c_entries(path.read_text())
+    assert entries
+    for name, (result, args) in entries.items():
+        restype, argtypes = _build.SIGNATURES[name]
+        assert len(args) == len(argtypes), (name, len(args), len(argtypes))
+        for i, ((kind, arg), ct) in enumerate(zip(args, argtypes)):
+            assert _build.CTYPES[kind] is ct, (name, i, arg, kind, ct)
+        assert _build.CTYPES[result] is restype, name
+
+
+def test_every_signature_has_a_c_entry():
+    found = {}
+    for path in CU:
+        found.update(_build.c_entries(path.read_text()))
+    assert set(_build.SIGNATURES) == set(found)

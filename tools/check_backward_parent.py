@@ -1,32 +1,36 @@
 #!/usr/bin/env python
-"""Hold this checkout's training backwards against another checkout's
+"""Hold this checkout's training kernels against another checkout's
 build of them, on one NVIDIA GPU, and time both:
 
     git archive <commit> | tar -x -C build/parent
     python tools/check_backward_parent.py build/parent
 
 Builds every `nerf_pl_tpu_torch/csrc/*.cu` of the other checkout with this
-checkout's nvcc flags into `<dir>/build/parent_kernels.so`; its
-`nerf_mse_render`, `nerf_train_bwd` and `nerf_mlp_bwd` must take the
-weights with the three transposed matrices (wdfT, wfT, wtT) after them,
-as the kernels before the Hopper redesign of the backward did. Both builds
-then run on the same rays, depths, noise, targets and weights:
+checkout's nvcc flags into `<dir>/build/parent_kernels.so` and reads the
+signature of each C entry of either build from its sources
+(`_build.c_entries`, as tests/test_torch_kernel_sources.py reads them): an
+entry gets its arguments by name, the weights' transposed copies (wdfT,
+wfT, wtT) only where it takes them, as the kernels before their Hopper
+redesign did. Both builds then run on the same rays, depths, noise,
+targets and weights:
 
   * mse_render at (R, S) = (8, 64), (1024, 64), (1024, 128), (37, 192);
+  * train_fwd at the same shapes (white background);
   * train_bwd (through its C entry, nerf_train_bwd) on the rgb cotangent
     2 scale (rgb - gt) at the same shapes;
-  * mlp_bwd at P = 131,072 (it runs the shared weight-gradient launch).
+  * mlp_bwd at P = 131,072.
 
 out8 and the weights are held at the kernels' bars (weights 5e-3, rgb and
 opacity 1e-2, depth 5e-2) and each of the 17 gradient leaves within 0.03
-relative max error. Not bit for bit: wgmma sums in another order than the
-WMMA products of the earlier build, so bitwise equality across the
-redesign is not a property to keep. Prints the median ms of each build at
+relative max error. Not bit for bit: a kernel redesigned on wgmma sums in
+another order than the WMMA products of an earlier build. Both builds
+are called the same way, through their C entries with outputs and
+workspace allocated once (the wrappers' checks and allocations would
+add host time to one side only). Prints the median ms of each build at
 each shape (parent, this, this, parent in turn; 10 runs each) and the
 ratio parent / this. Exits non-zero past a bar.
 """
 import ctypes
-import os
 import statistics
 import subprocess
 import sys
@@ -34,22 +38,32 @@ from pathlib import Path
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
 
 from nerf_pl_tpu_torch.models import init_nerf_params  # noqa: E402
 from nerf_pl_tpu_torch.ops import _build  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_mlp as fm  # noqa: E402
-from nerf_pl_tpu_torch.ops import fused_train as ft  # noqa: E402
 
 SHAPES = ((8, 64), (1024, 64), (1024, 128), (37, 192))
 MLP_P = 131072
 TOL = {"weights": 5e-3, "rgb": 1e-2, "opacity": 1e-2, "depth": 5e-2}
 GRAD_TOL = 0.03
-OLD_WEIGHTS = fm._FULL + ("wdfT", "wfT", "wtT")
+ENTRIES = ("nerf_mse_workspace_bytes", "nerf_mlp_workspace_bytes",
+           "nerf_mse_render", "nerf_train_fwd", "nerf_train_bwd",
+           "nerf_mlp_bwd")
 
 
-def build_other(root: Path) -> ctypes.CDLL:
+def entries_of(root: Path):
+    """{name: (result, [(type, argument)])} of a checkout's C entries."""
+    entries = {}
+    for src in sorted((root / "nerf_pl_tpu_torch" / "csrc").glob("*.cu")):
+        entries.update(_build.c_entries(src.read_text()))
+    return entries
+
+
+def build_other(root: Path) -> Path:
+    """The other checkout's kernels as a library of their own."""
     out = root / "build" / "parent_kernels.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
@@ -59,21 +73,7 @@ def build_other(root: Path) -> ctypes.CDLL:
                      for s, o in zip(srcs, objs)])
     _build._run_all([[nvcc, "-shared", "-o", str(out), *map(str, objs),
                       *_build.LINK_FLAGS]])
-    lib = ctypes.CDLL(str(out))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.nerf_mse_workspace_bytes.argtypes = [i32, i32]
-    lib.nerf_mse_workspace_bytes.restype = ctypes.c_longlong
-    lib.nerf_mlp_workspace_bytes.argtypes = [i32]
-    lib.nerf_mlp_workspace_bytes.restype = ctypes.c_longlong
-    lib.nerf_mse_render.argtypes = [ptr] * 4 + [i32, i32] + [ptr] * 16 + \
-        [i32, ctypes.c_float] + [ptr] * 5
-    lib.nerf_mse_render.restype = i32
-    lib.nerf_train_bwd.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 16 + \
-        [i32] + [ptr] * 3
-    lib.nerf_train_bwd.restype = i32
-    lib.nerf_mlp_bwd.argtypes = [ptr] * 3 + [i32] + [ptr] * 16 + [ptr] * 3
-    lib.nerf_mlp_bwd.restype = i32
-    return lib
+    return out
 
 
 def median_ms(fn, reps=10):
@@ -105,17 +105,33 @@ def rel_errs(got, ref):
             for a, b in zip(got, ref)]
 
 
-class Other:
-    """The other build's three backwards, with this build's outputs."""
+class Build:
+    """One build's kernels, each called through its C entry with its
+    arguments looked up by name, and outputs allocated once per shape."""
 
-    def __init__(self, lib, weights):
-        self.lib, self.weights = lib, weights      # kept alive: the pointers
-        self.w = [weights[n].data_ptr() for n in OLD_WEIGHTS]
+    def __init__(self, path: Path, entries, mlp):
+        self.lib = ctypes.CDLL(str(path))
+        self.names = {}
+        for name in ENTRIES:
+            result, args = entries[name]
+            fn = getattr(self.lib, name)
+            fn.argtypes = [_build.CTYPES[kind] for kind, _ in args]
+            fn.restype = _build.CTYPES[result]
+            self.names[name] = [arg for _, arg in args]
+        k = mlp.kernel
+        self.tensors = dict(k)                 # kept alive: the pointers
+        if any({"wdfT", "wfT", "wtT"} & set(a) for a in self.names.values()):
+            self.tensors.update(wdfT=k["wdf"].t().contiguous(),
+                                wfT=k["wf"].t().contiguous(),
+                                wtT=k["wt"].transpose(1, 2).contiguous())
+        self.w = {n: t.data_ptr() for n, t in self.tensors.items()}
         self.stream = torch.cuda.current_stream().cuda_stream
 
-    def _check(self, err, what):
+    def call(self, name, **values):
+        args = {**self.w, "stream": self.stream, **values}
+        err = getattr(self.lib, name)(*(args[n] for n in self.names[name]))
         if err:
-            raise RuntimeError(f"other build's {what} returned {err}")
+            raise RuntimeError(f"{name} returned {err}")
 
     def mse(self, rays, z, noise, gt, scale):
         R, S = z.shape
@@ -127,12 +143,25 @@ class Other:
                          dtype=torch.uint8, device=dev)
 
         def run():
-            self._check(self.lib.nerf_mse_render(
-                rays.data_ptr(), z.data_ptr(), noise.data_ptr(),
-                gt.data_ptr(), R, S, *self.w, 1, scale, out8.data_ptr(),
-                w.data_ptr(), ws.data_ptr(), grad.data_ptr(), self.stream),
-                "nerf_mse_render")
+            self.call("nerf_mse_render", rays=rays.data_ptr(),
+                      z=z.data_ptr(), noise=noise.data_ptr(),
+                      gt=gt.data_ptr(), R=R, S=S, white_back=1, scale=scale,
+                      out8=out8.data_ptr(), weights=w.data_ptr(),
+                      workspace=ws.data_ptr(), grad=grad.data_ptr())
             return out8, w, fm._pack_layout_grads(grad)
+        return run
+
+    def train_fwd(self, rays, z, noise):
+        R, S = z.shape
+        out8 = torch.empty((R, 8), device=rays.device)
+        w = torch.empty((R, S), device=rays.device)
+
+        def run():
+            self.call("nerf_train_fwd", rays=rays.data_ptr(),
+                      z=z.data_ptr(), noise=noise.data_ptr(), R=R, S=S,
+                      white_back=1, out8=out8.data_ptr(),
+                      weights=w.data_ptr())
+            return out8, w
         return run
 
     def train_bwd(self, rays, z, noise, g8):
@@ -142,10 +171,10 @@ class Other:
                          dtype=torch.uint8, device=rays.device)
 
         def run():
-            self._check(self.lib.nerf_train_bwd(
-                rays.data_ptr(), z.data_ptr(), noise.data_ptr(),
-                g8.data_ptr(), None, R, S, *self.w, 1, ws.data_ptr(),
-                grad.data_ptr(), self.stream), "nerf_train_bwd")
+            self.call("nerf_train_bwd", rays=rays.data_ptr(),
+                      z=z.data_ptr(), noise=noise.data_ptr(),
+                      g8=g8.data_ptr(), gw=None, R=R, S=S, white_back=1,
+                      workspace=ws.data_ptr(), grad=grad.data_ptr())
             return fm._pack_layout_grads(grad)
         return run
 
@@ -156,16 +185,17 @@ class Other:
                          dtype=torch.uint8, device=x8.device)
 
         def run():
-            self._check(self.lib.nerf_mlp_bwd(
-                x8.data_ptr(), d8.data_ptr(), cot.data_ptr(), P, *self.w,
-                ws.data_ptr(), grad.data_ptr(), self.stream), "nerf_mlp_bwd")
+            self.call("nerf_mlp_bwd", p8=x8.data_ptr(), d8=d8.data_ptr(),
+                      g8=cot.data_ptr(), P=P, workspace=ws.data_ptr(),
+                      grad=grad.data_ptr())
             return fm._pack_layout_grads(grad)
         return run
 
 
 def compare(what, got, ref, out=None):
     """Prints and returns the failures of gradients `got` against `ref`
-    (and with out = ((out8, w), (ref8, ref_w)), the forward's too)."""
+    (none if `got` is None) and, with out = ((out8, w), (ref8, ref_w)),
+    of the forward's outputs."""
     bad = []
     msg = f"[parent] {what}:"
     if out is not None:
@@ -176,9 +206,10 @@ def compare(what, got, ref, out=None):
                 "weights": (w - rw).abs().max().item()}
         msg += " " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + ";"
         bad += [k for k, v in errs.items() if not v <= TOL[k]]
-    rels = rel_errs(got, ref)
-    msg += " grad rel per leaf " + " ".join(f"{r:.2e}" for r in rels)
-    bad += [f"grad {i}" for i, r in enumerate(rels) if not r <= GRAD_TOL]
+    if got is not None:
+        rels = rel_errs(got, ref)
+        msg += " grad rel per leaf " + " ".join(f"{r:.2e}" for r in rels)
+        bad += [f"grad {i}" for i, r in enumerate(rels) if not r <= GRAD_TOL]
     print(msg + (f"  FAIL {bad}" if bad else ""))
     return bad
 
@@ -194,14 +225,15 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    other = build_other(Path(argv[0]))
-    _build.load_library()
+    root = Path(argv[0])
+    other_lib = build_other(root)
 
     params = init_nerf_params(torch.Generator().manual_seed(0), device=dev)
     params["sigma"]["w"] = params["sigma"]["w"] * 50
     params["sigma"]["b"] = params["sigma"]["b"] + 2.0
     mlp = fm.pack_mlp(params, dev)
-    old = Other(other, fm._train_weights(mlp))
+    old = Build(other_lib, entries_of(root), mlp)
+    new = Build(_build.build(), entries_of(REPO), mlp)
     g = torch.Generator(device=dev).manual_seed(0)
     failed = []
     for R, S in SHAPES:
@@ -216,8 +248,7 @@ def main(argv=None):
         gt = torch.rand((R, 3), generator=g, device=dev)
         scale = 1.0 / (R * 3)
 
-        def here_mse():
-            return ft.fused_mse_render(mlp, rays, z, noise, gt, True, scale)
+        here_mse = new.mse(rays, z, noise, gt, scale)
         parent_mse = old.mse(rays, z, noise, gt, scale)
         h8, hw, hg = here_mse()
         p8, pw, pg = parent_mse()
@@ -226,14 +257,19 @@ def main(argv=None):
                           ((h8, hw), (p8, pw)))
         g8 = torch.zeros_like(p8)
         g8[:, 0:3] = 2.0 * scale * (p8[:, 0:3] - gt)
-
-        def here_tb():
-            return ft.train_backward(mlp, rays, z, noise, True, g8, None)
+        here_tf = new.train_fwd(rays, z, noise)
+        parent_tf = old.train_fwd(rays, z, noise)
+        here_f, parent_f = here_tf(), parent_tf()
+        torch.cuda.synchronize()
+        failed += compare(f"train_fwd R={R} S={S}", None, None,
+                          (here_f, parent_f))
+        here_tb = new.train_bwd(rays, z, noise, g8)
         parent_tb = old.train_bwd(rays, z, noise, g8)
         hg, pg = here_tb(), parent_tb()
         torch.cuda.synchronize()
         failed += compare(f"train_bwd R={R} S={S}", hg, pg)
         for name, (p_fn, h_fn) in (("mse_render", (parent_mse, here_mse)),
+                                   ("train_fwd", (parent_tf, here_tf)),
                                    ("train_bwd", (parent_tb, here_tb))):
             tp, th = timed_pair(p_fn, h_fn)
             print(f"[time] {name} R={R} S={S}: parent {tp:.3f} ms, this "
@@ -247,8 +283,7 @@ def main(argv=None):
     cot = torch.zeros((MLP_P, 8), device=dev)
     cot[:, :4] = torch.randn((MLP_P, 4), generator=g, device=dev) / MLP_P
 
-    def here_mlp():
-        return fm.mlp_backward(mlp, x8, d8, cot)
+    here_mlp = new.mlp_bwd(x8, d8, cot)
     parent_mlp = old.mlp_bwd(x8, d8, cot)
     hg, pg = here_mlp(), parent_mlp()
     torch.cuda.synchronize()

@@ -38,10 +38,10 @@ from nerf_pl_tpu_torch.training import (get_lr_schedule,  # noqa: E402
 BATCH, STEPS = 1024, 100
 GROUPS = (   # substring of the kernel's name: the launch it belongs to
     ("point_fwd_kernel", "mlp_fwd (point_fwd_kernel<true>)"),
-    ("mlp_bwd_kernel", "mlp_bwd A' (mlp_bwd_kernel)"),
+    ("point_fwdbwd_kernel", "mlp_bwd A' (point_fwdbwd_kernel)"),
     ("fwdbwd_kernel<false>", "mse_render A (fwdbwd_kernel<false>)"),
     ("fwdbwd_kernel<true>", "train_bwd A (fwdbwd_kernel<true>)"),
-    ("train_fwd_kernel", "train_fwd (train_fwd_kernel)"),
+    ("fwd_quad_kernel", "train_fwd (fwd_quad_kernel)"),
     ("wgrad_kernel", "B (wgrad_kernel)"),
     ("sum_slots", "C (sum_slots, sum_rows)"),
     ("sum_rows", "C (sum_slots, sum_rows)"),
