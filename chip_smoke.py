@@ -9,14 +9,20 @@
 3. Eval path. Holds each render kernel against its plain PyTorch version
    on the card, at ragged R = 4099 and S = 64, 128, 192, with the JAX
    kernels' test bars (weights 5e-3, rgb and opacity 1e-2, depth 5e-2),
-   and times both at the main path's tile (32768 rays) with CUDA events.
-   Then drives the eval path: random weights from a torch.Generator seed
-   are written as a checkpoint with the JAX package's keys, loaded back
-   with load_ckpt, and 2 frames of 400x400 at 64 + 64 samples are rendered
-   from sphere poses (radius 4, near 2, far 6) through make_render_fn, the
-   renderer of the eval CLI. Every output must be finite, opacity within
-   [0, 1 + 1e-4], both kernels must have launched, and 4096 rays of frame 0
-   must agree with the plain unfused path on the card within 2e-2.
+   and render_eval against train_fwd on a zero noise tensor at the same
+   shapes, white background on and off: rgb, depth and opacity bit for bit
+   out8[:, 0:5] (render_eval is train_fwd's forward tile loop and
+   quadrature with no noise). Times both render kernels at the main
+   path's tile (32768 rays) with CUDA events. Then drives the eval path:
+   random weights from a torch.Generator seed are written as a checkpoint
+   with the JAX package's keys, loaded back with load_ckpt, and 2 frames
+   of 400x400 at 64 + 64 samples and 2 of 800x800 at 64 + 128 (eval.py's
+   defaults; the first of each a warm-up) are rendered from sphere poses
+   (radius 4, near 2, far 6) through make_render_fn, the renderer of the
+   eval CLI, and the s/frame of both printed. Every output must be finite,
+   opacity within [0, 1 + 1e-4], both kernels must have launched, and
+   4096 rays of the first frame of each size must agree with the plain
+   unfused path on the card within 2e-2.
 4. Train path. Holds the training kernel (mse_render) against its plain
    version at R = 8, 1024, 4104 and S = 64, 128, 192: out8 and weights at
    the same bars, each gradient leaf within a relative max error of
@@ -127,6 +133,7 @@ RAY_CAP = {"rgb": 0.25, "depth": 1.0}   # no such ray may pass these
 CHUNK = 32768            # eval.py's default --chunk: the kernels' main R
 IMG = 400
 N_SAMPLES, N_IMPORTANCE = 64, 64
+BIG_IMG, BIG_IMPORTANCE = 800, 128     # eval.py's defaults
 CAMERA_ANGLE_X = 0.8575560450553894   # blender scenes' field of view
 KERNELS = {   # name: (TPU kernel it replaces, source of the port's)
     "sigma_render": ("nerf_pl_tpu/ops/fused_render.py:194",
@@ -279,6 +286,29 @@ def compare_kernels(mlp, dev):
     return errs
 
 
+def compare_eval_to_train_fwd(mlp, dev):
+    """render_eval against train_fwd with zero noise at compare_kernels'
+    shapes, white background on and off: rgb, depth and opacity must equal
+    out8[:, 0:5] bit for bit."""
+    for S in (64, 128, 192):
+        rays, z = rays_z(4099, S, dev, seed=S)
+        zero = torch.zeros_like(z)
+        for white in (True, False):
+            out = fr.fused_render_eval(mlp, rays, z, white_back=white)
+            f8, _ = ft.train_forward(mlp, rays, z, zero, white)
+            torch.cuda.synchronize()
+            got = torch.cat([out["rgb"], out["depth"][:, None],
+                             out["opacity"][:, None]], 1)
+            diff = max_err(got, f8[:, 0:5])
+            same = torch.equal(got, f8[:, 0:5])
+            print(f"[compare] render_eval vs train_fwd (zero noise) R=4099 "
+                  f"S={S} white={white}: max difference {diff:.3e}, "
+                  f"bit-identical: {same}")
+            if not same:
+                raise AssertionError(f"render_eval S={S} white={white}: "
+                                     f"differs from train_fwd by {diff}")
+
+
 def time_kernels(mlp, dev):
     """Median ms of kernel and plain version at R = CHUNK rays."""
     times = {}
@@ -328,56 +358,69 @@ def main_path(dev):
                 if not torch.equal(loaded[m][layer][leaf], v):
                     raise AssertionError(f"checkpoint round trip: {m}/{layer}")
 
-    focal = 0.5 * 800 / np.tan(0.5 * CAMERA_ANGLE_X) * IMG / 800
-    frames = [frame_rays(sphere_pose(theta, np.pi / 5, 4.0), IMG, IMG, focal,
+    reset_counts()
+    secs = {}
+    for img, n_imp in ((IMG, N_IMPORTANCE), (BIG_IMG, BIG_IMPORTANCE)):
+        secs[img] = eval_frames(dev, loaded, img, n_imp)
+    launches = {"sigma_render": fr.sigma_render_launches,
+                "render_eval": fr.render_eval_launches}
+    print(f"[main] launches {launches}; {IMG}x{IMG} at {N_SAMPLES}+"
+          f"{N_IMPORTANCE}: {secs[IMG][1]:.4f} s/frame; {BIG_IMG}x{BIG_IMG} "
+          f"at {N_SAMPLES}+{BIG_IMPORTANCE}: {secs[BIG_IMG][1]:.4f} s/frame")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the main path never launched {name}")
+    return launches, secs
+
+
+def eval_frames(dev, params, img, n_imp):
+    """Two frames of img x img at N_SAMPLES + n_imp through the eval CLI's
+    renderer, the first a warm-up; checks both and 4096 rays of the first
+    against the plain unfused path. Returns the seconds of each."""
+    focal = 0.5 * 800 / np.tan(0.5 * CAMERA_ANGLE_X) * img / 800
+    frames = [frame_rays(sphere_pose(theta, np.pi / 5, 4.0), img, img, focal,
                          2.0, 6.0, dev) for theta in (0.3, 1.9)]
-    base = dict(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
-                test_time=True, white_back=True)
+    base = dict(N_samples=N_SAMPLES, N_importance=n_imp, test_time=True,
+                white_back=True)
     render = make_render_fn(RenderConfig(**base, fused=True), CHUNK, dev,
                             device_out=True)
-
-    reset_counts()
     outs, secs = [], []
     for rays in frames:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs.append(render(loaded, rays))
+        outs.append(render(params, rays))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    launches = {"sigma_render": fr.sigma_render_launches,
-                "render_eval": fr.render_eval_launches}
-    print(f"[main] 2 frames {IMG}x{IMG}, {N_SAMPLES}+{N_IMPORTANCE} samples, "
-          f"chunk {CHUNK}: launches {launches}; frame 1 {secs[0]:.4f} s "
-          f"(first dispatch), frame 2 {secs[1]:.4f} s/frame")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the main path never launched {name}")
-
+    what = f"{img}x{img}, {N_SAMPLES}+{n_imp} samples, chunk {CHUNK}"
+    print(f"[main] 2 frames {what}: frame 1 {secs[0]:.4f} s (first "
+          f"dispatch), frame 2 {secs[1]:.4f} s/frame")
     for i, out in enumerate(outs):
         for k, v in out.items():
-            if v.shape[0] != IMG * IMG or not torch.isfinite(v).all():
-                raise AssertionError(f"frame {i}: {k} not finite or "
-                                     f"misshapen {tuple(v.shape)}")
+            if v.shape[0] != img * img or not torch.isfinite(v).all():
+                raise AssertionError(f"{img}x{img} frame {i}: {k} not finite"
+                                     f" or misshapen {tuple(v.shape)}")
         for k in ("opacity_coarse", "opacity_fine"):
             lo, hi = out[k].min().item(), out[k].max().item()
             if lo < 0.0 or hi > 1.0 + 1e-4:
-                raise AssertionError(f"frame {i}: {k} in [{lo}, {hi}]")
+                raise AssertionError(f"{img}x{img} frame {i}: {k} in "
+                                     f"[{lo}, {hi}]")
     rgb = outs[0]["rgb_fine"]
-    print(f"[main] frame 1 rgb mean {rgb.mean().item():.4f} std "
+    print(f"[main] {img}x{img} frame 1 rgb mean {rgb.mean().item():.4f} std "
           f"{rgb.std().item():.4f}, opacity_fine mean "
           f"{outs[0]['opacity_fine'].mean().item():.4f}")
 
-    idx = torch.linspace(0, IMG * IMG - 1, 4096, device=dev).long()
+    idx = torch.linspace(0, img * img - 1, 4096, device=dev).long()
     plain = make_render_fn(RenderConfig(**base), 4096, dev,
-                           device_out=True)(loaded, frames[0][idx])
+                           device_out=True)(params, frames[0][idx])
     errs = {k: max_err(outs[0][k][idx], v) for k, v in plain.items()}
-    print("[main] fused vs plain unfused path, 4096 rays of frame 1: "
-          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    print(f"[main] {what}: fused vs plain unfused path, 4096 rays of frame "
+          f"1: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (tol {MAIN_PATH_TOL})")
     for k, v in errs.items():
         if not v <= MAIN_PATH_TOL:
-            raise AssertionError(f"main path {k}: {v} > {MAIN_PATH_TOL}")
-    return launches, secs
+            raise AssertionError(f"main path {img}x{img} {k}: {v} > "
+                                 f"{MAIN_PATH_TOL}")
+    return secs
 
 
 def mse_inputs(R, S, dev, seed):
@@ -981,6 +1024,7 @@ def main():
 
     mlp = fm.pack_mlp(dense_params(0, dev), dev)
     errs = compare_kernels(mlp, dev)
+    compare_eval_to_train_fwd(mlp, dev)
     times = time_kernels(mlp, dev)
     launches, _ = main_path(dev)
 

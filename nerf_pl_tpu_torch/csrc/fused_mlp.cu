@@ -20,19 +20,30 @@
 //                B, C              mlp_grad.cuh's wgrad and ordered sums.
 //              The points get no gradients (the TPU kernel returns zeros).
 //
-// mlp_fwd and sigma_fwd: a block takes PPB = 4 tiles of consecutive points
-// and runs nerf_mlp.cuh's WMMA tile on each, its inputs loaded from rows
-// of p8 / d8 (build_point_inputs) instead of built from o + d z.
+// mlp_fwd is launch A' without its backward: per tile of 128 consecutive
+// points, row_points -> embed_tile -> forward_tile (mlp_wgmma.cuh: wgmma
+// m64n256k16, 32 KB weight slabs that one TMA producer warpgroup streams
+// to two consumer warpgroups) into the tile's f32 sigma and rgb in shared
+// memory, then one 16-byte store per half row of out8. Its layout is that
+// of A' without the backward's regions (212,608 bytes with 3 ring
+// stages, not 220,032); a fourth stage (245,376) or a second block an SM
+// (two blocks' 384 threads at 232 and 40 registers need 129,024 of
+// 65,536) does not fit.
 //
-// Launch A': a point's backward needs only its own tile, not a whole ray,
-// so each tile's backward runs right after its forward, and a block walks
-// tiles t = blockIdx.x, + gridDim.x, ... of a persistent grid of at most
-// WAVE = 132 blocks (one a SM: a block takes 220,032 bytes of shared
-// memory). The producer streams each tile's forward slabs, then its
-// backward's, without a pause between tiles; a block zeroes its two rows
-// of bias partials once (264 rows for launch C to sum, not one pair a
-// tile). The mask bits of a tile are read back right after they were
-// written, while they are still in L2.
+// sigma_fwd: a block takes PPB = 4 tiles of consecutive points and runs
+// nerf_mlp.cuh's sigma-only WMMA tile on each, its inputs loaded from rows
+// of p8 (build_point_inputs) instead of built from o + d z.
+//
+// Launches A' and mlp_fwd: a point needs only its own tile, not a whole
+// ray, so each tile's backward runs right after its forward, and a block
+// walks tiles t = blockIdx.x, + gridDim.x, ... of a persistent grid of at
+// most WAVE = 132 blocks (one a SM: A' takes 220,032 bytes of shared
+// memory). The producer streams each tile's forward slabs (then its
+// backward's) without a pause between tiles; a block initialises its
+// barriers and bias copy once, and A' zeroes its two rows of bias
+// partials once (264 rows for launch C to sum, not one pair a tile). The
+// mask bits of a tile are read back right after they were written, while
+// they are still in L2.
 //
 // A ragged P is masked: rows past P are zero inputs whose outputs are
 // never written and whose cotangents are zero, so they add exactly nothing
@@ -40,12 +51,12 @@
 // points instead and slices them off, so their cotangents are zero there
 // too.)
 //
-// What bounds them: tensor-core work, 1.19 MFLOP per point forward (0.98
-// for sigma only) and 2.94x that for the backward (0.4624 ms at P =
-// 131,072 on an H100 SXM's 989 TFLOP/s). Device memory sees the points
-// and outputs (~32 bytes a point each way) and, for mlp_bwd, ~10 KB of
-// bf16 scratch per point, written by A' and read by B, as in mse_render:
-// 0.39 ms each way at 3.35 TB/s, this design's floor.
+// What bounds them: tensor-core work, 1.19 MFLOP per point forward (0.157
+// ms at P = 131,072 on an H100 SXM's 989 TFLOP/s; 0.98 MFLOP for sigma
+// only) and 2.94x that for the backward (0.4624 ms). Device memory sees
+// the points and outputs (~32 bytes a point each way) and, for mlp_bwd,
+// ~10 KB of bf16 scratch per point, written by A' and read by B, as in
+// mse_render: 0.39 ms each way at 3.35 TB/s, this design's floor.
 //
 // Launch contract: the caller's stream, no allocation (mlp_bwd takes a
 // workspace of nerf_mlp_workspace_bytes(P)), and the entry points return
@@ -56,39 +67,24 @@
 
 namespace nerf {
 
-constexpr int PPB = 4 * TP;     // points per block
+constexpr int PPB = 4 * TP;     // points per block of sigma_fwd
 
-inline int point_blocks(int P) { return (P + PPB - 1) / PPB; }
-
-// The render kernels' shared memory for one "ray" of TP samples (its ray
-// and depth regions go unused).
-inline size_t point_smem(bool full) { return SmemLayout(TP, 1, full).total; }
-
-// FULL: out (P, 8) = [rgb, raw sigma, 0, 0, 0, 0]; else out (P,) raw sigma.
-template <bool FULL>
+// out (P,) raw sigma.
 __global__ void __launch_bounds__(NTHREADS, 2)
-point_fwd_kernel(const float* __restrict__ p8, const float* __restrict__ d8,
-                 int P, MlpWeights p, float* __restrict__ out) {
+sigma_point_kernel(const float* __restrict__ p8, int P, MlpWeights p,
+                   float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem sm = smem_at(smem_raw, SmemLayout(TP, 1, FULL));
+  const Smem sm = smem_at(smem_raw, SmemLayout(TP, 1));
   const int p0 = blockIdx.x * PPB;
   const int end = min(P, p0 + PPB);
   for (int t0 = p0; t0 < end; t0 += TP) {
     const int nv = min(TP, end - t0);
-    build_point_inputs<FULL>(sm, p8, d8, t0, end);
+    build_point_inputs(sm, p8, t0, end);
     __syncthreads();
-    mlp_tile<FULL>(p, sm, sm.sig, sm.rgb, nv);
+    mlp_tile(p, sm, sm.sig, nv);
     __syncthreads();
-    if constexpr (FULL) {
-      for (int i = threadIdx.x; i < nv * 8; i += NTHREADS) {
-        const int r = i >> 3, c = i & 7;
-        out[(size_t)t0 * 8 + i] =
-            c < 3 ? sm.rgb[r * 3 + c] : (c == 3 ? sm.sig[r] : 0.f);
-      }
-    } else {
-      for (int i = threadIdx.x; i < nv; i += NTHREADS)
-        out[(size_t)t0 + i] = sm.sig[i];
-    }
+    for (int i = threadIdx.x; i < nv; i += NTHREADS)
+      out[(size_t)t0 + i] = sm.sig[i];
   }
 }
 
@@ -99,25 +95,28 @@ struct PointArgs : GradArgs {
   int P;
   float* bias_part;         // (2 gridDim.x, NBIAS)
   uint4* bits;              // the ReLU masks, MASK_TILE_BYTES a tile
+  float* out8;              // (P, 8)  mlp_fwd
 };
 
-// Shared memory of launch A': the tile loops' regions (the warpgroups'
-// point rows in the column-sum stage) and the tile's raw sigma and f32
-// rgb.
+// Shared memory of launch A' (bwd) or mlp_fwd: the tile loops' regions
+// (A': the warpgroups' point rows in the column-sum stage; mlp_fwd: a
+// region of their own) and the tile's raw sigma and f32 rgb.
 struct PtLayout {
   size_t xd, h, ring, stage, dzr, bias, bar, sig, rgb, total;
-  __host__ __device__ explicit PtLayout(int nst) {
+  int pts_wg;     // floats from one warpgroup's point rows to the other's
+  __host__ __device__ PtLayout(int nst, bool bwd) {
     size_t o = 0;
     xd = o;     o += 2 * ATILE;
     h = o;      o += 4 * ATILE;
     ring = o;   o += (size_t)nst * SLAB_BYTES;
-    stage = o;  o += sizeof(float) * 8 * ST_LD;
-    dzr = o;    o += sizeof(float) * AT * 4;
+    stage = o;  o += sizeof(float) * (bwd ? 8 * ST_LD : 2 * PTS_WG);
+    dzr = o;    o += bwd ? sizeof(float) * AT * 4 : 0;
     bias = o;   o += sizeof(float) * N_EPI_BIAS;
     bar = o;    o += align128(2 * 8 * nst);
     sig = o;    o += align128(sizeof(float) * AT);
     rgb = o;    o += align128(sizeof(float) * AT * 3);
     total = o + 1024;                     // room to align the base
+    pts_wg = bwd ? 4 * ST_LD : PTS_WG;
   }
 };
 constexpr int PT_STAGES = 3;
@@ -161,7 +160,7 @@ point_fwdbwd_kernel(const __grid_constant__ WeightMaps wm,
                     int nst) {
   extern __shared__ __align__(1024) unsigned char araw[];
   unsigned char* base = align1024(araw);
-  const PtLayout L(nst);
+  const PtLayout L(nst, true);
   unsigned char* xd = base + L.xd;
   unsigned char* h = base + L.h;
   float* stage = reinterpret_cast<float*>(base + L.stage);
@@ -189,7 +188,7 @@ point_fwdbwd_kernel(const __grid_constant__ WeightMaps wm,
   const Wg wg = consumer_wg();
   float* bias = a.bias_part + (size_t)(2 * blockIdx.x + wg.g) * NBIAS;
   for (int i = wg.t; i < NBIAS; i += 128) bias[i] = 0.f;
-  float* pts = stage + wg.g * 4 * ST_LD;
+  float* pts = stage + wg.g * L.pts_wg;
   int held = -1;
   for (int t = blockIdx.x; t < ntile; t += gridDim.x) {
     const size_t row0 = (size_t)t * AT;
@@ -214,20 +213,54 @@ point_fwdbwd_kernel(const __grid_constant__ WeightMaps wm,
   if (wg.leader) bulk_wait_all();
 }
 
-template <bool FULL>
-int launch_fwd(const void* p8, const void* d8, int P, const MlpWeights& p,
-               void* out, void* stream) {
-  if (P <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = point_smem(FULL);
-  cudaError_t err = cudaFuncSetAttribute(
-      point_fwd_kernel<FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  point_fwd_kernel<FULL><<<point_blocks(P), NTHREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p8), static_cast<const float*>(d8), P, p,
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+// mlp_fwd: launch A' without its backward; rows [rgb, raw sigma, 0, 0,
+// 0, 0] of out8.
+__global__ void __launch_bounds__(A_THREADS, 1)
+mlp_fwd_kernel(const __grid_constant__ WeightMaps wm, PointArgs a, int nst) {
+  extern __shared__ __align__(1024) unsigned char araw[];
+  unsigned char* base = align1024(araw);
+  const PtLayout L(nst, false);
+  unsigned char* xd = base + L.xd;
+  unsigned char* h = base + L.h;
+  float* eb = reinterpret_cast<float*>(base + L.bias);
+  float* sig = reinterpret_cast<float*>(base + L.sig);
+  float* rgb = reinterpret_cast<float*>(base + L.rgb);
+  Ring ring = start_block(base + L.ring,
+                          reinterpret_cast<uint64_t*>(base + L.bar), nst,
+                          a.p, eb);
+  const int tid = threadIdx.x;
+  const int ntile = PShape(a.P).ntile;
+  __syncthreads();
+  if (tid >= 256) {                       // producer warpgroup
+    regs_dealloc<40>();
+    if (tid == 256)
+      for (int t = blockIdx.x; t < ntile; t += gridDim.x)
+        produce_fwd(wm, ring);
+    return;
+  }
+  regs_alloc<232>();
+
+  const Wg wg = consumer_wg();
+  float* pts = reinterpret_cast<float*>(base + L.stage) + wg.g * L.pts_wg;
+  int held = -1;
+  for (int t = blockIdx.x; t < ntile; t += gridDim.x) {
+    const size_t row0 = (size_t)t * AT;
+    const long long left = a.P - (long long)row0;
+    const int nv = left < AT ? static_cast<int>(left) : AT;
+    row_points(wg, a.p8, a.d8, row0, nv, pts);
+    embed_tile<false>(wg, nv, pts, xd, nullptr, nullptr);
+    forward_tile<false>(wg, ring, held, a.p, eb, nullptr, xd, h, nullptr, 0,
+                        nv, sig, rgb);
+    wg.sync();                            // the warpgroup's sig and rgb rows
+    // two threads a row of the warpgroup's 64: [rgb, sigma], then zeros
+    const int r = 64 * wg.g + (wg.t >> 1);
+    if (r < nv) {
+      const float4 v = wg.t & 1 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                : make_float4(rgb[3 * r], rgb[3 * r + 1],
+                                              rgb[3 * r + 2], sig[r]);
+      reinterpret_cast<float4*>(a.out8 + (row0 + r) * 8)[wg.t & 1] = v;
+    }
+  }
 }
 
 }  // namespace nerf
@@ -240,18 +273,43 @@ int nerf_mlp_fwd(const void* p8, const void* d8, int P, const void* w0,
                  const void* bf, const void* wdf, const void* wdd,
                  const void* bd, const void* wr, const void* br, void* out8,
                  void* stream) {
-  const nerf::MlpWeights p = nerf::weights_at(w0, wt, wsk, bt, ws, bs, wf,
-                                              bf, wdf, wdd, bd, wr, br);
-  return nerf::launch_fwd<true>(p8, d8, P, p, out8, stream);
+  using namespace nerf;
+  if (P <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  PointArgs a{};
+  a.p = weights_at(w0, wt, wsk, bt, ws, bs, wf, bf, wdf, wdd, bd, wr, br);
+  a.p8 = static_cast<const float*>(p8);
+  a.d8 = static_cast<const float*>(d8);
+  a.P = P;
+  a.out8 = static_cast<float*>(out8);
+  WeightMaps wm;
+  if (!weight_maps(a.p, &wm)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = PtLayout(PT_STAGES, false).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mlp_fwd_kernel<<<PShape(P).grid, A_THREADS, smem,
+                   static_cast<cudaStream_t>(stream)>>>(wm, a, PT_STAGES);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int nerf_sigma_fwd(const void* p8, int P, const void* w0, const void* wt,
                    const void* wsk, const void* bt, const void* ws,
                    const void* bs, void* sigma, void* stream) {
-  const nerf::MlpWeights p = nerf::weights_at(
-      w0, wt, wsk, bt, ws, bs, nullptr, nullptr, nullptr, nullptr, nullptr,
-      nullptr, nullptr);
-  return nerf::launch_fwd<false>(p8, nullptr, P, p, sigma, stream);
+  using namespace nerf;
+  if (P <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const MlpWeights p = weights_at(w0, wt, wsk, bt, ws, bs, nullptr, nullptr,
+                                  nullptr, nullptr, nullptr, nullptr,
+                                  nullptr);
+  const size_t smem = SmemLayout(TP, 1).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      sigma_point_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sigma_point_kernel<<<(P + PPB - 1) / PPB, NTHREADS, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p8), P, p, static_cast<float*>(sigma));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Bytes of mlp_bwd's workspace: the scratch of whole tiles, launch B's
@@ -286,7 +344,7 @@ int nerf_mlp_bwd(const void* p8, const void* d8, const void* g8, int P,
   ScratchMaps scm;
   if (!weight_maps(a.p, &wm) || !scratch_maps(a.s, &scm))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = PtLayout(PT_STAGES).total;
+  const size_t smem = PtLayout(PT_STAGES, true).total;
   cudaError_t err = cudaFuncSetAttribute(
       point_fwdbwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -14,14 +14,16 @@
 //
 // Per tile of rays they compute the points o + d*z, gamma(x) and gamma(d),
 // the MLP forward in bf16 with f32 sums (mlp_wgmma.cuh's forward_tile) and
-// the training quadrature with sigma noise (quad_forward, shared by the
-// three as the TPU kernels share _quad_forward). The two backwards then
-// form a_k = dL/dw_k from their cotangent (a template policy: the MSE
-// cotangent, or the given g8 and gw), run the analytic quadrature VJP
-// (quad_vjp) and the weight gradients. train_bwd recomputes the forward,
-// as the TPU backward does, so the two-kernel path does one forward more
-// than mse_render. train_fwd runs the very forward and quadrature of
-// mse_render, so its out8 and weights equal mse_render's bit for bit.
+// the training quadrature with sigma noise (ray_tile.cuh's blocks of rays
+// and quad_forward, shared by the three as the TPU kernels share
+// _quad_forward, and with render_eval in fused_render.cu). The two
+// backwards then form a_k = dL/dw_k from their cotangent (a template
+// policy: the MSE cotangent, or the given g8 and gw), run the analytic
+// quadrature VJP (quad_vjp) and the weight gradients. train_bwd
+// recomputes the forward, as the TPU backward does, so the two-kernel path
+// does one forward more than mse_render. train_fwd runs the very forward
+// and quadrature of mse_render, so its out8 and weights equal
+// mse_render's bit for bit.
 //
 // Why it is not carried over block by block: the TPU kernel keeps the
 // weights, every activation of a tile and 2.4 MB of f32 gradient
@@ -66,105 +68,20 @@
 // the first CUDA error of their launches.
 #include <cuda_runtime.h>
 
-#include "mlp_wgmma.cuh"
+#include "ray_tile.cuh"
 
 namespace nerf {
 
-struct TrainArgs : GradArgs {
-  const float* rays;
-  const float* z;
-  const float* noise;
+struct TrainArgs : GradArgs, RayArgs {
   const float* gt;          // (R, 3)  mse_render
   const float* g8;          // (R, 8)  train_bwd: [d rgb (3), d depth, d op]
   const float* gw;          // (R, S)  train_bwd, may be null
-  int R, S, rpb, white_back;
   float scale;
   float* out8;
   float* weights;
   float* bias_part;         // (rows, NBIAS)
   uint4* bits;              // launch A's ReLU masks (MASK_TILE_BYTES a tile)
 };
-
-// The per-point and per-ray f32 data of the quadrature and its VJP.
-struct Extra {
-  float* noise;   // rpb * S
-  float* w;       // rpb * S   quadrature weights
-  float* trans;   // rpb * S   transmittance
-  float* gsig;    // rpb * S   dL/dsigma (backward)
-  float* grgb;    // rpb x 4   dL/drgb of each ray (backward)
-};
-
-__device__ __forceinline__ float dir_norm(const float* ray) {
-  return sqrtf(__fadd_rn(
-      __fadd_rn(__fmul_rn(ray[3], ray[3]), __fmul_rn(ray[4], ray[4])),
-      __fmul_rn(ray[5], ray[5])));
-}
-
-// delta_k = (z_{k+1} - z_k) |d| (1e10 |d| for the last) and its optical
-// depth delta_k relu(sigma_k + noise_k); rounded like the plain version.
-__device__ __forceinline__ float sample_delta(const float* zr, int s, int S,
-                                              float dn) {
-  return __fmul_rn(s + 1 < S ? zr[s + 1] - zr[s] : 1e10f, dn);
-}
-
-struct RayQuad {
-  float rgb0, rgb1, rgb2, dep, op;   // rgb with the white background
-};
-
-// Warp per ray: the training quadrature of ray r of the block (the TPU
-// kernels' _quad_forward). T_k = exp(-exclusive prefix sum of o_k), no
-// +1e-10; w_k and T_k of each sample go to ex.w and ex.trans, w_k also to
-// wglob unless it is null. Every lane returns the ray's sums.
-__device__ RayQuad quad_forward(const TrainArgs& a, const Smem& sm,
-                                const Extra& ex, int r, float dn,
-                                float* wglob) {
-  const int lane = threadIdx.x & 31;
-  const int S = a.S;
-  const float* zr = sm.z + r * S;
-  const float* sr = sm.sig + r * S;
-  const float* nr = ex.noise + r * S;
-  const float* cr = sm.rgb + (size_t)r * S * 3;
-  float* wr = ex.w + r * S;
-  float* tr = ex.trans + r * S;
-  float carry = 0.f, op = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, dep = 0.f;
-  for (int s0 = 0; s0 < S; s0 += 32) {
-    const int s = s0 + lane;
-    float o = 0.f;
-    if (s < S)
-      o = __fmul_rn(sample_delta(zr, s, S, dn), fmaxf(sr[s] + nr[s], 0.f));
-    float inc = o;                       // inclusive prefix scan
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, inc, off);
-      if (lane >= off) inc += y;
-    }
-    float exc = __shfl_up_sync(0xffffffffu, inc, 1);
-    exc = (lane == 0 ? 0.f : exc) + carry;
-    carry += __shfl_sync(0xffffffffu, inc, 31);
-    if (s < S) {
-      const float t = expf(-exc);
-      const float w = (1.f - expf(-o)) * t;
-      wr[s] = w;
-      tr[s] = t;
-      if (wglob) wglob[s] = w;
-      op += w;
-      c0 += w * cr[s * 3 + 0];
-      c1 += w * cr[s * 3 + 1];
-      c2 += w * cr[s * 3 + 2];
-      dep += w * zr[s];
-    }
-  }
-#pragma unroll
-  for (int m = 16; m >= 1; m >>= 1) {
-    op += __shfl_xor_sync(0xffffffffu, op, m);
-    c0 += __shfl_xor_sync(0xffffffffu, c0, m);
-    c1 += __shfl_xor_sync(0xffffffffu, c1, m);
-    c2 += __shfl_xor_sync(0xffffffffu, c2, m);
-    dep += __shfl_xor_sync(0xffffffffu, dep, m);
-  }
-  const float bg = a.white_back ? 1.f - op : 0.f;
-  return {c0 + bg, c1 + bg, c2 + bg, dep, op};
-}
 
 // Lanes 0..7 write the ray's out8 row [rgb, depth, opacity, 0, 0, 0].
 __device__ __forceinline__ void write_out8(float* row, const RayQuad& q) {
@@ -194,13 +111,13 @@ struct RayCot {
 // may fuse g0 c0 + g1 c1 into one FMA either way round, and does so
 // alike.
 template <bool GIVEN>
-__device__ void quad_vjp(const TrainArgs& a, const Smem& sm, const Extra& ex,
-                         int r, float dn, const RayCot& g) {
+__device__ void quad_vjp(const TrainArgs& a, const RaySmem& sm,
+                         const Extra& ex, int r, float dn, const RayCot& g) {
   const int lane = threadIdx.x & 31;
   const int S = a.S;
   const float* zr = sm.z + r * S;
   const float* sr = sm.sig + r * S;
-  const float* nr = ex.noise + r * S;
+  const float* nr = ex.noise ? ex.noise + r * S : nullptr;
   const float* cr = sm.rgb + (size_t)r * S * 3;
   const float* wr = ex.w + r * S;
   const float* tr = ex.trans + r * S;
@@ -232,7 +149,7 @@ __device__ void quad_vjp(const TrainArgs& a, const Smem& sm, const Extra& ex,
     later += __shfl_sync(0xffffffffu, inc, 0);
     if (s < S) {
       const float delta = sample_delta(zr, s, S, dn);
-      const float s_eff = sr[s] + nr[s];
+      const float s_eff = sr[s] + (nr ? nr[s] : 0.f);
       const float o = __fmul_rn(delta, fmaxf(s_eff, 0.f));
       const float d_o = av * tr[s] * expf(-o) - exc;
       ex.gsig[r * S + s] = s_eff > 0.f ? d_o * delta : 0.f;
@@ -243,13 +160,14 @@ __device__ void quad_vjp(const TrainArgs& a, const Smem& sm, const Extra& ex,
 // ------------------------------------------------------ launches on rays --
 //
 // One block per rpb whole rays: their points in tiles of AT = 128
-// (mlp_wgmma.cuh's block shape). Shared memory (FbLayout) is the tile
-// loops' regions, the warpgroups' point rows (in the column-sum stage of a
-// backward, a region of their own in train_fwd), and the per-ray and
-// per-point f32 data: rays, z, sigma, noise, rgb, quadrature weights and
-// transmittance, and for a backward dL/dsigma (32 bytes a point, 36 with
-// the backward's). The ring has nst = 3 stages, 2 where a long ray would
-// not fit 227 KB with 3 (a backward at S > ~390, train_fwd at S > ~670).
+// (mlp_wgmma.cuh's block shape). Shared memory (ray_tile.cuh's FbLayout,
+// pass BWD or FWD) is the tile loops' regions, the warpgroups' point rows
+// (in the column-sum stage of a backward, a region of their own in
+// train_fwd), and the per-ray and per-point f32 data: rays, z, sigma,
+// noise, rgb, quadrature weights and transmittance, and for a backward
+// dL/dsigma (32 bytes a point, 36 with the backward's). The ring has nst =
+// 3 stages, 2 where a long ray would not fit 227 KB with 3 (a backward at
+// S > ~390, train_fwd at S > ~670).
 // At S = 128 a backward block takes 222,848 bytes and train_fwd's 214,784,
 // so one block per SM, and a batch of R = 1024 is 1024 blocks, 7.8 waves
 // of 132 SMs; at S = 64: rpb = 2, 512 blocks, 3.9 waves.
@@ -269,86 +187,6 @@ struct AShape {
         rows((size_t)grid * ntile * AT) {}
 };
 
-// BWD: a backward's layout (launch A); else train_fwd's.
-struct FbLayout {
-  size_t xd, h, ring, stage, dzr, bias, bar, rays, z, sig, noise, rgb, w,
-      trans, gsig, grgb, total;
-  int pts_wg;     // floats from one warpgroup's point rows to the other's
-  __host__ __device__ FbLayout(int S, int rpb, int nst, bool bwd) {
-    const size_t n = sizeof(float) * rpb * S;
-    size_t o = 0;
-    xd = o;     o += 2 * ATILE;
-    h = o;      o += 4 * ATILE;
-    ring = o;   o += (size_t)nst * SLAB_BYTES;
-    stage = o;  o += sizeof(float) * (bwd ? 8 * ST_LD : 2 * PTS_WG);
-    dzr = o;    o += bwd ? sizeof(float) * AT * 4 : 0;
-    bias = o;   o += sizeof(float) * N_EPI_BIAS;
-    bar = o;    o += align128(2 * 8 * nst);
-    rays = o;   o += align128(sizeof(float) * rpb * 8);
-    z = o;      o += align128(n);
-    sig = o;    o += align128(n);
-    noise = o;  o += align128(n);
-    rgb = o;    o += align128(3 * n);
-    w = o;      o += align128(n);
-    trans = o;  o += align128(n);
-    gsig = o;   o += bwd ? align128(n) : 0;
-    grgb = o;   o += bwd ? align128(sizeof(float) * rpb * 4) : 0;
-    total = o + 1024;                     // room to align the base
-    pts_wg = bwd ? 4 * ST_LD : PTS_WG;
-  }
-};
-
-inline int ring_stages(int S, int rpb, bool bwd) {
-  return FbLayout(S, rpb, 3, bwd).total <= MAX_SMEM ? 3 : 2;
-}
-
-// A block of rays in shared memory: the regions of layout L at `base`,
-// and its rays, depths and noise loaded (rays past R are zero rows).
-struct RayBlock {
-  Smem sm;
-  Extra ex;
-  int ray0, nray, npt, ntile;
-  __device__ RayBlock(unsigned char* base, const FbLayout& L,
-                      const TrainArgs& a) : sm{}, ex{} {
-    sm.rays = reinterpret_cast<float*>(base + L.rays);
-    sm.z = reinterpret_cast<float*>(base + L.z);
-    sm.sig = reinterpret_cast<float*>(base + L.sig);
-    sm.rgb = reinterpret_cast<float*>(base + L.rgb);
-    ex.noise = reinterpret_cast<float*>(base + L.noise);
-    ex.w = reinterpret_cast<float*>(base + L.w);
-    ex.trans = reinterpret_cast<float*>(base + L.trans);
-    ex.gsig = reinterpret_cast<float*>(base + L.gsig);
-    ex.grgb = reinterpret_cast<float*>(base + L.grgb);
-    ray0 = blockIdx.x * a.rpb;
-    nray = min(a.rpb, a.R - ray0);
-    npt = nray * a.S;
-    ntile = (a.rpb * a.S + AT - 1) / AT;
-    const size_t p0 = (size_t)ray0 * a.S;
-    for (int i = threadIdx.x; i < a.rpb * 8; i += A_THREADS)
-      sm.rays[i] = i < nray * 8 ? a.rays[(size_t)ray0 * 8 + i] : 0.f;
-    for (int i = threadIdx.x; i < npt; i += A_THREADS) {
-      sm.z[i] = a.z[p0 + i];
-      ex.noise[i] = a.noise[p0 + i];
-    }
-  }
-};
-
-// The warpgroup's rows of tile t0 (block points t0 ..): each row's point
-// o + d z and direction into pts (6 floats a row), zero at or past nv.
-__device__ __forceinline__ void ray_points(const Wg& wg, const Smem& sm,
-                                           int S, int t0, int nv,
-                                           float* pts) {
-  if (wg.t < 64) {
-    const int r = 64 * wg.g + wg.t;
-    float* q = pts + wg.t * 6;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      q[c] = r < nv ? point_coord(sm, S, t0 + r, c) : 0.f;
-      q[3 + c] = r < nv ? sm.rays[((t0 + r) / S) * 8 + 3 + c] : 0.f;
-    }
-  }
-}
-
 // Launch A of both backwards. !GIVEN (mse_render): writes out8 and the
 // weights and forms the MSE cotangent; GIVEN (train_bwd): takes g8 and gw.
 template <bool GIVEN>
@@ -358,7 +196,7 @@ fwdbwd_kernel(const __grid_constant__ WeightMaps wm,
               int nst) {
   extern __shared__ __align__(1024) unsigned char araw[];
   unsigned char* base = align1024(araw);
-  const FbLayout L(a.S, a.rpb, nst, true);
+  const FbLayout L(a.S, a.rpb, nst, BWD);
   unsigned char* xd = base + L.xd;
   unsigned char* h = base + L.h;
   float* stage = reinterpret_cast<float*>(base + L.stage);
@@ -367,8 +205,9 @@ fwdbwd_kernel(const __grid_constant__ WeightMaps wm,
   Ring ring = start_block(base + L.ring,
                           reinterpret_cast<uint64_t*>(base + L.bar), nst,
                           a.p, eb);
-  const RayBlock blk(base, L, a);
-  const Smem& sm = blk.sm;
+  RayBlock blk(base, L, a);
+  blk.load(a, blockIdx.x, threadIdx.x, A_THREADS);
+  const RaySmem& sm = blk.sm;
   const Extra& ex = blk.ex;
   const int tid = threadIdx.x;
   const int S = a.S;
@@ -457,15 +296,16 @@ fwd_quad_kernel(const __grid_constant__ WeightMaps wm, TrainArgs a,
                 int nst) {
   extern __shared__ __align__(1024) unsigned char araw[];
   unsigned char* base = align1024(araw);
-  const FbLayout L(a.S, a.rpb, nst, false);
+  const FbLayout L(a.S, a.rpb, nst, FWD);
   unsigned char* xd = base + L.xd;
   unsigned char* h = base + L.h;
   float* eb = reinterpret_cast<float*>(base + L.bias);
   Ring ring = start_block(base + L.ring,
                           reinterpret_cast<uint64_t*>(base + L.bar), nst,
                           a.p, eb);
-  const RayBlock blk(base, L, a);
-  const Smem& sm = blk.sm;
+  RayBlock blk(base, L, a);
+  blk.load(a, blockIdx.x, threadIdx.x, A_THREADS);
+  const RaySmem& sm = blk.sm;
   const int tid = threadIdx.x;
   __syncthreads();
   if (tid >= 256) {                       // producer warpgroup
@@ -515,8 +355,8 @@ inline TrainArgs train_args(const void* rays, const void* z,
 cudaError_t launch_train_fwd(const TrainArgs& a, cudaStream_t st) {
   WeightMaps wm;
   if (!weight_maps(a.p, &wm)) return cudaErrorInvalidValue;
-  const int nst = ring_stages(a.S, a.rpb, false);
-  const size_t smem = FbLayout(a.S, a.rpb, nst, false).total;
+  const int nst = ring_stages(a.S, a.rpb, FWD);
+  const size_t smem = FbLayout(a.S, a.rpb, nst, FWD).total;
   cudaError_t err = cudaFuncSetAttribute(
       fwd_quad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -541,8 +381,8 @@ int launch_backward(TrainArgs a, void* workspace, void* grad, void* stream) {
   ScratchMaps scm;
   if (!weight_maps(a.p, &wm) || !scratch_maps(a.s, &scm))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nst = ring_stages(a.S, a.rpb, true);
-  const size_t smem = FbLayout(a.S, a.rpb, nst, true).total;
+  const int nst = ring_stages(a.S, a.rpb, BWD);
+  const size_t smem = FbLayout(a.S, a.rpb, nst, BWD).total;
   cudaError_t err = cudaFuncSetAttribute(
       fwdbwd_kernel<GIVEN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -1,28 +1,29 @@
-// The NeRF point MLP on one tile of points with WMMA, for the render
-// kernels and the point-MLP forwards. The tile's inputs come from rays and
-// depths (build_inputs: o + d z, the render kernels) or from rows of raw
-// points (build_point_inputs: mlp_fwd, sigma_fwd). The training kernels
-// run the MLP on wgmma instead (mlp_wgmma.cuh); the weights' layout, the
-// embedding's columns and sincos_col are shared with them.
+// The NeRF MLP's weights, widths and input embedding, shared by every
+// kernel, and the sigma-only WMMA tile of sigma_render and sigma_fwd (the
+// trunk and the sigma head on one tile of points). The tile's inputs come
+// from rays and depths (build_inputs: o + d z, sigma_render) or from rows
+// of raw points (build_point_inputs: sigma_fwd). Every kernel that runs the
+// full MLP (mlp_fwd, render_eval and the training kernels) runs it on
+// wgmma instead (mlp_wgmma.cuh); the weights' layout, the embedding's
+// columns and sincos_col are shared with them.
 //
-// Computes what `_forward_body` of nerf_pl_tpu/ops/fused_mlp.py computes:
-// in-kernel gamma(x) / gamma(d) as one sin() over an exact f32 phase block
-// (cos columns = sin(t + pi/2)), an 8x256 trunk with the x skip at layer 4,
-// the sigma head, the linear feature layer, the 128-wide view layer and the
-// sigmoid rgb head. Products take bf16 operands and sum in f32 on the
+// The tile computes what `_trunk_body` of nerf_pl_tpu/ops/fused_mlp.py
+// computes: in-kernel gamma(x) as one sin() over an exact f32 phase block
+// (cos columns = sin(t + pi/2)), an 8x256 trunk with the x skip at layer 4
+// and the sigma head. Products take bf16 operands and sum in f32 on the
 // tensor cores (WMMA 16x16x16, i.e. mma.sync); activations are stored as
 // bf16 after each layer.
 //
-// What bounds it on Hopper: the TPU kernel keeps all ~1.2 MB of bf16
-// weights resident in VMEM; a block here has at most 227 KB of shared
-// memory. So one tile of TP points keeps its activations (TP x 256 bf16)
-// in shared memory for the whole MLP, and each layer's weights stream
-// from the 50 MB L2, which serves them to every block. Each warp owns a
-// band of output columns for all TP rows and streams only its own weight
-// columns, KS rows at a time, through a private double buffer (cp.async
-// fills one while the tensor cores read the other): the K loop waits on
-// no other warp, and the block meets at a barrier only between layers.
-// Weight traffic from L2 is ~1.2 MB per tile of 64 points.
+// What bounds it on Hopper: the TPU kernel keeps all its bf16 weights
+// resident in VMEM; a block here has at most 227 KB of shared memory. So
+// one tile of TP points keeps its activations (TP x 256 bf16) in shared
+// memory for the whole trunk, and each layer's weights stream from the 50
+// MB L2, which serves them to every block. Each warp owns a band of output
+// columns for all TP rows and streams only its own weight columns, KS rows
+// at a time, through a private double buffer (cp.async fills one while the
+// tensor cores read the other): the K loop waits on no other warp, and the
+// block meets at a barrier only between layers. Weight traffic from L2 is
+// ~1.0 MB per tile of 64 points.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,11 +51,10 @@ constexpr int KS = 32;          // weight rows per shared-memory slab
 constexpr int PAD = 8;          // bf16 row padding against bank conflicts
 constexpr int LDH = W + PAD;
 constexpr int LDX = KX + PAD;
-constexpr int LDD = KD + PAD;
-constexpr int LDW = 32 + PAD;   // a warp's slab: its 32 (or 16) columns
+constexpr int LDW = 32 + PAD;   // a warp's slab: its 32 columns
 constexpr float HALF_PI = 1.57079632679489662f;
 
-static_assert(NTHREADS == 4 * TP, "the heads use 4 threads per point");
+static_assert(NTHREADS == 4 * TP, "the sigma head uses 4 threads per point");
 static_assert(TP == 64, "4 row blocks per warp");
 
 // Weights in the kernel layout (see ops/fused_render.py kernel_layout).
@@ -107,18 +107,16 @@ inline int rays_per_block(int S) { return S >= 4 * TP ? 1 : (4 * TP) / S; }
 
 // Byte offsets of a block's shared-memory regions (host and device agree).
 struct SmemLayout {
-  size_t h, x, d, slab, stage, rays, z, sig, rgb, total;
-  __host__ __device__ SmemLayout(int S, int rpb, bool full) {
+  size_t h, x, slab, stage, rays, z, sig, total;
+  __host__ __device__ SmemLayout(int S, int rpb) {
     size_t o = 0;
     h = o;     o += align128(sizeof(bf16) * TP * LDH);
     x = o;     o += align128(sizeof(bf16) * TP * LDX);
-    d = o;     o += full ? align128(sizeof(bf16) * TP * LDD) : 0;
     slab = o;  o += align128(sizeof(bf16) * NWARPS * 2 * KS * LDW);
     stage = o; o += align128(sizeof(float) * NWARPS * 256);
     rays = o;  o += align128(sizeof(float) * rpb * 8);
     z = o;     o += align128(sizeof(float) * rpb * S);
     sig = o;   o += align128(sizeof(float) * rpb * S);
-    rgb = o;   o += full ? align128(sizeof(float) * rpb * S * 3) : 0;
     total = o;
   }
 };
@@ -126,13 +124,11 @@ struct SmemLayout {
 struct Smem {
   bf16* h;       // TP x LDH   activations, updated in place layer by layer
   bf16* x;       // TP x LDX   xyz input
-  bf16* d;       // TP x LDD   dir input (full MLP only)
   bf16* slab;    // NWARPS x 2 x KS x LDW   per-warp weight slabs
   float* stage;  // NWARPS x 256 accumulator staging
   float* rays;   // rpb x 8
   float* z;      // rpb * S
   float* sig;    // rpb * S    raw sigma per point
-  float* rgb;    // rpb * S * 3 (full MLP only)
 };
 
 // The regions of a block's dynamic shared memory.
@@ -141,13 +137,11 @@ __device__ __forceinline__ Smem smem_at(unsigned char* raw,
   Smem sm;
   sm.h = reinterpret_cast<bf16*>(raw + L.h);
   sm.x = reinterpret_cast<bf16*>(raw + L.x);
-  sm.d = reinterpret_cast<bf16*>(raw + L.d);
   sm.slab = reinterpret_cast<bf16*>(raw + L.slab);
   sm.stage = reinterpret_cast<float*>(raw + L.stage);
   sm.rays = reinterpret_cast<float*>(raw + L.rays);
   sm.z = reinterpret_cast<float*>(raw + L.z);
   sm.sig = reinterpret_cast<float*>(raw + L.sig);
-  sm.rgb = reinterpret_cast<float*>(raw + L.rgb);
   return sm;
 }
 
@@ -229,10 +223,10 @@ __device__ __forceinline__ void gemm_acc(FragC (&acc)[4 * NCB], const bf16* A,
   }
 }
 
-// h[:, columns of this warp] = bf16(act(acc + bias)). The caller has
+// h[:, columns of this warp] = bf16(relu(acc + bias)). The caller has
 // synced the block after the last read of h.
-template <int NCB, bool RELU>
-__device__ __forceinline__ void store_act(FragC (&acc)[4 * NCB],
+template <int NCB>
+__device__ __forceinline__ void store_relu(FragC (&acc)[4 * NCB],
                                           const float* __restrict__ bias,
                                           bf16* h, float* stage) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -245,16 +239,17 @@ __device__ __forceinline__ void store_act(FragC (&acc)[4 * NCB],
     __syncwarp();
     for (int e = lane; e < 256; e += 32) {
       const int col = col0 + j * 16 + (e & 15);
-      float v = st[e] + __ldg(bias + col);
-      if (RELU) v = fmaxf(v, 0.f);
+      const float v = fmaxf(st[e] + __ldg(bias + col), 0.f);
       h[(rb * 16 + (e >> 4)) * LDH + col] = __float2bfloat16_rn(v);
     }
     __syncwarp();
   }
 }
 
-// Point gp of the block: o + d * z, rounded like the plain version.
-__device__ __forceinline__ float point_coord(const Smem& sm, int S, int gp,
+// Point gp of the block (rays and z in shared memory, sm.rays and sm.z):
+// o + d * z, rounded like the plain version.
+template <class M>
+__device__ __forceinline__ float point_coord(const M& sm, int S, int gp,
                                              int c) {
   const float* ray = sm.rays + (gp / S) * 8;
   return __fadd_rn(ray[c], __fmul_rn(ray[3 + c], sm.z[gp]));
@@ -269,10 +264,9 @@ __device__ __forceinline__ float sincos_col(float v, int j) {
   return sinf(t);
 }
 
-// Fill the MLP inputs for points [t0, t0 + TP) of the block; points at or
-// past P (the block's valid points) get zero rows.
-template <bool FULL>
-__device__ void build_inputs(const Smem& sm, int S, int t0, int P) {
+// Fill the trunk's input gamma(x) for points [t0, t0 + TP) of the block;
+// points at or past P (the block's valid points) get zero rows.
+__device__ inline void build_inputs(const Smem& sm, int S, int t0, int P) {
   for (int i = threadIdx.x; i < TP * KX; i += NTHREADS) {
     const int pt = i / KX, col = i - pt * KX;
     const int gp = t0 + pt;
@@ -287,33 +281,14 @@ __device__ void build_inputs(const Smem& sm, int S, int t0, int P) {
     }
     sm.x[pt * LDX + col] = __float2bfloat16_rn(v);
   }
-  if constexpr (FULL) {
-    for (int i = threadIdx.x; i < TP * KD; i += NTHREADS) {
-      const int pt = i / KD, col = i - pt * KD;
-      const int gp = t0 + pt;
-      float v = 0.f;
-      if (gp < P) {
-        const float* ray = sm.rays + (gp / S) * 8;
-        if (col < 3) {
-          v = ray[3 + col];
-        } else if (col >= XS && col < XS + ND) {
-          const int j = col - XS;
-          v = sincos_col(ray[3 + j % 3], j);
-        }
-      }
-      sm.d[pt * LDD + col] = __float2bfloat16_rn(v);
-    }
-  }
 }
 
-// Fill the MLP inputs for points [t0, t0 + TP) from rows of the (P, 8)
-// raw points p8 (and directions d8): the raw value in columns 0..2, the
-// same sin/cos columns as build_inputs; rows at or past `end` are zero.
-template <bool FULL>
-__device__ void build_point_inputs(const Smem& sm,
-                                   const float* __restrict__ p8,
-                                   const float* __restrict__ d8, int t0,
-                                   int end) {
+// Fill the trunk's input for points [t0, t0 + TP) from rows of the (P, 8)
+// raw points p8: the raw value in columns 0..2, the same sin/cos columns
+// as build_inputs; rows at or past `end` are zero.
+__device__ inline void build_point_inputs(const Smem& sm,
+                                          const float* __restrict__ p8,
+                                          int t0, int end) {
   for (int i = threadIdx.x; i < TP * KX; i += NTHREADS) {
     const int pt = i / KX, col = i - pt * KX;
     const size_t gp = (size_t)t0 + pt;
@@ -328,91 +303,36 @@ __device__ void build_point_inputs(const Smem& sm,
     }
     sm.x[pt * LDX + col] = __float2bfloat16_rn(v);
   }
-  if constexpr (FULL) {
-    for (int i = threadIdx.x; i < TP * KD; i += NTHREADS) {
-      const int pt = i / KD, col = i - pt * KD;
-      const size_t gp = (size_t)t0 + pt;
-      float v = 0.f;
-      if (t0 + pt < end) {
-        if (col < 3) {
-          v = d8[gp * 8 + col];
-        } else if (col >= XS && col < XS + ND) {
-          const int j = col - XS;
-          v = sincos_col(d8[gp * 8 + j % 3], j);
-        }
-      }
-      sm.d[pt * LDD + col] = __float2bfloat16_rn(v);
-    }
-  }
 }
 
-// The MLP on the tile in sm.x (and sm.d): raw sigma of the first n_valid
-// points to sig_out, and (FULL) their sigmoid rgb to rgb_out.
-template <bool FULL>
-__device__ void mlp_tile(const MlpWeights& p, const Smem& sm, float* sig_out,
-                         float* rgb_out, int n_valid) {
+// The trunk on the tile in sm.x: raw sigma of the first n_valid points to
+// sig_out.
+__device__ inline void mlp_tile(const MlpWeights& p, const Smem& sm,
+                                float* sig_out, int n_valid) {
   FragC acc[8];
   zero(acc);
   gemm_acc<2>(acc, sm.x, LDX, p.w0, KX, sm.slab);
-  store_act<2, true>(acc, p.bt, sm.h, sm.stage);
+  store_relu<2>(acc, p.bt, sm.h, sm.stage);
   for (int i = 1; i < D; ++i) {
     __syncthreads();              // h of layer i - 1 is complete
     zero(acc);
     gemm_acc<2>(acc, sm.h, LDH, p.wt + (size_t)(i - 1) * W * W, W, sm.slab);
     if (i == SKIP) gemm_acc<2>(acc, sm.x, LDX, p.wsk, KX, sm.slab);
     __syncthreads();              // every warp has read h
-    store_act<2, true>(acc, p.bt + i * W, sm.h, sm.stage);
+    store_relu<2>(acc, p.bt + i * W, sm.h, sm.stage);
   }
   __syncthreads();
 
+  // sigma head: 4 threads per point, 64 products each
   const int pt = threadIdx.x >> 2, q = threadIdx.x & 3;
-  {  // sigma head: 4 threads per point, 64 products each
-    const bf16* hr = sm.h + pt * LDH + q * 64;
-    const bf16* wr = p.ws + q * 64;
-    float s = 0.f;
-    for (int k = 0; k < 64; ++k)
-      s += __bfloat162float(hr[k]) * __bfloat162float(wr[k]);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (q == 0 && pt < n_valid) sig_out[pt] = s + p.bs[0];
-  }
-  if constexpr (!FULL) return;
-
-  zero(acc);
-  gemm_acc<2>(acc, sm.h, LDH, p.wf, W, sm.slab);
-  __syncthreads();
-  store_act<2, false>(acc, p.bf, sm.h, sm.stage);   // feature layer: linear
-  __syncthreads();
-  FragC acc4[4];
-  zero(acc4);
-  gemm_acc<1>(acc4, sm.h, LDH, p.wdf, W, sm.slab);
-  gemm_acc<1>(acc4, sm.d, LDD, p.wdd, KD, sm.slab);
-  __syncthreads();
-  store_act<1, true>(acc4, p.bd, sm.h, sm.stage);   // h[:, :WD] = view act
-  __syncthreads();
-
-  {  // rgb head: 4 threads per point, 32 rows each, 3 channels
-    const bf16* hr = sm.h + pt * LDH + q * 32;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-    for (int k = 0; k < 32; ++k) {
-      const float hv = __bfloat162float(hr[k]);
-      const bf16* w = p.wr + (q * 32 + k) * 4;
-      a0 += hv * __bfloat162float(w[0]);
-      a1 += hv * __bfloat162float(w[1]);
-      a2 += hv * __bfloat162float(w[2]);
-    }
-#pragma unroll
-    for (int m = 1; m <= 2; m <<= 1) {
-      a0 += __shfl_xor_sync(0xffffffffu, a0, m);
-      a1 += __shfl_xor_sync(0xffffffffu, a1, m);
-      a2 += __shfl_xor_sync(0xffffffffu, a2, m);
-    }
-    if (q == 0 && pt < n_valid) {
-      rgb_out[pt * 3 + 0] = 1.f / (1.f + expf(-(a0 + p.br[0])));
-      rgb_out[pt * 3 + 1] = 1.f / (1.f + expf(-(a1 + p.br[1])));
-      rgb_out[pt * 3 + 2] = 1.f / (1.f + expf(-(a2 + p.br[2])));
-    }
-  }
+  const bf16* hr = sm.h + pt * LDH + q * 64;
+  const bf16* wq = p.ws + q * 64;
+  float s = 0.f;
+  for (int k = 0; k < 64; ++k)
+    s += __bfloat162float(hr[k]) * __bfloat162float(wq[k]);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  if (q == 0 && pt < n_valid) sig_out[pt] = s + p.bs[0];
 }
 
 }  // namespace nerf

@@ -86,6 +86,89 @@ def test_kernels_match_plain(dev, R, S, white_back):
         assert max_err(out_k[k], out_p[k]) <= TOL[k], k
 
 
+# (R, S) of render_eval against train_fwd: the eval chunk's coarse and
+# fine sample counts at a ragged R (S = 192: four rays fill six tiles),
+# short rays many to a tile (S = 24: 32 rays a group), ray counts that
+# leave the last group of rays short, rays longer than a tile, and the
+# main path's chunk (eight rays a group).
+EVAL_SHAPES = [(4099, 64), (4099, 192), (1, 24), (37, 24), (5, 300),
+               (3, 1024), (32768, 128)]
+
+
+def _render_eval_entry(mlp, rays, z, white_back, extra):
+    """render_eval through its C entry into NaN-filled outputs of R +
+    extra rows; returns (rgb, depth, opacity) of all R + extra rows."""
+    from nerf_pl_tpu_torch.ops import _build
+    R, S = z.shape
+    dev = rays.device
+    rgb = torch.full((R + extra, 3), float("nan"), device=dev)
+    depth = torch.full((R + extra,), float("nan"), device=dev)
+    opacity = torch.full((R + extra,), float("nan"), device=dev)
+    err = _build.load_library().nerf_render_eval(
+        rays.data_ptr(), z.data_ptr(), R, S,
+        *(mlp.kernel[n].data_ptr() for n in fm._FULL), int(white_back),
+        rgb.data_ptr(), depth.data_ptr(), opacity.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return rgb, depth, opacity
+
+
+@pytest.mark.parametrize("R,S", EVAL_SHAPES)
+@pytest.mark.parametrize("white_back", [True, False])
+def test_render_eval_matches_train_fwd_bitwise(dev, R, S, white_back):
+    """render_eval runs train_fwd's forward tile loop and quadrature with
+    no sigma noise and on its own grid (a persistent grid over groups of
+    rays that fill whole tiles): its rgb, depth and opacity equal
+    train_fwd's out8[:, 0:5] on a zero noise tensor bit for bit. A second
+    launch, through the C entry into NaN-filled outputs 5 rows longer than
+    R, gives the same rows and writes no row past R."""
+    for weights, seed in (("dense", 0), ("init", 5)):
+        params = (dense_params(seed, dev) if weights == "dense" else
+                  init_nerf_params(torch.Generator().manual_seed(seed),
+                                   device=dev))
+        mlp = fm.pack_mlp(params, dev)
+        rays, z = rays_z(R, S, dev, seed=R + S)
+        n0 = fr.render_eval_launches
+        out = fr.fused_render_eval(mlp, rays, z, white_back=white_back)
+        assert fr.render_eval_launches == n0 + 1
+        f8, _ = ft.train_forward(mlp, rays, z, torch.zeros_like(z),
+                                 white_back)
+        again = _render_eval_entry(mlp, rays, z, white_back, 5)
+        torch.cuda.synchronize()
+        for k, cols in (("rgb", slice(0, 3)), ("depth", 3),
+                        ("opacity", 4)):
+            assert torch.isfinite(out[k]).all(), (weights, k)
+            assert torch.equal(out[k], f8[:, cols]), \
+                (weights, k, max_err(out[k], f8[:, cols]))
+        for k, got in zip(("rgb", "depth", "opacity"), again):
+            assert torch.equal(got[:R], out[k]), (weights, k)
+            assert torch.isnan(got[R:]).all(), (weights, k)
+
+
+@pytest.mark.parametrize("P", [1, 300, 4099, 131075])
+def test_mlp_fwd_ragged_relaunches_and_writes_no_row_past_p(dev, P):
+    """mlp_fwd's persistent grid over 128-point tiles at a ragged P (at P
+    = 131,075 its 132 blocks take 7 or 8 of the 1025 tiles): two launches
+    bit-identical, and a call of the C entry on an out8 of P + 128 rows
+    filled with NaN gives the same rows and leaves the rows past P NaN."""
+    from nerf_pl_tpu_torch.ops import _build
+    mlp = fm.pack_mlp(dense_params(2, dev), dev)
+    x8, d8, _ = _point_inputs(P, dev, seed=P + 2)
+    first = fm.mlp_forward(mlp, x8, d8)
+    second = fm.mlp_forward(mlp, x8, d8)
+    out = torch.full((P + 128, 8), float("nan"), device=dev)
+    err = _build.load_library().nerf_mlp_fwd(
+        x8.data_ptr(), d8.data_ptr(), P,
+        *(mlp.kernel[n].data_ptr() for n in fm._FULL), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.isfinite(first).all() and not first[:, 4:].any()
+    assert torch.equal(first, second)
+    assert torch.equal(out[:P], first)
+    assert torch.isnan(out[P:]).all()
+
+
 def test_pad_rows_give_zero_weights(dev):
     mlp = fm.pack_mlp(dense_params(0, dev), dev)
     rays = torch.zeros((9, 8), device=dev)

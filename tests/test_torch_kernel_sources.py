@@ -7,10 +7,11 @@ sources as text (no compiler needed, so they run on the CPU):
   * no environment lookups and no preprocessor switch that could select
     another build of a kernel (the redesigned backward has no old copy);
   * every .cu names the function of nerf_pl_tpu/ops/*.py that it replaces;
-  * every training kernel (the backwards' launches A and A' and train_fwd
-    through mlp_wgmma.cuh's tile loops, and launch B) issues wgmma on
-    operands that TMA brings in with mbarriers, and no WMMA is left in
-    them; the WMMA training code they replaced is gone;
+  * every kernel of the full MLP (the backwards' launches A and A',
+    train_fwd, mlp_fwd and render_eval through mlp_wgmma.cuh's tile loops,
+    and launch B) issues wgmma on operands that TMA brings in with
+    mbarriers, and no WMMA is left in them; the WMMA code they replaced is
+    gone, and nerf_mlp.cuh's WMMA tile runs the sigma trunk alone;
   * no C entry takes transposed weights, and each C entry's arguments in
     the sources match its ctypes signature in ops/_build.py.
 """
@@ -48,7 +49,7 @@ def balanced(code, i):
 def test_sources_found():
     assert {p.name for p in SOURCES} >= {
         "fused_mlp.cu", "fused_render.cu", "fused_train.cu", "hopper.cuh",
-        "mlp_grad.cuh", "nerf_mlp.cuh"}
+        "mlp_grad.cuh", "mlp_wgmma.cuh", "nerf_mlp.cuh", "ray_tile.cuh"}
 
 
 FLOAT_ATOMICS = (
@@ -123,40 +124,78 @@ def reach(name, defs):
     return "\n".join(text)
 
 
-TRAINING_KERNELS = ("fwdbwd_kernel", "fwd_quad_kernel", "point_fwdbwd_kernel",
-                    "wgrad_kernel")
+# kernel: whether a backward follows its forward tiles
+WGMMA_KERNELS = {"fwdbwd_kernel": True, "fwd_quad_kernel": False,
+                 "point_fwdbwd_kernel": True, "mlp_fwd_kernel": False,
+                 "eval_quad_kernel": False, "wgrad_kernel": None}
 
 
-@pytest.mark.parametrize("kernel", TRAINING_KERNELS)
+@pytest.mark.parametrize("kernel", list(WGMMA_KERNELS))
 def test_backward_launches_use_wgmma_and_tma(kernel):
     """Launches A of mse_render and train_bwd (fwdbwd), A' of mlp_bwd
-    (point_fwdbwd), train_fwd (fwd_quad) through mlp_wgmma.cuh's tile loops
-    (slab_mma, fed by the producer's put_slab), and launch B (wgrad,
-    inline) issue wgmma on TMA-loaded tiles behind mbarriers; no WMMA
-    fragment or WMMA tile loop is reached from any of them."""
+    (point_fwdbwd), train_fwd (fwd_quad), mlp_fwd and render_eval
+    (eval_quad) through mlp_wgmma.cuh's tile loops (slab_mma, fed by the
+    producer's put_slab), and launch B (wgrad, inline) issue wgmma on
+    TMA-loaded tiles behind mbarriers; no WMMA fragment or WMMA tile loop
+    is reached from any of them."""
     defs = definitions()
     assert kernel in defs
     text = reach(kernel, defs)
     assert re.search(r"wgmma_n(128|256)<", text)
     assert "tma_load(" in text and "mbar_wait(" in text
     assert "wmma::" not in text and "mlp_tile" not in text
-    if kernel != "wgrad_kernel":
+    backward = WGMMA_KERNELS[kernel]
+    if backward is not None:
         body = defs[kernel]
         assert "forward_tile<" in body and "produce_fwd(" in body
-        assert ("backward_tile(" in body) == (kernel != "fwd_quad_kernel")
+        assert ("backward_tile(" in body) == backward
+
+
+def test_render_eval_runs_the_training_quadrature():
+    """render_eval integrates with quad_forward, the quadrature of
+    train_fwd and the backwards (ray_tile.cuh), on blocks of rays loaded
+    by the same RayBlock, so its outputs can equal train_fwd's bit for
+    bit; no other quadrature of the full MLP is left."""
+    defs = definitions()
+    for kernel in ("eval_quad_kernel", "fwd_quad_kernel", "fwdbwd_kernel"):
+        body = defs[kernel]
+        assert "quad_forward(" in body and "ray_points(" in body, kernel
+        assert "RayBlock" in body, kernel
+    for path in SOURCES:
+        assert "quad_forward(" not in code_of(path) or path.name in (
+            "ray_tile.cuh", "fused_train.cu", "fused_render.cu"), path.name
 
 
 def test_wmma_training_code_is_gone():
-    """The WMMA launch A' of mlp_bwd, its data-gradient chain and
-    train_fwd's WMMA kernel have no definition left, and no training
-    kernel keeps a switch that could reach a WMMA tile."""
+    """The WMMA launch A' of mlp_bwd, its data-gradient chain, train_fwd's
+    WMMA kernel and the WMMA forwards of mlp_fwd and render_eval (the
+    templates point_fwd_kernel<FULL>, render_kernel<FULL>,
+    quadrature<FULL>) have no definition left, and no training kernel
+    keeps a switch that could reach a WMMA tile. nerf_mlp.cuh's WMMA tile
+    is the sigma trunk alone: no FULL parameter, no template on a bool,
+    and none of its functions reads the feature, view or rgb weights or
+    writes an rgb."""
     defs = definitions()
     for gone in ("mlp_bwd_kernel", "train_fwd_kernel", "backward_from_heads",
-                 "store_grad", "ActSink", "copy_rows", "TrainLayout"):
+                 "store_grad", "ActSink", "copy_rows", "TrainLayout",
+                 "point_fwd_kernel", "render_kernel", "quadrature",
+                 "launch_fwd"):
         assert gone not in defs, gone
     for path in SOURCES:
         assert not re.search(r"\b(ActSink|backward_from_heads)\b",
                              code_of(path)), path.name
+    code = code_of(CSRC / "nerf_mlp.cuh")
+    assert "FULL" not in code
+    assert not re.search(r"template\s*<\s*bool", code)
+    for m in re.finditer(r"\b(\w+)\s*(<[^;{()]*>)?\s*"
+                         r"\((?:[^;{()]|\([^()]*\))*\)\s*(const\s*)?\{",
+                         code):
+        if m.group(1) in KEYWORDS or m.group(1) == "weights_at":
+            continue
+        body = balanced(code, m.end() - 1)
+        assert not re.search(r"\bp\.(wf|bf|wdf|wdd|bd|wr|br)\b", body), \
+            m.group(1)
+        assert "rgb" not in body and "sm.d" not in body, m.group(1)
 
 
 def test_hopper_helpers_issue_the_ptx():

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Hold this checkout's training kernels against another checkout's
-build of them, on one NVIDIA GPU, and time both:
+"""Hold this checkout's wgmma kernels against another checkout's build of
+them, on one NVIDIA GPU, and time both:
 
     git archive <commit> | tar -x -C build/parent
-    python tools/check_backward_parent.py build/parent
+    python tools/check_kernels_parent.py build/parent [--kernels a,b,...]
 
 Builds every `nerf_pl_tpu_torch/csrc/*.cu` of the other checkout with this
 checkout's nvcc flags into `<dir>/build/parent_kernels.so` and reads the
@@ -12,23 +12,29 @@ signature of each C entry of either build from its sources
 entry gets its arguments by name, the weights' transposed copies (wdfT,
 wfT, wtT) only where it takes them, as the kernels before their Hopper
 redesign did. Both builds then run on the same rays, depths, noise,
-targets and weights:
+targets, points and weights:
 
   * mse_render at (R, S) = (8, 64), (1024, 64), (1024, 128), (37, 192);
   * train_fwd at the same shapes (white background);
   * train_bwd (through its C entry, nerf_train_bwd) on the rgb cotangent
     2 scale (rgb - gt) at the same shapes;
-  * mlp_bwd at P = 131,072.
+  * mlp_bwd at P = 131,072;
+  * mlp_fwd at P = 65,536 and 131,072 (a dense training step's coarse and
+    fine pass);
+  * render_eval at (R, S) = (4099, 64), (32768, 128) and (32768, 192)
+    (white background; the eval chunk at 64 + 64 and 64 + 128 samples).
 
-out8 and the weights are held at the kernels' bars (weights 5e-3, rgb and
-opacity 1e-2, depth 5e-2) and each of the 17 gradient leaves within 0.03
-relative max error. Not bit for bit: a kernel redesigned on wgmma sums in
-another order than the WMMA products of an earlier build. Both builds
-are called the same way, through their C entries with outputs and
-workspace allocated once (the wrappers' checks and allocations would
-add host time to one side only). Prints the median ms of each build at
-each shape (parent, this, this, parent in turn; 10 runs each) and the
-ratio parent / this. Exits non-zero past a bar.
+out8, the weights and render_eval's outputs are held at the kernels' bars
+(weights 5e-3, rgb and opacity 1e-2, depth 5e-2), mlp_fwd's rgb within
+5e-3 and its raw sigma within 5e-3 x max(1, max |sigma|), and each of the
+17 gradient leaves within 0.03 relative max error. Not bit for bit: a
+kernel redesigned on wgmma sums in another order than the WMMA products
+of an earlier build. Both builds are called the same way, through their C
+entries with outputs and workspace allocated once (the wrappers' checks
+and allocations would add host time to one side only). Prints the median
+ms of each build at each shape (parent, this, this, parent in turn; 10
+runs each) and the ratio parent / this. `--kernels` runs only the named
+kernels (comma-separated; default all). Exits non-zero past a bar.
 """
 import ctypes
 import statistics
@@ -47,11 +53,16 @@ from nerf_pl_tpu_torch.ops import fused_mlp as fm  # noqa: E402
 
 SHAPES = ((8, 64), (1024, 64), (1024, 128), (37, 192))
 MLP_P = 131072
+MLP_FWD_P = (65536, 131072)
+EVAL_SHAPES = ((4099, 64), (32768, 128), (32768, 192))
+KERNELS = ("mse_render", "train_fwd", "train_bwd", "mlp_bwd", "mlp_fwd",
+           "render_eval")
+POINT_TOL = 5e-3
 TOL = {"weights": 5e-3, "rgb": 1e-2, "opacity": 1e-2, "depth": 5e-2}
 GRAD_TOL = 0.03
 ENTRIES = ("nerf_mse_workspace_bytes", "nerf_mlp_workspace_bytes",
            "nerf_mse_render", "nerf_train_fwd", "nerf_train_bwd",
-           "nerf_mlp_bwd")
+           "nerf_mlp_bwd", "nerf_mlp_fwd", "nerf_render_eval")
 
 
 def entries_of(root: Path):
@@ -191,6 +202,29 @@ class Build:
             return fm._pack_layout_grads(grad)
         return run
 
+    def mlp_fwd(self, x8, d8):
+        out8 = torch.empty((x8.shape[0], 8), device=x8.device)
+
+        def run():
+            self.call("nerf_mlp_fwd", p8=x8.data_ptr(), d8=d8.data_ptr(),
+                      P=x8.shape[0], out8=out8.data_ptr())
+            return out8
+        return run
+
+    def render_eval(self, rays, z):
+        R, S = z.shape
+        rgb = torch.empty((R, 3), device=rays.device)
+        depth = torch.empty((R,), device=rays.device)
+        opacity = torch.empty((R,), device=rays.device)
+
+        def run():
+            self.call("nerf_render_eval", rays=rays.data_ptr(),
+                      z=z.data_ptr(), R=R, S=S, white_back=1,
+                      rgb=rgb.data_ptr(), depth=depth.data_ptr(),
+                      opacity=opacity.data_ptr())
+            return {"rgb": rgb, "depth": depth, "opacity": opacity}
+        return run
+
 
 def compare(what, got, ref, out=None):
     """Prints and returns the failures of gradients `got` against `ref`
@@ -214,9 +248,120 @@ def compare(what, got, ref, out=None):
     return bad
 
 
+def ray_batch(R, S, g, dev):
+    """Rays (R, 8) through the unit cube, sorted depths, noise and
+    targets."""
+    o = torch.randn((R, 3), generator=g, device=dev)
+    d = torch.nn.functional.normalize(
+        torch.randn((R, 3), generator=g, device=dev), dim=-1)
+    rays = torch.cat([o, d, torch.full((R, 1), 2.0, device=dev),
+                      torch.full((R, 1), 6.0, device=dev)], -1)
+    z = torch.sort(2 + 4 * torch.rand((R, S), generator=g, device=dev),
+                   -1).values.contiguous()
+    noise = torch.randn((R, S), generator=g, device=dev)
+    gt = torch.rand((R, 3), generator=g, device=dev)
+    return rays, z, noise, gt
+
+
+def point_batch(P, g, dev):
+    """(P, 8) raw points and unit directions, and a cotangent of ~1 / P."""
+    x8 = torch.zeros((P, 8), device=dev)
+    x8[:, :3] = 2 * torch.randn((P, 3), generator=g, device=dev)
+    d8 = torch.zeros((P, 8), device=dev)
+    d8[:, :3] = torch.nn.functional.normalize(
+        torch.randn((P, 3), generator=g, device=dev), dim=-1)
+    cot = torch.zeros((P, 8), device=dev)
+    cot[:, :4] = torch.randn((P, 4), generator=g, device=dev) / P
+    return x8, d8, cot
+
+
+def report_time(what, parent, here):
+    tp, th = timed_pair(parent, here)
+    print(f"[time] {what}: parent {tp:.3f} ms, this {th:.3f} ms, "
+          f"parent / this {tp / th:.2f}x")
+
+
+def check_training(old, new, run, g, dev):
+    """mse_render, train_fwd and train_bwd at SHAPES; returns failures."""
+    failed = []
+    for R, S in SHAPES:
+        rays, z, noise, gt = ray_batch(R, S, g, dev)
+        scale = 1.0 / (R * 3)
+        here_mse = new.mse(rays, z, noise, gt, scale)
+        parent_mse = old.mse(rays, z, noise, gt, scale)
+        h8, hw, hg = here_mse()
+        p8, pw, pg = parent_mse()
+        torch.cuda.synchronize()
+        pairs = {}
+        if "mse_render" in run:
+            failed += compare(f"mse_render R={R} S={S}", hg, pg,
+                              ((h8, hw), (p8, pw)))
+            pairs["mse_render"] = (parent_mse, here_mse)
+        if "train_fwd" in run:
+            here_tf = new.train_fwd(rays, z, noise)
+            parent_tf = old.train_fwd(rays, z, noise)
+            here_f, parent_f = here_tf(), parent_tf()
+            torch.cuda.synchronize()
+            failed += compare(f"train_fwd R={R} S={S}", None, None,
+                              (here_f, parent_f))
+            pairs["train_fwd"] = (parent_tf, here_tf)
+        if "train_bwd" in run:
+            g8 = torch.zeros_like(p8)
+            g8[:, 0:3] = 2.0 * scale * (p8[:, 0:3] - gt)
+            here_tb = new.train_bwd(rays, z, noise, g8)
+            parent_tb = old.train_bwd(rays, z, noise, g8)
+            hg, pg = here_tb(), parent_tb()
+            torch.cuda.synchronize()
+            failed += compare(f"train_bwd R={R} S={S}", hg, pg)
+            pairs["train_bwd"] = (parent_tb, here_tb)
+        for name, (p_fn, h_fn) in pairs.items():
+            report_time(f"{name} R={R} S={S}", p_fn, h_fn)
+    return failed
+
+
+def check_forwards(old, new, run, g, dev):
+    """mlp_fwd at MLP_FWD_P and render_eval at EVAL_SHAPES; returns
+    failures."""
+    failed = []
+    for P in MLP_FWD_P if "mlp_fwd" in run else ():
+        x8, d8, _ = point_batch(P, g, dev)
+        here, parent = new.mlp_fwd(x8, d8), old.mlp_fwd(x8, d8)
+        h, p = here(), parent()
+        torch.cuda.synchronize()
+        sig_tol = POINT_TOL * max(1.0, p[:, 3].abs().max().item())
+        e_rgb = (h[:, :3] - p[:, :3]).abs().max().item()
+        e_sig = (h[:, 3] - p[:, 3]).abs().max().item()
+        bad = [k for k, e, t in (("rgb", e_rgb, POINT_TOL),
+                                 ("sigma", e_sig, sig_tol)) if not e <= t]
+        if h[:, 4:].any():
+            bad.append("out8 columns 4..7")
+        print(f"[parent] mlp_fwd P={P}: rgb {e_rgb:.3e} (tol {POINT_TOL}), "
+              f"sigma {e_sig:.3e} (tol {sig_tol:.3e})"
+              + (f"  FAIL {bad}" if bad else ""))
+        failed += bad
+        report_time(f"mlp_fwd P={P}", parent, here)
+    for R, S in EVAL_SHAPES if "render_eval" in run else ():
+        rays, z, _, _ = ray_batch(R, S, g, dev)
+        here, parent = new.render_eval(rays, z), old.render_eval(rays, z)
+        h, p = here(), parent()
+        torch.cuda.synchronize()
+        errs = {k: (h[k] - p[k]).abs().max().item() for k in h}
+        bad = [k for k, e in errs.items() if not e <= TOL[k]]
+        print(f"[parent] render_eval R={R} S={S}: "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + (f"  FAIL {bad}" if bad else ""))
+        failed += bad
+        report_time(f"render_eval R={R} S={S}", parent, here)
+    return failed
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
+    run = set(KERNELS)
+    if len(argv) == 3 and argv[1] == "--kernels":
+        run = set(argv[2].split(","))
+        argv = argv[:1]
+    if len(argv) != 1 or not run <= set(KERNELS):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -236,61 +381,17 @@ def main(argv=None):
     new = Build(_build.build(), entries_of(REPO), mlp)
     g = torch.Generator(device=dev).manual_seed(0)
     failed = []
-    for R, S in SHAPES:
-        o = torch.randn((R, 3), generator=g, device=dev)
-        d = torch.nn.functional.normalize(
-            torch.randn((R, 3), generator=g, device=dev), dim=-1)
-        rays = torch.cat([o, d, torch.full((R, 1), 2.0, device=dev),
-                          torch.full((R, 1), 6.0, device=dev)], -1)
-        z = torch.sort(2 + 4 * torch.rand((R, S), generator=g, device=dev),
-                       -1).values.contiguous()
-        noise = torch.randn((R, S), generator=g, device=dev)
-        gt = torch.rand((R, 3), generator=g, device=dev)
-        scale = 1.0 / (R * 3)
-
-        here_mse = new.mse(rays, z, noise, gt, scale)
-        parent_mse = old.mse(rays, z, noise, gt, scale)
-        h8, hw, hg = here_mse()
-        p8, pw, pg = parent_mse()
+    if run & {"mse_render", "train_fwd", "train_bwd"}:
+        failed += check_training(old, new, run, g, dev)
+    if "mlp_bwd" in run:
+        x8, d8, cot = point_batch(MLP_P, g, dev)
+        here_mlp = new.mlp_bwd(x8, d8, cot)
+        parent_mlp = old.mlp_bwd(x8, d8, cot)
+        hg, pg = here_mlp(), parent_mlp()
         torch.cuda.synchronize()
-        failed += compare(f"mse_render R={R} S={S}", hg, pg,
-                          ((h8, hw), (p8, pw)))
-        g8 = torch.zeros_like(p8)
-        g8[:, 0:3] = 2.0 * scale * (p8[:, 0:3] - gt)
-        here_tf = new.train_fwd(rays, z, noise)
-        parent_tf = old.train_fwd(rays, z, noise)
-        here_f, parent_f = here_tf(), parent_tf()
-        torch.cuda.synchronize()
-        failed += compare(f"train_fwd R={R} S={S}", None, None,
-                          (here_f, parent_f))
-        here_tb = new.train_bwd(rays, z, noise, g8)
-        parent_tb = old.train_bwd(rays, z, noise, g8)
-        hg, pg = here_tb(), parent_tb()
-        torch.cuda.synchronize()
-        failed += compare(f"train_bwd R={R} S={S}", hg, pg)
-        for name, (p_fn, h_fn) in (("mse_render", (parent_mse, here_mse)),
-                                   ("train_fwd", (parent_tf, here_tf)),
-                                   ("train_bwd", (parent_tb, here_tb))):
-            tp, th = timed_pair(p_fn, h_fn)
-            print(f"[time] {name} R={R} S={S}: parent {tp:.3f} ms, this "
-                  f"{th:.3f} ms, parent / this {tp / th:.2f}x")
-
-    x8 = torch.zeros((MLP_P, 8), device=dev)
-    x8[:, :3] = 2 * torch.randn((MLP_P, 3), generator=g, device=dev)
-    d8 = torch.zeros((MLP_P, 8), device=dev)
-    d8[:, :3] = torch.nn.functional.normalize(
-        torch.randn((MLP_P, 3), generator=g, device=dev), dim=-1)
-    cot = torch.zeros((MLP_P, 8), device=dev)
-    cot[:, :4] = torch.randn((MLP_P, 4), generator=g, device=dev) / MLP_P
-
-    here_mlp = new.mlp_bwd(x8, d8, cot)
-    parent_mlp = old.mlp_bwd(x8, d8, cot)
-    hg, pg = here_mlp(), parent_mlp()
-    torch.cuda.synchronize()
-    failed += compare(f"mlp_bwd P={MLP_P}", hg, pg)
-    tp, th = timed_pair(parent_mlp, here_mlp)
-    print(f"[time] mlp_bwd P={MLP_P}: parent {tp:.3f} ms, this {th:.3f} ms, "
-          f"parent / this {tp / th:.2f}x")
+        failed += compare(f"mlp_bwd P={MLP_P}", hg, pg)
+        report_time(f"mlp_bwd P={MLP_P}", parent_mlp, here_mlp)
+    failed += check_forwards(old, new, run, g, dev)
     if failed:
         raise SystemExit(f"past the bars: {failed}")
     print("[parent] all within the bars")

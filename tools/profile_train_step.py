@@ -37,7 +37,7 @@ from nerf_pl_tpu_torch.training import (get_lr_schedule,  # noqa: E402
 
 BATCH, STEPS = 1024, 100
 GROUPS = (   # substring of the kernel's name: the launch it belongs to
-    ("point_fwd_kernel", "mlp_fwd (point_fwd_kernel<true>)"),
+    ("mlp_fwd_kernel", "mlp_fwd (mlp_fwd_kernel)"),
     ("point_fwdbwd_kernel", "mlp_bwd A' (point_fwdbwd_kernel)"),
     ("fwdbwd_kernel<false>", "mse_render A (fwdbwd_kernel<false>)"),
     ("fwdbwd_kernel<true>", "train_bwd A (fwdbwd_kernel<true>)"),
