@@ -12,7 +12,10 @@
    and render_eval against train_fwd on a zero noise tensor at the same
    shapes, white background on and off: rgb, depth and opacity bit for bit
    out8[:, 0:5] (render_eval is train_fwd's forward tile loop and
-   quadrature with no noise). Times both render kernels at the main
+   quadrature with no noise); likewise sigma_render's weights and opacity
+   bit for bit train_fwd's weights and out8[:, 4] (sigma_render is
+   train_fwd's trunk and the weight part of its quadrature; the max
+   difference is printed). Times both render kernels at the main
    path's tile (32768 rays) with CUDA events. Then drives the eval path:
    random weights from a torch.Generator seed are written as a checkpoint
    with the JAX package's keys, loaded back with load_ckpt, and 2 frames
@@ -44,9 +47,11 @@
    kernels against their plain versions at ragged P = 300, 4099 and
    131,075 with the weights of dense_params and of plain init: rgb within
    5e-3, raw sigma within 5e-3 x max(1, max |sigma|) (the x50 sigma head
-   scales it), each mlp_bwd gradient leaf within GRAD_TOL and two launches
-   bit-identical. Times mlp_fwd and mlp_bwd at P = 65,536 and 131,072 (a
-   dense step's coarse and fine pass) and sigma_fwd at 32768 x 64 points.
+   scales it), sigma_fwd's sigma bit for bit mlp_fwd's out8[:, 3] (the
+   same trunk tile loop; the max difference is printed), each mlp_bwd
+   gradient leaf within GRAD_TOL and two launches bit-identical. Times
+   mlp_fwd and mlp_bwd at P = 65,536 and 131,072 (a dense step's coarse
+   and fine pass) and sigma_fwd at 32768 x 64 points.
    Then a Trainer at the dense bench config with fused=True and no
    fused_train (autograd through fused_nerf_mlp) fits the same store as in
    4 for the same 350 steps: exactly 2 mlp_fwd and 2 mlp_bwd launches per
@@ -287,26 +292,32 @@ def compare_kernels(mlp, dev):
 
 
 def compare_eval_to_train_fwd(mlp, dev):
-    """render_eval against train_fwd with zero noise at compare_kernels'
-    shapes, white background on and off: rgb, depth and opacity must equal
-    out8[:, 0:5] bit for bit."""
+    """render_eval and sigma_render against train_fwd with zero noise at
+    compare_kernels' shapes, white background on and off: render_eval's
+    rgb, depth and opacity must equal out8[:, 0:5], and sigma_render's
+    weights and opacity train_fwd's weights and out8[:, 4], bit for bit."""
     for S in (64, 128, 192):
         rays, z = rays_z(4099, S, dev, seed=S)
         zero = torch.zeros_like(z)
+        w, op = fr.fused_sigma_render(mlp, rays, z)
         for white in (True, False):
             out = fr.fused_render_eval(mlp, rays, z, white_back=white)
-            f8, _ = ft.train_forward(mlp, rays, z, zero, white)
+            f8, fw = ft.train_forward(mlp, rays, z, zero, white)
             torch.cuda.synchronize()
-            got = torch.cat([out["rgb"], out["depth"][:, None],
-                             out["opacity"][:, None]], 1)
-            diff = max_err(got, f8[:, 0:5])
-            same = torch.equal(got, f8[:, 0:5])
-            print(f"[compare] render_eval vs train_fwd (zero noise) R=4099 "
-                  f"S={S} white={white}: max difference {diff:.3e}, "
-                  f"bit-identical: {same}")
-            if not same:
-                raise AssertionError(f"render_eval S={S} white={white}: "
-                                     f"differs from train_fwd by {diff}")
+            pairs = {"render_eval": (torch.cat(
+                [out["rgb"], out["depth"][:, None], out["opacity"][:, None]],
+                1), f8[:, 0:5]),
+                "sigma_render": (torch.cat([w, op[:, None]], 1),
+                                 torch.cat([fw, f8[:, 4:5]], 1))}
+            for name, (got, want) in pairs.items():
+                diff = max_err(got, want)
+                same = torch.equal(got, want)
+                print(f"[compare] {name} vs train_fwd (zero noise) R=4099 "
+                      f"S={S} white={white}: max difference {diff:.3e}, "
+                      f"bit-identical: {same}")
+                if not same:
+                    raise AssertionError(f"{name} S={S} white={white}: "
+                                         f"differs from train_fwd by {diff}")
 
 
 def time_kernels(mlp, dev):
@@ -644,11 +655,17 @@ def compare_point_mlp(dev):
             e_sfwd = max_err(sigma, ref_sigma)
             e_g = max(max_err(a, b) for a, b in zip(g1, ref_g))
             rels = rel_errs(g1, ref_g)
+            same = torch.equal(sigma, out[:, 3])
             print(f"[compare] point MLP {weights} P={P}: mlp_fwd rgb "
                   f"{e_rgb:.3e} (tol {POINT_TOL}), sigma {e_sig:.3e}; "
-                  f"sigma_fwd {e_sfwd:.3e} (tol {sig_tol:.3e}); mlp_bwd "
-                  f"grad abs {e_g:.3e}, rel max {max(rels):.3e} (tol "
-                  f"{GRAD_TOL}); bit-identical twice")
+                  f"sigma_fwd {e_sfwd:.3e} (tol {sig_tol:.3e}), against "
+                  f"mlp_fwd's sigma max difference "
+                  f"{max_err(sigma, out[:, 3]):.3e}, bit-identical: {same}; "
+                  f"mlp_bwd grad abs {e_g:.3e}, rel max {max(rels):.3e} "
+                  f"(tol {GRAD_TOL}); bit-identical twice")
+            if not same:
+                raise AssertionError(f"sigma_fwd {weights} P={P}: differs "
+                                     f"from mlp_fwd's sigma")
             if not (e_rgb <= POINT_TOL and e_sig <= sig_tol
                     and e_sfwd <= sig_tol):
                 raise AssertionError(f"point MLP {weights} P={P}: forward "

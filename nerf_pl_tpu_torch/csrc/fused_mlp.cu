@@ -30,14 +30,22 @@
 // (two blocks' 384 threads at 232 and 40 registers need 129,024 of
 // 65,536) does not fit.
 //
-// sigma_fwd: a block takes PPB = 4 tiles of consecutive points and runs
-// nerf_mlp.cuh's sigma-only WMMA tile on each, its inputs loaded from rows
-// of p8 (build_point_inputs) instead of built from o + d z.
+// sigma_fwd is mlp_fwd on the trunk alone: per tile, row_points without
+// directions -> embed_tile of gamma(x) alone -> trunk_tile (mlp_wgmma.cuh;
+// the sigma head in layer D-1's epilogue) -> one store of raw sigma per
+// row straight from the epilogue. Its producer streams produce_trunk's 32
+// slabs a tile (the forward's 38.5 slab-equivalents less the feature and
+// view layers'), its C entry takes the trunk's weights alone (TMA maps of
+// w0, wt and wsk; a bias copy of bt, 8,192 bytes), and its sigma is
+// mlp_fwd's out8[:, 3] bit for bit (the same trunk_tile on the same
+// gamma(x)). Its layout is mlp_fwd's without the sigma and rgb rows and
+// with the trunk's biases alone: 209,024 bytes with 3 ring stages; a
+// fourth stage (241,792) does not fit.
 //
-// Launches A' and mlp_fwd: a point needs only its own tile, not a whole
-// ray, so each tile's backward runs right after its forward, and a block
-// walks tiles t = blockIdx.x, + gridDim.x, ... of a persistent grid of at
-// most WAVE = 132 blocks (one a SM: A' takes 220,032 bytes of shared
+// Launches A', mlp_fwd and sigma_fwd: a point needs only its own tile, not
+// a whole ray, so each tile's backward runs right after its forward, and a
+// block walks tiles t = blockIdx.x, + gridDim.x, ... of a persistent grid
+// of at most WAVE = 132 blocks (one a SM: A' takes 220,032 bytes of shared
 // memory). The producer streams each tile's forward slabs (then its
 // backward's) without a pause between tiles; a block initialises its
 // barriers and bias copy once, and A' zeroes its two rows of bias
@@ -53,10 +61,11 @@
 //
 // What bounds them: tensor-core work, 1.19 MFLOP per point forward (0.157
 // ms at P = 131,072 on an H100 SXM's 989 TFLOP/s; 0.98 MFLOP for sigma
-// only) and 2.94x that for the backward (0.4624 ms). Device memory sees
-// the points and outputs (~32 bytes a point each way) and, for mlp_bwd,
-// ~10 KB of bf16 scratch per point, written by A' and read by B, as in
-// mse_render: 0.39 ms each way at 3.35 TB/s, this design's floor.
+// only, 2.083 ms at P = 2,097,152) and 2.94x that for the backward (0.4624
+// ms). Device memory sees the points and outputs (~32 bytes a point each
+// way) and, for mlp_bwd, ~10 KB of bf16 scratch per point, written by A'
+// and read by B, as in mse_render: 0.39 ms each way at 3.35 TB/s, this
+// design's floor.
 //
 // Launch contract: the caller's stream, no allocation (mlp_bwd takes a
 // workspace of nerf_mlp_workspace_bytes(P)), and the entry points return
@@ -67,27 +76,6 @@
 
 namespace nerf {
 
-constexpr int PPB = 4 * TP;     // points per block of sigma_fwd
-
-// out (P,) raw sigma.
-__global__ void __launch_bounds__(NTHREADS, 2)
-sigma_point_kernel(const float* __restrict__ p8, int P, MlpWeights p,
-                   float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem sm = smem_at(smem_raw, SmemLayout(TP, 1));
-  const int p0 = blockIdx.x * PPB;
-  const int end = min(P, p0 + PPB);
-  for (int t0 = p0; t0 < end; t0 += TP) {
-    const int nv = min(TP, end - t0);
-    build_point_inputs(sm, p8, t0, end);
-    __syncthreads();
-    mlp_tile(p, sm, sm.sig, nv);
-    __syncthreads();
-    for (int i = threadIdx.x; i < nv; i += NTHREADS)
-      out[(size_t)t0 + i] = sm.sig[i];
-  }
-}
-
 struct PointArgs : GradArgs {
   const float* p8;
   const float* d8;
@@ -96,25 +84,29 @@ struct PointArgs : GradArgs {
   float* bias_part;         // (2 gridDim.x, NBIAS)
   uint4* bits;              // the ReLU masks, MASK_TILE_BYTES a tile
   float* out8;              // (P, 8)  mlp_fwd
+  float* sigma;             // (P,)    sigma_fwd
 };
 
-// Shared memory of launch A' (bwd) or mlp_fwd: the tile loops' regions
-// (A': the warpgroups' point rows in the column-sum stage; mlp_fwd: a
-// region of their own) and the tile's raw sigma and f32 rgb.
+// Shared memory of launch A' (BWD), mlp_fwd (FWD) or sigma_fwd (TRUNK):
+// the tile loops' regions (A': the warpgroups' point rows in the
+// column-sum stage; mlp_fwd and sigma_fwd: a region of their own), the
+// epilogues' biases (sigma_fwd: bt alone) and, but for sigma_fwd, the
+// tile's raw sigma and f32 rgb.
 struct PtLayout {
   size_t xd, h, ring, stage, dzr, bias, bar, sig, rgb, total;
   int pts_wg;     // floats from one warpgroup's point rows to the other's
-  __host__ __device__ PtLayout(int nst, bool bwd) {
+  __host__ __device__ PtLayout(int nst, Pass ps) {
+    const bool bwd = ps == BWD, rows = ps != TRUNK;
     size_t o = 0;
     xd = o;     o += 2 * ATILE;
     h = o;      o += 4 * ATILE;
     ring = o;   o += (size_t)nst * SLAB_BYTES;
     stage = o;  o += sizeof(float) * (bwd ? 8 * ST_LD : 2 * PTS_WG);
     dzr = o;    o += bwd ? sizeof(float) * AT * 4 : 0;
-    bias = o;   o += sizeof(float) * N_EPI_BIAS;
+    bias = o;   o += sizeof(float) * (rows ? N_EPI_BIAS : N_TRUNK_BIAS);
     bar = o;    o += align128(2 * 8 * nst);
-    sig = o;    o += align128(sizeof(float) * AT);
-    rgb = o;    o += align128(sizeof(float) * AT * 3);
+    sig = o;    o += rows ? align128(sizeof(float) * AT) : 0;
+    rgb = o;    o += rows ? align128(sizeof(float) * AT * 3) : 0;
     total = o + 1024;                     // room to align the base
     pts_wg = bwd ? 4 * ST_LD : PTS_WG;
   }
@@ -137,7 +129,9 @@ inline Workspace point_workspace(int P) {
 }
 
 // The warpgroup's rows of the tile at point row0: each row's raw point
-// and direction (p8, d8 columns 0..2) into pts, zero at or past nv.
+// and, DIRS, its direction (p8, d8 columns 0..2) into pts, zero at or past
+// nv.
+template <bool DIRS = true>
 __device__ __forceinline__ void row_points(const Wg& wg,
                                            const float* __restrict__ p8,
                                            const float* __restrict__ d8,
@@ -149,7 +143,7 @@ __device__ __forceinline__ void row_points(const Wg& wg,
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       q[c] = r < nv ? p8[gp * 8 + c] : 0.f;
-      q[3 + c] = r < nv ? d8[gp * 8 + c] : 0.f;
+      if (DIRS) q[3 + c] = r < nv ? d8[gp * 8 + c] : 0.f;
     }
   }
 }
@@ -160,7 +154,7 @@ point_fwdbwd_kernel(const __grid_constant__ WeightMaps wm,
                     int nst) {
   extern __shared__ __align__(1024) unsigned char araw[];
   unsigned char* base = align1024(araw);
-  const PtLayout L(nst, true);
+  const PtLayout L(nst, BWD);
   unsigned char* xd = base + L.xd;
   unsigned char* h = base + L.h;
   float* stage = reinterpret_cast<float*>(base + L.stage);
@@ -219,7 +213,7 @@ __global__ void __launch_bounds__(A_THREADS, 1)
 mlp_fwd_kernel(const __grid_constant__ WeightMaps wm, PointArgs a, int nst) {
   extern __shared__ __align__(1024) unsigned char araw[];
   unsigned char* base = align1024(araw);
-  const PtLayout L(nst, false);
+  const PtLayout L(nst, FWD);
   unsigned char* xd = base + L.xd;
   unsigned char* h = base + L.h;
   float* eb = reinterpret_cast<float*>(base + L.bias);
@@ -263,6 +257,47 @@ mlp_fwd_kernel(const __grid_constant__ WeightMaps wm, PointArgs a, int nst) {
   }
 }
 
+// sigma_fwd: mlp_fwd on the trunk alone; raw sigma of each row to
+// a.sigma, straight from trunk_tile's last epilogue.
+__global__ void __launch_bounds__(A_THREADS, 1)
+sigma_fwd_kernel(const __grid_constant__ TrunkMaps wm, PointArgs a,
+                 int nst) {
+  extern __shared__ __align__(1024) unsigned char araw[];
+  unsigned char* base = align1024(araw);
+  const PtLayout L(nst, TRUNK);
+  unsigned char* xd = base + L.xd;
+  unsigned char* h = base + L.h;
+  float* eb = reinterpret_cast<float*>(base + L.bias);
+  Ring ring = start_block(base + L.ring,
+                          reinterpret_cast<uint64_t*>(base + L.bar), nst,
+                          a.p, eb, N_TRUNK_BIAS);
+  const int tid = threadIdx.x;
+  const int ntile = PShape(a.P).ntile;
+  __syncthreads();
+  if (tid >= 256) {                       // producer warpgroup
+    regs_dealloc<40>();
+    if (tid == 256)
+      for (int t = blockIdx.x; t < ntile; t += gridDim.x)
+        produce_trunk(wm, ring);
+    return;
+  }
+  regs_alloc<232>();
+
+  const Wg wg = consumer_wg();
+  float* pts = reinterpret_cast<float*>(base + L.stage) + wg.g * L.pts_wg;
+  int held = -1;
+  for (int t = blockIdx.x; t < ntile; t += gridDim.x) {
+    const size_t row0 = (size_t)t * AT;
+    const long long left = a.P - (long long)row0;
+    const int nv = left < AT ? static_cast<int>(left) : AT;
+    row_points<false>(wg, a.p8, nullptr, row0, nv, pts);
+    embed_tile<false, false>(wg, nv, pts, xd, nullptr, nullptr);
+    float acc[128];
+    trunk_tile<false>(acc, wg, ring, held, a.p, eb, nullptr, xd, h, nullptr,
+                      0, nv, a.sigma + row0);
+  }
+}
+
 }  // namespace nerf
 
 extern "C" {
@@ -283,7 +318,7 @@ int nerf_mlp_fwd(const void* p8, const void* d8, int P, const void* w0,
   a.out8 = static_cast<float*>(out8);
   WeightMaps wm;
   if (!weight_maps(a.p, &wm)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = PtLayout(PT_STAGES, false).total;
+  const size_t smem = PtLayout(PT_STAGES, FWD).total;
   cudaError_t err = cudaFuncSetAttribute(
       mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -298,17 +333,21 @@ int nerf_sigma_fwd(const void* p8, int P, const void* w0, const void* wt,
                    const void* bs, void* sigma, void* stream) {
   using namespace nerf;
   if (P <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const MlpWeights p = weights_at(w0, wt, wsk, bt, ws, bs, nullptr, nullptr,
-                                  nullptr, nullptr, nullptr, nullptr,
-                                  nullptr);
-  const size_t smem = SmemLayout(TP, 1).total;
+  PointArgs a{};
+  a.p = weights_at(w0, wt, wsk, bt, ws, bs, nullptr, nullptr, nullptr,
+                   nullptr, nullptr, nullptr, nullptr);
+  a.p8 = static_cast<const float*>(p8);
+  a.P = P;
+  a.sigma = static_cast<float*>(sigma);
+  TrunkMaps wm;
+  if (!trunk_maps(a.p, &wm)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = PtLayout(PT_STAGES, TRUNK).total;
   cudaError_t err = cudaFuncSetAttribute(
-      sigma_point_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sigma_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  sigma_point_kernel<<<(P + PPB - 1) / PPB, NTHREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p8), P, p, static_cast<float*>(sigma));
+  sigma_fwd_kernel<<<PShape(P).grid, A_THREADS, smem,
+                     static_cast<cudaStream_t>(stream)>>>(wm, a, PT_STAGES);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -344,7 +383,7 @@ int nerf_mlp_bwd(const void* p8, const void* d8, const void* g8, int P,
   ScratchMaps scm;
   if (!weight_maps(a.p, &wm) || !scratch_maps(a.s, &scm))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = PtLayout(PT_STAGES, true).total;
+  const size_t smem = PtLayout(PT_STAGES, BWD).total;
   cudaError_t err = cudaFuncSetAttribute(
       point_fwdbwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -24,106 +24,48 @@
 // to two consumer warpgroups), then quad_forward with a null noise. The
 // eval quadrature is _quadrature_tile, the same expressions as
 // _quad_forward at noise 0, so render_eval's rgb, depth and opacity equal
-// train_fwd's out8[:, 0:5] on a zero noise tensor bit for bit. Its grid
-// is persistent: min(groups, WAVE = 132) blocks, each walking groups g =
-// blockIdx.x, + gridDim.x, ... of rpb rays, so a block initialises its
-// barriers and bias copy once and its producer streams the next group's
-// slabs while the consumers integrate the last one. rpb is the count of
-// rays whose points fill the largest share of their 128-point tiles, the
-// most of equal share within shared memory (20 bytes a point: z, sigma,
-// rgb): S = 64: 16 rays in 8 tiles, S = 128: 8 in 8, S = 192: 4 in 6
-// (one ray would fill 192 of 256 rows). More rays a group give the
-// quadrature more warps at once and fewer barriers a tile: 1-2% faster at
-// R = 32768 than the fewest rays of the same share, in one call on an
-// NVIDIA H100 80GB HBM3 at 700 W.
+// train_fwd's out8[:, 0:5] on a zero noise tensor bit for bit.
 //
-// sigma_render still runs nerf_mlp.cuh's WMMA tile: a block takes rpb =
-// max(1, 256 / S) whole rays in tiles of TP = 64.
+// sigma_render is render_eval on the trunk alone: per tile, ray_points
+// without directions -> embed_tile of gamma(x) alone -> trunk_tile (the
+// sigma head in layer D-1's epilogue) into the block's sigma, its producer
+// streaming produce_trunk's 32 slabs a tile; then a warp per ray runs
+// quad_weights with a null noise, the weight part of quad_forward, and
+// writes the (R, S) weights and the opacity. Its C entry takes the trunk's
+// weights alone (TMA maps of w0, wt and wsk; a bias copy of bt). Its sigma
+// is train_fwd's (the same trunk_tile on the same gamma(x)) and its
+// weights the same expressions, so its weights and opacity equal
+// train_fwd's weights and out8[:, 4] on a zero noise tensor bit for bit.
+//
+// Both grids are persistent: min(groups, WAVE = 132) blocks, each walking
+// groups g = blockIdx.x, + gridDim.x, ... of rpb rays, so a block
+// initialises its barriers and bias copy once and its producer streams the
+// next group's slabs while the consumers integrate the last one. rpb is
+// the count of rays whose points fill the largest share of their 128-point
+// tiles, the most of equal share within shared memory with a 3-stage ring
+// (render_eval 20 bytes a point: z, sigma, rgb; sigma_render 8: z, sigma):
+// render_eval at S = 64: 16 rays in 8 tiles, S = 128: 8 in 8, S = 192: 4
+// in 6 (one ray would fill 192 of 256 rows); sigma_render at S = 64: 42
+// rays in 21 tiles, S = 128: 22 in 22, S = 192: 14 in 21. More rays a
+// group give the quadrature more warps at once and fewer barriers a tile:
+// render_eval was 1-2% faster at R = 32768 than with the fewest rays of the
+// same share, in one call on an NVIDIA H100 80GB HBM3 at 700 W.
 //
 // What bounds them: tensor-core work, 1.19 MFLOP per point for the full
 // MLP (5.03 ms at R = 32768, S = 128 on an H100 SXM's 989 TFLOP/s) and
-// 0.98 for the trunk; device memory sees only rays, z and the per-ray
-// outputs (plus weights (R, S) for sigma_render, which sample_pdf needs).
-// render_eval reads each 32 KB weight slab from L2 once per 128 points
-// (~9.4 KB a point).
+// 0.98 for the trunk (2.08 ms at R = 32768, S = 64); device memory sees
+// only rays, z and the per-ray outputs (plus weights (R, S) for
+// sigma_render, which sample_pdf needs). render_eval reads each 32 KB
+// weight slab from L2 once per 128 points (~9.4 KB a point), sigma_render
+// 32 slabs (~8 KB a point).
 //
 // Launch contract: the caller's stream, no allocation, and the entry
 // points return the first CUDA error of their launch.
 #include <cuda_runtime.h>
 
-#include "nerf_mlp.cuh"
 #include "ray_tile.cuh"
 
 namespace nerf {
-
-// --------------------------------------------------------- sigma_render --
-
-__device__ void sigma_quadrature(const Smem& sm, int S, int nray, int ray0,
-                                 float* __restrict__ weights_out,
-                                 float* __restrict__ opacity_out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < nray; r += NWARPS) {
-    const float* ray = sm.rays + r * 8;
-    const float dn = sqrtf(__fadd_rn(
-        __fadd_rn(__fmul_rn(ray[3], ray[3]), __fmul_rn(ray[4], ray[4])),
-        __fmul_rn(ray[5], ray[5])));
-    const float* zr = sm.z + r * S;
-    const float* sr = sm.sig + r * S;
-    float carry = 0.f, op = 0.f;
-    for (int s0 = 0; s0 < S; s0 += 32) {
-      const int s = s0 + lane;
-      float o = 0.f;
-      if (s < S) {
-        const float delta = s + 1 < S ? zr[s + 1] - zr[s] : 1e10f;
-        o = __fmul_rn(__fmul_rn(delta, dn), fmaxf(sr[s], 0.f));
-      }
-      float inc = o;                       // inclusive scan over the warp
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float y = __shfl_up_sync(0xffffffffu, inc, off);
-        if (lane >= off) inc += y;
-      }
-      float exc = __shfl_up_sync(0xffffffffu, inc, 1);
-      exc = (lane == 0 ? 0.f : exc) + carry;
-      carry += __shfl_sync(0xffffffffu, inc, 31);
-      if (s < S) {
-        const float w = (1.f - expf(-o)) * expf(-exc);
-        op += w;
-        weights_out[(size_t)(ray0 + r) * S + s] = w;
-      }
-    }
-#pragma unroll
-    for (int m = 16; m >= 1; m >>= 1)
-      op += __shfl_xor_sync(0xffffffffu, op, m);
-    if (lane == 0) opacity_out[(size_t)ray0 + r] = op;
-  }
-}
-
-__global__ void __launch_bounds__(NTHREADS, 2)
-sigma_render_kernel(const float* __restrict__ rays,
-                    const float* __restrict__ z, int R, int S, int rpb,
-                    MlpWeights p, float* __restrict__ weights_out,
-                    float* __restrict__ opacity_out) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem sm = smem_at(smem_raw, SmemLayout(S, rpb));
-
-  const int ray0 = blockIdx.x * rpb;
-  const int nray = min(rpb, R - ray0);
-  const int P = nray * S;                  // valid points of this block
-  for (int i = threadIdx.x; i < rpb * 8; i += NTHREADS)
-    sm.rays[i] = i < nray * 8 ? rays[(size_t)ray0 * 8 + i] : 0.f;
-  for (int i = threadIdx.x; i < P; i += NTHREADS)
-    sm.z[i] = z[(size_t)ray0 * S + i];
-  __syncthreads();
-
-  for (int t0 = 0; t0 < P; t0 += TP) {
-    build_inputs(sm, S, t0, P);
-    __syncthreads();
-    mlp_tile(p, sm, sm.sig + t0, min(TP, P - t0));
-    __syncthreads();
-  }
-  sigma_quadrature(sm, S, nray, ray0, weights_out, opacity_out);
-}
 
 // ---------------------------------------------------------- render_eval --
 
@@ -134,14 +76,14 @@ struct EvalArgs : RayArgs {
   float* opacity;   // (R,)
 };
 
-// Rays a group of render_eval: the count whose rpb * S points fill the
-// largest share of their 128-point tiles, the most of equal share, among
-// those whose block fits shared memory with a 3-stage ring (1 if none
-// does).
-inline int eval_rays_per_block(int S) {
+// Rays a group of render_eval (EVAL) or sigma_render (TRUNK): the count
+// whose rpb * S points fill the largest share of their 128-point tiles, the
+// most of equal share, among those whose block fits shared memory with a
+// 3-stage ring (1 if none does).
+inline int rays_per_group(int S, Pass pass) {
   int best = 1;
   long long best_pts = 0, best_rows = 1;
-  for (int r = 1; FbLayout(S, r, 3, EVAL).total <= MAX_SMEM; ++r) {
+  for (int r = 1; FbLayout(S, r, 3, pass).total <= MAX_SMEM; ++r) {
     const long long pts = (long long)r * S;
     const long long rows = (pts + AT - 1) / AT * AT;
     if (pts * best_rows >= best_pts * rows) {  // pts / rows no smaller
@@ -209,6 +151,96 @@ eval_quad_kernel(const __grid_constant__ WeightMaps wm, EvalArgs a,
   }
 }
 
+// ---------------------------------------------------------- sigma_render --
+
+struct SigmaArgs : RayArgs {
+  MlpWeights p;
+  float* weights;   // (R, S)
+  float* opacity;   // (R,)
+};
+
+// sigma_render: eval_quad_kernel on the trunk alone, then quad_weights.
+__global__ void __launch_bounds__(A_THREADS, 1)
+sigma_quad_kernel(const __grid_constant__ TrunkMaps wm, SigmaArgs a,
+                  int nst) {
+  extern __shared__ __align__(1024) unsigned char araw[];
+  unsigned char* base = align1024(araw);
+  const FbLayout L(a.S, a.rpb, nst, TRUNK);
+  unsigned char* xd = base + L.xd;
+  unsigned char* h = base + L.h;
+  float* eb = reinterpret_cast<float*>(base + L.bias);
+  Ring ring = start_block(base + L.ring,
+                          reinterpret_cast<uint64_t*>(base + L.bar), nst,
+                          a.p, eb, N_TRUNK_BIAS);
+  RayBlock blk(base, L, a);
+  const int ngroup = (a.R + a.rpb - 1) / a.rpb;
+  const int tid = threadIdx.x;
+  __syncthreads();
+  if (tid >= 256) {                       // producer warpgroup
+    regs_dealloc<40>();
+    if (tid == 256)
+      for (int g = blockIdx.x; g < ngroup; g += gridDim.x)
+        for (int t = 0; t < blk.ntile; ++t) produce_trunk(wm, ring);
+    return;
+  }
+  regs_alloc<232>();
+
+  const Wg wg = consumer_wg();
+  float* pts = reinterpret_cast<float*>(base + L.stage) + wg.g * L.pts_wg;
+  const RaySmem& sm = blk.sm;
+  const int S = a.S;
+  int held = -1;
+  for (int g = blockIdx.x; g < ngroup; g += gridDim.x) {
+    blk.load(a, g, tid, 256);             // the last group is integrated
+    named_sync(1, 256);
+    for (int t = 0; t < blk.ntile; ++t) {
+      const int t0 = t * AT, nv = min(AT, blk.npt - t0);
+      ray_points<false>(wg, sm, S, t0, nv, pts);
+      embed_tile<false, false>(wg, nv, pts, xd, nullptr, nullptr);
+      float acc[128];
+      trunk_tile<false>(acc, wg, ring, held, a.p, eb, nullptr, xd, h,
+                        nullptr, 0, nv, sm.sig + t0);
+    }
+    named_sync(1, 256);
+    for (int r = tid >> 5; r < blk.nray; r += 8) {
+      const size_t gr = (size_t)blk.ray0 + r;
+      float* wr = a.weights + gr * S;
+      float op = 0.f;
+      quad_weights(sm, nullptr, S, r, dir_norm(sm.rays + r * 8),
+                   [&](int s, float w, float) {
+                     wr[s] = w;
+                     op += w;
+                   });
+#pragma unroll
+      for (int m = 16; m >= 1; m >>= 1)
+        op += __shfl_xor_sync(0xffffffffu, op, m);
+      if (wg.lane == 0) a.opacity[gr] = op;
+    }
+    named_sync(1, 256);                   // before the next group's load
+  }
+}
+
+// -------------------------------------------------------------- launches --
+
+// The persistent grid of a launch on rays: min(groups, WAVE) blocks.
+inline int ray_grid(const RayArgs& a) {
+  const int ngroup = (a.R + a.rpb - 1) / a.rpb;
+  return ngroup < WAVE ? ngroup : WAVE;
+}
+
+cudaError_t launch_sigma(const SigmaArgs& a, cudaStream_t st) {
+  TrunkMaps wm;
+  if (!trunk_maps(a.p, &wm)) return cudaErrorInvalidValue;
+  const int nst = ring_stages(a.S, a.rpb, TRUNK);
+  const size_t smem = FbLayout(a.S, a.rpb, nst, TRUNK).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      sigma_quad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  sigma_quad_kernel<<<ray_grid(a), A_THREADS, smem, st>>>(wm, a, nst);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_eval(const EvalArgs& a, cudaStream_t st) {
   WeightMaps wm;
   if (!weight_maps(a.p, &wm)) return cudaErrorInvalidValue;
@@ -218,9 +250,7 @@ cudaError_t launch_eval(const EvalArgs& a, cudaStream_t st) {
       eval_quad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int ngroup = (a.R + a.rpb - 1) / a.rpb;
-  eval_quad_kernel<<<ngroup < WAVE ? ngroup : WAVE, A_THREADS, smem, st>>>(
-      wm, a, nst);
+  eval_quad_kernel<<<ray_grid(a), A_THREADS, smem, st>>>(wm, a, nst);
   return cudaGetLastError();
 }
 
@@ -234,20 +264,18 @@ int nerf_sigma_render(const void* rays, const void* z, int R, int S,
                       void* weights, void* opacity, void* stream) {
   using namespace nerf;
   if (R <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const MlpWeights p = weights_at(w0, wt, wsk, bt, ws, bs, nullptr, nullptr,
-                                  nullptr, nullptr, nullptr, nullptr,
-                                  nullptr);
-  const int rpb = rays_per_block(S);
-  const SmemLayout L(S, rpb);
-  cudaError_t err = cudaFuncSetAttribute(
-      sigma_render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.total));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sigma_render_kernel<<<(R + rpb - 1) / rpb, NTHREADS, L.total,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rays), static_cast<const float*>(z), R, S,
-      rpb, p, static_cast<float*>(weights), static_cast<float*>(opacity));
-  return static_cast<int>(cudaGetLastError());
+  SigmaArgs a{};
+  a.rays = static_cast<const float*>(rays);
+  a.z = static_cast<const float*>(z);
+  a.R = R;
+  a.S = S;
+  a.rpb = rays_per_group(S, TRUNK);
+  a.p = weights_at(w0, wt, wsk, bt, ws, bs, nullptr, nullptr, nullptr,
+                   nullptr, nullptr, nullptr, nullptr);
+  a.weights = static_cast<float*>(weights);
+  a.opacity = static_cast<float*>(opacity);
+  return static_cast<int>(
+      launch_sigma(a, static_cast<cudaStream_t>(stream)));
 }
 
 int nerf_render_eval(const void* rays, const void* z, int R, int S,
@@ -264,7 +292,7 @@ int nerf_render_eval(const void* rays, const void* z, int R, int S,
   a.z = static_cast<const float*>(z);
   a.R = R;
   a.S = S;
-  a.rpb = eval_rays_per_block(S);
+  a.rpb = rays_per_group(S, EVAL);
   a.white_back = white_back;
   a.p = weights_at(w0, wt, wsk, bt, ws, bs, wf, bf, wdf, wdd, bd, wr, br);
   a.rgb = static_cast<float*>(rgb);

@@ -1,10 +1,16 @@
-// The NeRF point MLP on tiles of 128 points with wgmma: its forward and its
-// backward as tile loops, shared by every training kernel on Hopper
+// The NeRF point MLP on tiles of 128 points with wgmma: its trunk, its
+// forward and its backward as tile loops, shared by every kernel on Hopper
 // (fused_train.cu's mse_render, train_bwd and train_fwd; fused_mlp.cu's
-// mlp_bwd). A kernel forms a tile's inputs (gamma(x), gamma(d)) from its
-// own points (o + d z of rays, or rows of raw points), runs forward_tile on
-// it, and, for a backward, backward_tile from the heads' cotangents that
-// it computes (the training quadrature's VJP, or a per-point cotangent).
+// mlp_fwd, mlp_bwd and sigma_fwd; fused_render.cu's render_eval and
+// sigma_render). A kernel forms a tile's inputs (gamma(x), and gamma(d)
+// unless it needs sigma alone) from its own points (o + d z of rays, or
+// rows of raw points) and runs trunk_tile on it (layers 0 .. D-1 and the
+// sigma head: the sigma-only kernels) or forward_tile (trunk_tile, then
+// the feature and view layers and the rgb head) and, for a backward,
+// backward_tile from the heads' cotangents that it computes (the training
+// quadrature's VJP, or a per-point cotangent). Every sigma of the port
+// comes from trunk_tile's epilogue, so a sigma-only kernel's sigma equals
+// the full forward's bit for bit.
 //
 // Block shape: two consumer warpgroups (warpgroup g owns rows 64 g .. 64 g
 // + 63 of a tile, 232 registers a thread) and a producer warpgroup (40
@@ -13,15 +19,18 @@
 // [gamma(x) 64..79 | gamma(d)], two 64-column swizzled tiles), its
 // activations / cotangents h (65,536, 4 swizzled tiles, the A operand of
 // every product, K-major), a ring of nst 32 KB weight slabs, the
-// epilogues' biases (9,728) and, for a backward, a column-sum stage
-// (8,448) and the heads' f32 cotangents (2,048).
+// epilogues' biases (9,728; 8,192 for the trunk alone) and, for a
+// backward, a column-sum stage (8,448) and the heads' f32 cotangents
+// (2,048).
 //
 // The producer streams one fixed sequence of 32 KB slabs (64 rows of K)
-// per tile: the forward's (W read MN-major, no copy) and, for a backward,
-// the backward's (dz W^T: the same W read K-major, so the host builds no
-// transposed weights). Each layer is a chain of m64n256k16 (view layer
-// n128) wgmma per warpgroup over the slabs, one group in flight, each slab
-// released to the producer as soon as its group has completed. The
+// per tile: the trunk's 32 (produce_trunk), then for the full forward the
+// feature and view layers' (produce_fwd; W read MN-major, no copy) and,
+// for a backward, the backward's (dz W^T: the same W read K-major, so the
+// host builds no transposed weights). Each layer is a chain of m64n256k16
+// (view layer n128) wgmma per warpgroup over the slabs, one group in
+// flight, each slab released to the producer as soon as its group has
+// completed. The
 // epilogues work on the accumulators in registers: bias and ReLU
 // (forward), the sigma-head term, the ReLU mask and the column sums
 // (backward); each writes bf16 once into h (the next layer's operand) and,
@@ -55,6 +64,7 @@ constexpr uint32_t SLAB_BYTES = 4 * BOX_BYTES;
 constexpr uint32_t ATILE = AT * SWZ_ROW;  // one 64-column tile of AT rows
 constexpr size_t MAX_SMEM = 232448;       // a block's shared memory
 constexpr int N_EPI_BIAS = D * W + W + WD;   // bt, bf, bd: the epilogues'
+constexpr int N_TRUNK_BIAS = D * W;          // bt alone: the trunk's
 // A row of the column-sum stage: 256 columns, one padding float per 32 so
 // that the 8 lane groups of warp_colsums write 8 different banks.
 constexpr int ST_LD = 256 + 8;
@@ -63,18 +73,34 @@ constexpr int PTS_WG = 64 * 6;
 constexpr int MASK_LAYERS = D + 1;        // trunk layers 0..D-1, view (D)
 constexpr size_t MASK_TILE_BYTES = sizeof(uint4) * MASK_LAYERS * 256;
 
+// What a launch runs of the tile loops: the trunk alone (TRUNK: the
+// sigma-only kernels), the forward (EVAL: render_eval; FWD: train_fwd and
+// mlp_fwd) or the forward and the backward (BWD); the kernels' shared-memory
+// layouts follow from it.
+enum Pass { TRUNK, EVAL, FWD, BWD };
+
 __device__ __forceinline__ int st_col(int c) { return c + (c >> 5); }
 
 // The weights as TMA maps: boxes of 64 rows for the forward's MN-major
-// slabs (4 x 64 columns), of 256 rows for the backward's K-major ones.
-struct WeightMaps {
-  CUtensorMap w0, wt, wsk, wf, wdf, wdd, wt_b, wf_b, wdf_b;
+// slabs (4 x 64 columns), of 256 rows for the backward's K-major ones. The
+// trunk's alone (TrunkMaps) are all that a sigma-only kernel reads; its C
+// entry is given no other weight.
+struct TrunkMaps {
+  CUtensorMap w0, wt, wsk;
 };
 
-inline bool weight_maps(const MlpWeights& p, WeightMaps* m) {
+struct WeightMaps : TrunkMaps {
+  CUtensorMap wf, wdf, wdd, wt_b, wf_b, wdf_b;
+};
+
+inline bool trunk_maps(const MlpWeights& p, TrunkMaps* m) {
   return make_map(&m->w0, p.w0, W, KX, 1, 64) &&
          make_map(&m->wt, p.wt, W, W, D - 1, 64) &&
-         make_map(&m->wsk, p.wsk, W, KX, 1, 64) &&
+         make_map(&m->wsk, p.wsk, W, KX, 1, 64);
+}
+
+inline bool weight_maps(const MlpWeights& p, WeightMaps* m) {
+  return trunk_maps(p, m) &&
          make_map(&m->wf, p.wf, W, W, 1, 64) &&
          make_map(&m->wdf, p.wdf, WD, W, 1, 64) &&
          make_map(&m->wdd, p.wdd, WD, KD, 1, 64) &&
@@ -102,11 +128,13 @@ struct Ring {
 };
 
 // A block's start: thread 0 initialises the ring's barriers (2 nst at
-// `bars`), every thread copies bt, bf and bd to `eb` for the forward's
-// epilogues. The caller syncs the block before either is used.
+// `bars`), every thread copies the first nbias floats of [bt | bf | bd] to
+// `eb` for the forward's epilogues (N_TRUNK_BIAS: bt alone, the trunk's).
+// The caller syncs the block before either is used.
 __device__ __forceinline__ Ring start_block(unsigned char* ring_buf,
                                             uint64_t* bars, int nst,
-                                            const MlpWeights& p, float* eb) {
+                                            const MlpWeights& p, float* eb,
+                                            int nbias = N_EPI_BIAS) {
   Ring ring{ring_buf, bars, bars + nst, nst, 0, 0};
   if (threadIdx.x == 0) {
     for (int s = 0; s < nst; ++s) {
@@ -115,7 +143,7 @@ __device__ __forceinline__ Ring start_block(unsigned char* ring_buf,
     }
     mbar_init_fence();
   }
-  for (int i = threadIdx.x; i < N_EPI_BIAS; i += A_THREADS)
+  for (int i = threadIdx.x; i < nbias; i += A_THREADS)
     eb[i] = i < D * W       ? p.bt[i]
             : i < D * W + W ? p.bf[i - D * W]
                             : p.bd[i - D * W - W];
@@ -135,9 +163,9 @@ __device__ __forceinline__ void put_slab(Ring& r, const CUtensorMap* map,
   r.next();
 }
 
-// The producer's slabs of one tile's forward_tile; the consumers take the
-// same sequence.
-__device__ __forceinline__ void produce_fwd(const WeightMaps& wm, Ring& r) {
+// The producer's 32 slabs of one tile's trunk_tile (w0 2, wt 7 x 4, wsk
+// 2); the consumers take the same sequence.
+__device__ __forceinline__ void produce_trunk(const TrunkMaps& wm, Ring& r) {
   put_slab(r, &wm.w0, 4, 0, 0, 0, BOX_BYTES);
   put_slab(r, &wm.w0, 4, 0, 64, 0, BOX_BYTES);
   for (int i = 1; i < D; ++i) {
@@ -148,6 +176,12 @@ __device__ __forceinline__ void produce_fwd(const WeightMaps& wm, Ring& r) {
       put_slab(r, &wm.wsk, 4, 0, 64, 0, BOX_BYTES);
     }
   }
+}
+
+// The producer's slabs of one tile's forward_tile: the trunk's, then the
+// feature and view layers'; the consumers take the same sequence.
+__device__ __forceinline__ void produce_fwd(const WeightMaps& wm, Ring& r) {
+  produce_trunk(wm, r);
   for (int k = 0; k < W; k += 64) put_slab(r, &wm.wf, 4, 0, k, 0, BOX_BYTES);
   for (int k = 0; k < W; k += 64) put_slab(r, &wm.wdf, 2, 0, k, 0, BOX_BYTES);
   put_slab(r, &wm.wdd, 2, 0, 0, 0, BOX_BYTES);
@@ -589,9 +623,12 @@ inline __device__ void view_backward(const Wg& wg, const uint4& mb,
 
 // The warpgroup's rows of a tile whose points and directions are in pts
 // (6 floats a row, this warpgroup's 64 rows; zero rows at or past nv):
-// gamma(x) and gamma(d) into xd (swizzled) and, KEEP, the scratch rows gx
-// and gd (the tile's first); then xd is visible to wgmma.
-template <bool KEEP>
+// gamma(x) and, DIRS, gamma(d) into xd (swizzled) and, KEEP, the scratch
+// rows gx and gd (the tile's first); then xd is visible to wgmma. The
+// trunk reads only gamma(x) (xd's columns 0..KX-1: layer 0 and the skip
+// take one 16-wide K step of the second tile), so a sigma-only kernel
+// builds no gamma(d) and gives no directions.
+template <bool KEEP, bool DIRS = true>
 __device__ void embed_tile(const Wg& wg, int nv, const float* pts,
                            unsigned char* xd, bf16* __restrict__ gx,
                            bf16* __restrict__ gd) {
@@ -614,7 +651,7 @@ __device__ void embed_tile(const Wg& wg, int nv, const float* pts,
     *reinterpret_cast<uint32_t*>(xd + swz(r, col, AT)) = b;
     if (KEEP) *reinterpret_cast<uint32_t*>(gx + (size_t)r * KX + col) = b;
   }
-  for (int i = wg.t; i < 64 * (KD / 2); i += 128) {
+  for (int i = wg.t; DIRS && i < 64 * (KD / 2); i += 128) {
     const int r = 64 * wg.g + i / (KD / 2), col = 2 * (i % (KD / 2));
     const float* q = pts + (r & 63) * 6 + 3;
     float v[2] = {0.f, 0.f};
@@ -636,25 +673,29 @@ __device__ void embed_tile(const Wg& wg, int nv, const float* pts,
   wg.sync();
 }
 
-// The forward of one tile whose inputs are in xd, on the warpgroup's
-// rows: every layer's products over the ring's slabs (produce_fwd's
-// sequence) and its epilogue into h; raw sigma of the tile rows below nv
-// to sig_out[row], their rgb after the sigmoid to rgb_out[3 row + c]. KEEP
-// (a backward follows): every bf16 activation also goes to the scratch
-// (scm, rows from row0) and the ReLU masks to `bits` (the tile's
-// MASK_TILE_BYTES).
+// Layers 0 .. D-1 of one tile whose inputs are in xd, on the warpgroup's
+// rows: every layer's products over the ring's slabs (produce_trunk's
+// sequence) into the caller's accumulators and its epilogue into h, layer
+// D-1's with the sigma head: raw sigma of the tile rows below nv to
+// sig_out[row]. act (non-null when KEEP) takes every bf16 activation
+// (scratch rows from row0) and `bits` the ReLU masks of the trunk's
+// layers. h then holds layer D-1's activations. (forward_tile passes the
+// accumulators of its later layers: with an array of its own here, nvcc
+// spilled 44 bytes in the backwards' launch A, 4-8% slower.)
 template <bool KEEP>
-__device__ void forward_tile(const Wg& wg, Ring& ring, int& held,
-                             const MlpWeights& p, const float* eb,
-                             const ScratchMaps* scm, const unsigned char* xd,
-                             unsigned char* h, uint4* bits, size_t row0,
-                             int nv, float* sig_out, float* rgb_out) {
+__device__ __forceinline__ void trunk_tile(float (&acc)[128], const Wg& wg,
+                                           Ring& ring, int& held,
+                                           const MlpWeights& p,
+                                           const float* eb,
+                                           const CUtensorMap* act,
+                                           const unsigned char* xd,
+                                           unsigned char* h, uint4* bits,
+                                           size_t row0, int nv,
+                                           float* sig_out) {
   const unsigned char* hA = h + wg.g * 64 * SWZ_ROW;    // this WG's rows
   const unsigned char* xA = xd + wg.g * 64 * SWZ_ROW;
   const uint32_t hs = smem_u32(h);
-  const CUtensorMap* act = KEEP ? &scm->m[MAP_ACT] : nullptr;
   auto slot = [&](int i) { return KEEP ? bits + i * 256 : nullptr; };
-  float acc[128];
   int scale = 0;
   slab_mma<256, 1>(acc, ring, xA, 4, 0, scale, held);       // layer 0
   slab_mma<256, 1>(acc, ring, xA + ATILE, 1, 0, scale, held);
@@ -680,8 +721,30 @@ __device__ void forward_tile(const Wg& wg, Ring& ring, int& held,
                                     slot(i));
     after_epilogue(wg, act, h, 4, row0, i);
   }
-  scale = 0;                              // feature layer (linear)
-  for (int k = 0; k < 4; ++k)
+}
+
+// The forward of one tile whose inputs are in xd, on the warpgroup's
+// rows: trunk_tile, then the feature and view layers' products over the
+// ring's slabs (produce_fwd's sequence) and their epilogues into h; raw
+// sigma of the tile rows below nv to sig_out[row], their rgb after the
+// sigmoid to rgb_out[3 row + c]. KEEP (a backward follows): every bf16
+// activation also goes to the scratch (scm, rows from row0) and the ReLU
+// masks to `bits` (the tile's MASK_TILE_BYTES).
+template <bool KEEP>
+__device__ void forward_tile(const Wg& wg, Ring& ring, int& held,
+                             const MlpWeights& p, const float* eb,
+                             const ScratchMaps* scm, const unsigned char* xd,
+                             unsigned char* h, uint4* bits, size_t row0,
+                             int nv, float* sig_out, float* rgb_out) {
+  const unsigned char* hA = h + wg.g * 64 * SWZ_ROW;    // this WG's rows
+  const unsigned char* xA = xd + wg.g * 64 * SWZ_ROW;
+  const uint32_t hs = smem_u32(h);
+  const CUtensorMap* act = KEEP ? &scm->m[MAP_ACT] : nullptr;
+  float acc[128];
+  trunk_tile<KEEP>(acc, wg, ring, held, p, eb, act, xd, h, bits, row0, nv,
+                   sig_out);
+  int scale = 0;
+  for (int k = 0; k < 4; ++k)             // feature layer (linear)
     slab_mma<256, 1>(acc, ring, hA + k * ATILE, 4, 0, scale, held);
   slabs_done(acc, ring, held);
   before_epilogue(wg);
@@ -695,7 +758,8 @@ __device__ void forward_tile(const Wg& wg, Ring& ring, int& held,
   slab_mma<128, 1>(av, ring, xA + ATILE + 32, 3, 0, scale, held);
   slabs_done(av, ring, held);
   before_epilogue(wg);
-  epi_view<KEEP>(av, wg, p, eb + D * W + W, hs, rgb_out, nv, slot(D));
+  epi_view<KEEP>(av, wg, p, eb + D * W + W, hs, rgb_out, nv,
+                 KEEP ? bits + D * 256 : nullptr);
   after_epilogue(wg, KEEP ? &scm->m[MAP_HD] : nullptr, h, 2, row0, 0);
 }
 

@@ -1,10 +1,13 @@
 // Blocks of whole rays on mlp_wgmma.cuh's tile loops, shared by the kernels
 // on rays (fused_train.cu's mse_render, train_bwd and train_fwd;
-// fused_render.cu's render_eval): the rays' fields, a block's per-ray and
-// per-point f32 data in shared memory, its points o + d z in tiles of AT =
-// 128, and the quadrature of the TPU kernels' _quad_forward
-// (nerf_pl_tpu/ops/fused_train.py, noise 0 in render_eval, where it is
-// the same expressions as _quadrature_tile of ops/fused_render.py).
+// fused_render.cu's render_eval and sigma_render): the rays' fields, a
+// block's per-ray and per-point f32 data in shared memory, its points o + d
+// z in tiles of AT = 128, and the quadrature of the TPU kernels'
+// _quad_forward (nerf_pl_tpu/ops/fused_train.py, noise 0 in render_eval
+// and sigma_render, where it is the same expressions as _quadrature_tile
+// and _sigma_render_kernel of ops/fused_render.py). Its weights come from
+// one function, quad_weights, so sigma_render's weights and opacity equal
+// those of train_fwd on a zero noise tensor bit for bit.
 //
 // A block holds rpb whole rays: their points run through the MLP tile by
 // tile (the last tile's rows past the block's points are zero rows whose
@@ -65,20 +68,19 @@ struct RayQuad {
   float rgb0, rgb1, rgb2, dep, op;   // rgb with the white background
 };
 
-// Warp per ray: the quadrature of ray r of the block (the TPU kernels'
-// _quad_forward). T_k = exp(-exclusive prefix sum of o_k), no +1e-10;
-// w_k and T_k of each sample go to ex.w and ex.trans unless they are null,
-// w_k also to wglob unless it is null. Every lane returns the ray's sums.
-__device__ inline RayQuad quad_forward(const RayArgs& a,
-                                       const RaySmem& sm, const Extra& ex,
-                                       int r, float dn, float* wglob) {
+// Warp per ray: the quadrature weights of ray r of the block (raw sigma in
+// sm.sig, the noise row nr, null reading as zero). o_k = delta_k relu(
+// sigma_k + n_k), T_k = exp(-exclusive prefix sum of o_k), no +1e-10, and
+// w_k = (1 - exp(-o_k)) T_k; each lane calls f(s, w_k, T_k) for its samples
+// s < S, 32 apart, in order.
+template <class F>
+__device__ __forceinline__ void quad_weights(const RaySmem& sm,
+                                             const float* nr, int S, int r,
+                                             float dn, F&& f) {
   const int lane = threadIdx.x & 31;
-  const int S = a.S;
   const float* zr = sm.z + r * S;
   const float* sr = sm.sig + r * S;
-  const float* nr = ex.noise ? ex.noise + r * S : nullptr;
-  const float* cr = sm.rgb + (size_t)r * S * 3;
-  float carry = 0.f, op = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, dep = 0.f;
+  float carry = 0.f;
   for (int s0 = 0; s0 < S; s0 += 32) {
     const int s = s0 + lane;
     float o = 0.f;
@@ -97,19 +99,35 @@ __device__ inline RayQuad quad_forward(const RayArgs& a,
     carry += __shfl_sync(0xffffffffu, inc, 31);
     if (s < S) {
       const float t = expf(-exc);
-      const float w = (1.f - expf(-o)) * t;
-      if (ex.w) {
-        ex.w[r * S + s] = w;
-        ex.trans[r * S + s] = t;
-      }
-      if (wglob) wglob[s] = w;
-      op += w;
-      c0 += w * cr[s * 3 + 0];
-      c1 += w * cr[s * 3 + 1];
-      c2 += w * cr[s * 3 + 2];
-      dep += w * zr[s];
+      f(s, (1.f - expf(-o)) * t, t);
     }
   }
+}
+
+// Warp per ray: the quadrature of ray r of the block (the TPU kernels'
+// _quad_forward) on quad_weights: w_k and T_k of each sample go to ex.w
+// and ex.trans unless they are null, w_k also to wglob unless it is null.
+// Every lane returns the ray's sums.
+__device__ inline RayQuad quad_forward(const RayArgs& a,
+                                       const RaySmem& sm, const Extra& ex,
+                                       int r, float dn, float* wglob) {
+  const int S = a.S;
+  const float* zr = sm.z + r * S;
+  const float* cr = sm.rgb + (size_t)r * S * 3;
+  float op = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, dep = 0.f;
+  quad_weights(sm, ex.noise ? ex.noise + r * S : nullptr, S, r, dn,
+               [&](int s, float w, float t) {
+                 if (ex.w) {
+                   ex.w[r * S + s] = w;
+                   ex.trans[r * S + s] = t;
+                 }
+                 if (wglob) wglob[s] = w;
+                 op += w;
+                 c0 += w * cr[s * 3 + 0];
+                 c1 += w * cr[s * 3 + 1];
+                 c2 += w * cr[s * 3 + 2];
+                 dep += w * zr[s];
+               });
 #pragma unroll
   for (int m = 16; m >= 1; m >>= 1) {
     op += __shfl_xor_sync(0xffffffffu, op, m);
@@ -123,20 +141,19 @@ __device__ inline RayQuad quad_forward(const RayArgs& a,
 }
 
 // What a launch on rays keeps in shared memory beside the tile loops'
-// regions: EVAL (render_eval) the rays, z, sigma and rgb; FWD (train_fwd)
-// also the noise, the quadrature weights and the transmittance; BWD (the
-// backwards' launch A) also the column-sum stage, the heads' cotangents,
-// dL/dsigma and each ray's dL/drgb.
-enum RayPass { EVAL, FWD, BWD };
-
+// regions: TRUNK (sigma_render) the rays, z and sigma, and the trunk's
+// biases alone; EVAL (render_eval) also rgb; FWD (train_fwd) also the
+// noise, the quadrature weights and the transmittance; BWD (the backwards'
+// launch A) also the column-sum stage, the heads' cotangents, dL/dsigma and
+// each ray's dL/drgb.
 struct FbLayout {
   size_t xd, h, ring, stage, dzr, bias, bar, rays, z, sig, noise, rgb, w,
       trans, gsig, grgb, total;
   int pts_wg;     // floats from one warpgroup's point rows to the other's
-  RayPass pass;
-  __host__ __device__ FbLayout(int S, int rpb, int nst, RayPass ps)
+  Pass pass;
+  __host__ __device__ FbLayout(int S, int rpb, int nst, Pass ps)
       : pass(ps) {
-    const bool train = ps != EVAL, bwd = ps == BWD;
+    const bool train = ps == FWD || ps == BWD, bwd = ps == BWD;
     const size_t n = sizeof(float) * rpb * S;
     size_t o = 0;
     xd = o;     o += 2 * ATILE;
@@ -144,13 +161,14 @@ struct FbLayout {
     ring = o;   o += (size_t)nst * SLAB_BYTES;
     stage = o;  o += sizeof(float) * (bwd ? 8 * ST_LD : 2 * PTS_WG);
     dzr = o;    o += bwd ? sizeof(float) * AT * 4 : 0;
-    bias = o;   o += sizeof(float) * N_EPI_BIAS;
+    bias = o;   o += sizeof(float) * (ps == TRUNK ? N_TRUNK_BIAS
+                                                  : N_EPI_BIAS);
     bar = o;    o += align128(2 * 8 * nst);
     rays = o;   o += align128(sizeof(float) * rpb * 8);
     z = o;      o += align128(n);
     sig = o;    o += align128(n);
     noise = o;  o += train ? align128(n) : 0;
-    rgb = o;    o += align128(3 * n);
+    rgb = o;    o += ps == TRUNK ? 0 : align128(3 * n);
     w = o;      o += train ? align128(n) : 0;
     trans = o;  o += train ? align128(n) : 0;
     gsig = o;   o += bwd ? align128(n) : 0;
@@ -162,7 +180,7 @@ struct FbLayout {
 
 // Ring stages of a block: 3, or 2 where long rays would not fit 227 KB
 // with 3.
-inline int ring_stages(int S, int rpb, RayPass pass) {
+inline int ring_stages(int S, int rpb, Pass pass) {
   return FbLayout(S, rpb, 3, pass).total <= MAX_SMEM ? 3 : 2;
 }
 
@@ -174,14 +192,14 @@ struct RayBlock {
   int ray0, nray, npt, ntile;
   __device__ RayBlock(unsigned char* base, const FbLayout& L,
                       const RayArgs& a) : sm{}, ex{} {
-    const bool train = L.pass != EVAL, bwd = L.pass == BWD;
+    const bool train = L.pass == FWD || L.pass == BWD, bwd = L.pass == BWD;
     auto at = [&](size_t off) {
       return reinterpret_cast<float*>(base + off);
     };
     sm.rays = at(L.rays);
     sm.z = at(L.z);
     sm.sig = at(L.sig);
-    sm.rgb = at(L.rgb);
+    sm.rgb = L.pass == TRUNK ? nullptr : at(L.rgb);
     ex.noise = train && a.noise ? at(L.noise) : nullptr;
     ex.w = train ? at(L.w) : nullptr;
     ex.trans = train ? at(L.trans) : nullptr;
@@ -207,7 +225,9 @@ struct RayBlock {
 };
 
 // The warpgroup's rows of tile t0 (block points t0 ..): each row's point
-// o + d z and direction into pts (6 floats a row), zero at or past nv.
+// o + d z and, DIRS, its direction into pts (6 floats a row), zero at or
+// past nv.
+template <bool DIRS = true>
 __device__ __forceinline__ void ray_points(const Wg& wg, const RaySmem& sm,
                                            int S, int t0, int nv,
                                            float* pts) {
@@ -217,7 +237,7 @@ __device__ __forceinline__ void ray_points(const Wg& wg, const RaySmem& sm,
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       q[c] = r < nv ? point_coord(sm, S, t0 + r, c) : 0.f;
-      q[3 + c] = r < nv ? sm.rays[((t0 + r) / S) * 8 + 3 + c] : 0.f;
+      if (DIRS) q[3 + c] = r < nv ? sm.rays[((t0 + r) / S) * 8 + 3 + c] : 0.f;
     }
   }
 }

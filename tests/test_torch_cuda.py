@@ -169,6 +169,88 @@ def test_mlp_fwd_ragged_relaunches_and_writes_no_row_past_p(dev, P):
     assert torch.isnan(out[P:]).all()
 
 
+# (R, S) of sigma_render against train_fwd: the eval chunk's coarse pass
+# (S = 64: 42 rays a group) at a ragged R and at the main path's R, the
+# sample counts of compare_kernels, short rays many to a group, ray counts
+# that leave the last group short, and rays longer than a tile.
+SIGMA_SHAPES = [(4099, 64), (4099, 128), (4099, 192), (1, 24), (37, 24),
+                (5, 300), (3, 1024), (32768, 64)]
+
+
+def _sigma_render_entry(mlp, rays, z, extra):
+    """sigma_render through its C entry into NaN-filled outputs of R +
+    extra rows; returns (weights, opacity) of all R + extra rows."""
+    from nerf_pl_tpu_torch.ops import _build
+    R, S = z.shape
+    weights = torch.full((R + extra, S), float("nan"), device=rays.device)
+    opacity = torch.full((R + extra,), float("nan"), device=rays.device)
+    err = _build.load_library().nerf_sigma_render(
+        rays.data_ptr(), z.data_ptr(), R, S,
+        *(mlp.kernel[n].data_ptr() for n in fm._FULL[:6]),
+        weights.data_ptr(), opacity.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return weights, opacity
+
+
+@pytest.mark.parametrize("R,S", SIGMA_SHAPES)
+def test_sigma_render_matches_train_fwd_bitwise(dev, R, S):
+    """sigma_render runs train_fwd's trunk (trunk_tile) and the weight part
+    of its quadrature (quad_weights) with no sigma noise, on a persistent
+    grid over groups of rays of its own: its weights and opacity equal
+    train_fwd's weights and out8[:, 4] on a zero noise tensor bit for bit.
+    A second launch, through the C entry into NaN-filled outputs 5 rows
+    longer than R, gives the same rows and writes no row past R."""
+    for weights, seed in (("dense", 0), ("init", 5)):
+        params = (dense_params(seed, dev) if weights == "dense" else
+                  init_nerf_params(torch.Generator().manual_seed(seed),
+                                   device=dev))
+        mlp = fm.pack_mlp(params, dev)
+        rays, z = rays_z(R, S, dev, seed=R + S)
+        n0 = fr.sigma_render_launches
+        w, op = fr.fused_sigma_render(mlp, rays, z)
+        assert fr.sigma_render_launches == n0 + 1
+        f8, fw = ft.train_forward(mlp, rays, z, torch.zeros_like(z), False)
+        w2, op2 = _sigma_render_entry(mlp, rays, z, 5)
+        torch.cuda.synchronize()
+        assert torch.isfinite(w).all() and torch.isfinite(op).all(), weights
+        assert torch.equal(w, fw), (weights, max_err(w, fw))
+        assert torch.equal(op, f8[:, 4]), (weights, max_err(op, f8[:, 4]))
+        assert torch.equal(w2[:R], w) and torch.equal(op2[:R], op), weights
+        assert torch.isnan(w2[R:]).all() and torch.isnan(op2[R:]).all()
+
+
+@pytest.mark.parametrize("P", [1, 300, 4099, 131075])
+@pytest.mark.parametrize("weights", ["dense", "init"])
+def test_sigma_fwd_matches_mlp_fwd_bitwise(dev, P, weights):
+    """sigma_fwd is mlp_fwd's persistent grid over 128-point tiles on the
+    trunk alone (the same trunk_tile on the same gamma(x)): its sigma equals
+    mlp_fwd's out8[:, 3] bit for bit, two launches are bit-identical, and a
+    call of the C entry on a sigma of P + 128 rows filled with NaN gives
+    the same rows and leaves the rows past P NaN."""
+    from nerf_pl_tpu_torch.ops import _build
+    params = (dense_params(2, dev) if weights == "dense" else
+              init_nerf_params(torch.Generator().manual_seed(5), device=dev))
+    mlp = fm.pack_mlp(params, dev)
+    x8, d8, _ = _point_inputs(P, dev, seed=P + 3)
+    n0 = fm.sigma_fwd_launches
+    first = fm.sigma_forward(mlp, x8)
+    second = fm.sigma_forward(mlp, x8)
+    assert fm.sigma_fwd_launches == n0 + 2
+    out8 = fm.mlp_forward(mlp, x8, d8)
+    out = torch.full((P + 128,), float("nan"), device=dev)
+    err = _build.load_library().nerf_sigma_fwd(
+        x8.data_ptr(), P, *(mlp.kernel[n].data_ptr() for n in fm._FULL[:6]),
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, second)
+    assert torch.equal(first, out8[:, 3]), max_err(first, out8[:, 3])
+    assert torch.equal(out[:P], first)
+    assert torch.isnan(out[P:]).all()
+
+
 def test_pad_rows_give_zero_weights(dev):
     mlp = fm.pack_mlp(dense_params(0, dev), dev)
     rays = torch.zeros((9, 8), device=dev)
@@ -317,8 +399,8 @@ def test_mlp_bwd_is_deterministic(dev):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kernel", ["mlp_fwd", "sigma_fwd", "mlp_bwd",
-                                    "train_fwd", "train_bwd"])
+@pytest.mark.parametrize("kernel", ["sigma_render", "mlp_fwd", "sigma_fwd",
+                                    "mlp_bwd", "train_fwd", "train_bwd"])
 def test_failed_launch_raises_without_fallback(dev, kernel, monkeypatch):
     """A launch that returns a CUDA error raises; the plain version is
     never run in its place and the count does not move."""
@@ -327,8 +409,8 @@ def test_failed_launch_raises_without_fallback(dev, kernel, monkeypatch):
 
     class FailingLib:
         def __getattr__(self, name):
-            if name in ("nerf_mlp_fwd", "nerf_sigma_fwd", "nerf_mlp_bwd",
-                        "nerf_train_fwd", "nerf_train_bwd"):
+            if name in ("nerf_sigma_render", "nerf_mlp_fwd", "nerf_sigma_fwd",
+                        "nerf_mlp_bwd", "nerf_train_fwd", "nerf_train_bwd"):
                 return lambda *a: 700          # cudaErrorIllegalAddress
             return getattr(real, name)
 
@@ -338,7 +420,8 @@ def test_failed_launch_raises_without_fallback(dev, kernel, monkeypatch):
     monkeypatch.setattr(_build, "load_library", lambda: FailingLib())
     for mod in (fm, ft):
         monkeypatch.setattr(mod, "_checked_library", lambda: FailingLib())
-    for mod, name in ((fm, "mlp_forward_reference"),
+    for mod, name in ((fr, "fused_sigma_render_reference"),
+                      (fm, "mlp_forward_reference"),
                       (fm, "sigma_forward_reference"),
                       (fm, "mlp_backward_reference"),
                       (ft, "fused_train_render_reference"),
@@ -347,11 +430,14 @@ def test_failed_launch_raises_without_fallback(dev, kernel, monkeypatch):
     mlp = fm.pack_mlp(dense_params(0, dev), dev)
     x8, d8, cot = _point_inputs(64, dev, seed=0)
     rays, z, noise, _ = _mse_inputs(8, 64, dev)
-    mod = ft if kernel.startswith("train") else fm
+    mod = (ft if kernel.startswith("train") else
+           fr if kernel == "sigma_render" else fm)
     count = f"{kernel}_launches"
     before = getattr(mod, count)
     with pytest.raises(RuntimeError, match=f"{kernel} kernel launch failed"):
-        if kernel == "mlp_fwd":
+        if kernel == "sigma_render":
+            fr.fused_sigma_render(mlp, rays, z)
+        elif kernel == "mlp_fwd":
             fm.mlp_forward(mlp, x8, d8)
         elif kernel == "sigma_fwd":
             fm.sigma_forward(mlp, x8)

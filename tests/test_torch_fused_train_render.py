@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_fused_train import _dense, _inputs, _rel, _step_draws
+from test_torch_cuda import _mse_inputs, dense_params
 
 from nerf_pl_tpu.models import init_nerf_params as jinit
 from nerf_pl_tpu.ops.fused_mlp import pack_params as jpack
@@ -277,6 +278,55 @@ def test_trainer_descends_with_fused_train():
     losses = m["loss"].numpy()
     assert np.all(np.isfinite(losses))
     assert losses[-5:].mean() < losses[:5].mean()
+
+
+def test_cancelling_sigma_bias_leaf_against_jax():
+    """The sigma-bias gradient (leaf 13, one float: the sum of dL/dsigma over
+    every point) on the card test's inputs at R = 3, S = 1024
+    (tests/test_torch_cuda.py: dense_params(0), rays of seed R + S, the rgb
+    MSE cotangent on a white background), where its terms cancel ~330-fold
+    (sum 5.31e-8, sum of magnitudes 1.76e-5). JAX's fused_train_render VJP
+    (interpret mode; R padded to 8 with copies of the last ray under a zero
+    cotangent, since it needs R % 8 == 0) gives 3.55e-8, the port's plain
+    backward 5.31e-8 (0.50 of JAX's value apart; train_bwd on the card gave
+    5.30e-8 against the plain version's 5.54e-8 there, 0.044 apart). So the
+    leaf is held to GRAD_TOL relative to the sum of its terms' magnitudes
+    (here 1.0e-3), and every other leaf to GRAD_TOL relative to its own
+    largest value."""
+    R, S, pad = 3, 1024, 8
+    params = dense_params(0, "cpu")
+    rays, z, noise, gt = _mse_inputs(R, S, "cpu", seed=R + S)
+    mlp = tfm.pack_mlp(params, "cpu")
+    out8, _ = tft.fused_train_render_reference(mlp, rays, z, noise, True)
+    g8 = torch.zeros_like(out8)
+    g8[:, 0:3] = 2.0 * (out8[:, 0:3] - gt) / (R * 3)
+    port = tft.fused_train_render_backward_reference(mlp, rays, z, noise,
+                                                     True, g8, None)
+    f = tft._forward(mlp, rays, z, noise, True)
+    d_sigma, _ = tft.quad_vjp(f.q, f.rgbs, g8[:, 0:3], True,
+                              tft.cotangent_base(z, g8, None))
+
+    def padded(t):
+        return jnp.asarray(torch.cat(
+            [t, t[-1:].expand(pad - R, *t.shape[1:])]).numpy())
+
+    jp = jpack({k: {kk: jnp.asarray(v.numpy()) for kk, v in d.items()}
+                for k, d in params.items()})
+    (o8_j, w_j), vjp = jax.vjp(
+        lambda p: jftr(p, padded(rays), padded(z), padded(noise), True), jp)
+    g8_j = jnp.asarray(torch.cat([g8, torch.zeros((pad - R, 8))]).numpy())
+    g_j = vjp((g8_j, jnp.zeros_like(w_j)))[0]
+    np.testing.assert_allclose(np.asarray(o8_j)[:R, :5], out8[:, :5].numpy(),
+                               atol=1e-2)
+    assert len(port) == len(g_j) == 17
+    terms = d_sigma.abs().sum().item()
+    bs_port, bs_jax = port[13][0, 0].item(), float(np.asarray(g_j[13])[0, 0])
+    assert abs(bs_port - d_sigma.sum().item()) <= 1e-3 * terms
+    assert terms > 100 * abs(bs_port)             # the terms cancel
+    assert abs(bs_port - bs_jax) <= GRAD_TOL * terms, (bs_port, bs_jax, terms)
+    for i, (a, b) in enumerate(zip(port, g_j)):
+        if i != 13:
+            assert _rel(a.numpy(), b) <= GRAD_TOL, (i, _rel(a.numpy(), b))
 
 
 def test_cpu_tensor_takes_plain_versions(params, monkeypatch):

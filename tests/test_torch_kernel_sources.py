@@ -7,11 +7,12 @@ sources as text (no compiler needed, so they run on the CPU):
   * no environment lookups and no preprocessor switch that could select
     another build of a kernel (the redesigned backward has no old copy);
   * every .cu names the function of nerf_pl_tpu/ops/*.py that it replaces;
-  * every kernel of the full MLP (the backwards' launches A and A',
-    train_fwd, mlp_fwd and render_eval through mlp_wgmma.cuh's tile loops,
-    and launch B) issues wgmma on operands that TMA brings in with
-    mbarriers, and no WMMA is left in them; the WMMA code they replaced is
-    gone, and nerf_mlp.cuh's WMMA tile runs the sigma trunk alone;
+  * every kernel (the backwards' launches A and A', train_fwd, mlp_fwd
+    and render_eval through mlp_wgmma.cuh's forward tile loop,
+    sigma_render and sigma_fwd through its trunk alone, and launch B)
+    issues wgmma on operands that TMA brings in with mbarriers; every
+    sigma comes from one function, trunk_tile, which forward_tile calls;
+    no source holds WMMA any more, and nerf_mlp.cuh holds no tile loop;
   * no C entry takes transposed weights, and each C entry's arguments in
     the sources match its ctypes signature in ops/_build.py.
 """
@@ -124,20 +125,24 @@ def reach(name, defs):
     return "\n".join(text)
 
 
-# kernel: whether a backward follows its forward tiles
+# kernel: whether a backward follows its forward tiles ("trunk": the
+# sigma-only kernels, whose tiles run the trunk alone)
 WGMMA_KERNELS = {"fwdbwd_kernel": True, "fwd_quad_kernel": False,
                  "point_fwdbwd_kernel": True, "mlp_fwd_kernel": False,
-                 "eval_quad_kernel": False, "wgrad_kernel": None}
+                 "eval_quad_kernel": False, "wgrad_kernel": None,
+                 "sigma_quad_kernel": "trunk", "sigma_fwd_kernel": "trunk"}
 
 
 @pytest.mark.parametrize("kernel", list(WGMMA_KERNELS))
 def test_backward_launches_use_wgmma_and_tma(kernel):
     """Launches A of mse_render and train_bwd (fwdbwd), A' of mlp_bwd
     (point_fwdbwd), train_fwd (fwd_quad), mlp_fwd and render_eval
-    (eval_quad) through mlp_wgmma.cuh's tile loops (slab_mma, fed by the
-    producer's put_slab), and launch B (wgrad, inline) issue wgmma on
-    TMA-loaded tiles behind mbarriers; no WMMA fragment or WMMA tile loop
-    is reached from any of them."""
+    (eval_quad) through mlp_wgmma.cuh's forward tile loop, sigma_render
+    (sigma_quad) and sigma_fwd through its trunk alone (trunk_tile, fed by
+    produce_trunk; no feature, view or rgb slab), and launch B (wgrad,
+    inline) issue wgmma on TMA-loaded tiles behind mbarriers (slab_mma,
+    fed by the producer's put_slab); no WMMA is reached from any of
+    them."""
     defs = definitions()
     assert kernel in defs
     text = reach(kernel, defs)
@@ -145,10 +150,40 @@ def test_backward_launches_use_wgmma_and_tma(kernel):
     assert "tma_load(" in text and "mbar_wait(" in text
     assert "wmma::" not in text and "mlp_tile" not in text
     backward = WGMMA_KERNELS[kernel]
-    if backward is not None:
-        body = defs[kernel]
+    body = defs[kernel]
+    if backward == "trunk":
+        assert "trunk_tile<" in body and "produce_trunk(" in body
+        for full in ("forward_tile", "produce_fwd", "backward_tile",
+                     "WeightMaps", "epi_view"):
+            assert full not in text, full
+        assert "wgmma_n256<" in text
+    elif backward is not None:
         assert "forward_tile<" in body and "produce_fwd(" in body
         assert ("backward_tile(" in body) == backward
+
+
+def test_every_sigma_comes_from_trunk_tile():
+    """forward_tile runs the trunk through trunk_tile and produce_fwd
+    streams its slabs through produce_trunk, and the sigma head (the only
+    epi_fwd256<..., true, ...> call) is in trunk_tile alone: every sigma of
+    the port comes from one code path, which makes sigma_fwd's sigma
+    mlp_fwd's, and sigma_render's weights train_fwd's, bit for bit."""
+    defs = definitions()
+    assert "trunk_tile<" in defs["forward_tile"]
+    assert "produce_trunk(" in defs["produce_fwd"]
+    heads = [name for name, body in defs.items()
+             if re.search(r"epi_fwd256<\s*\w+\s*,\s*true", body)]
+    assert heads == ["trunk_tile"], heads
+    assert "quad_weights(" in defs["quad_forward"]
+    assert "quad_weights(" in defs["sigma_quad_kernel"]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_wmma_left(path):
+    """No source, comments included, names the WMMA API or its header."""
+    text = path.read_text()
+    for gone in ("wmma::", "<mma.h>", "nvcuda"):
+        assert gone not in text, (path.name, gone)
 
 
 def test_render_eval_runs_the_training_quadrature():
@@ -167,35 +202,48 @@ def test_render_eval_runs_the_training_quadrature():
 
 
 def test_wmma_training_code_is_gone():
-    """The WMMA launch A' of mlp_bwd, its data-gradient chain, train_fwd's
-    WMMA kernel and the WMMA forwards of mlp_fwd and render_eval (the
-    templates point_fwd_kernel<FULL>, render_kernel<FULL>,
-    quadrature<FULL>) have no definition left, and no training kernel
-    keeps a switch that could reach a WMMA tile. nerf_mlp.cuh's WMMA tile
-    is the sigma trunk alone: no FULL parameter, no template on a bool,
-    and none of its functions reads the feature, view or rgb weights or
-    writes an rgb."""
+    """The WMMA kernels and their tile (the 64-point tile of nerf_mlp.cuh
+    with its shared-memory layout, fragments, slab loads and products, the
+    WMMA sigma_render and sigma_fwd, and every WMMA kernel of the full MLP
+    before them) have no definition left, none of their constants or types
+    is named in any source, and nerf_mlp.cuh defines no tile loop: only the
+    weights' accessor, the layout's alignment and the embedding's point
+    and column helpers, none with a loop, a kernel or a bool template, and
+    none reading the feature, view or rgb weights."""
     defs = definitions()
     for gone in ("mlp_bwd_kernel", "train_fwd_kernel", "backward_from_heads",
                  "store_grad", "ActSink", "copy_rows", "TrainLayout",
                  "point_fwd_kernel", "render_kernel", "quadrature",
-                 "launch_fwd"):
+                 "launch_fwd", "sigma_point_kernel", "sigma_render_kernel",
+                 "sigma_quadrature", "build_inputs", "build_point_inputs",
+                 "mlp_tile", "gemm_acc", "store_relu", "load_slab",
+                 "cp_async16", "smem_at", "zero", "rays_per_block",
+                 "eval_rays_per_block"):
         assert gone not in defs, gone
     for path in SOURCES:
-        assert not re.search(r"\b(ActSink|backward_from_heads)\b",
-                             code_of(path)), path.name
+        assert not re.search(
+            r"\b(ActSink|backward_from_heads|SmemLayout|Smem|FragA|FragB|"
+            r"FragC|TP|NWARPS|NTHREADS|KS|PAD|LDH|LDX|LDW|PPB)\b",
+            code_of(path)), path.name
     code = code_of(CSRC / "nerf_mlp.cuh")
-    assert "FULL" not in code
+    assert "FULL" not in code and "__global__" not in code
+    assert not re.search(r"\b(for|while)\s*\(", code)
     assert not re.search(r"template\s*<\s*bool", code)
+    found = []
     for m in re.finditer(r"\b(\w+)\s*(<[^;{()]*>)?\s*"
                          r"\((?:[^;{()]|\([^()]*\))*\)\s*(const\s*)?\{",
                          code):
-        if m.group(1) in KEYWORDS or m.group(1) == "weights_at":
+        if m.group(1) in KEYWORDS:
+            continue
+        found.append(m.group(1))
+        if m.group(1) == "weights_at":
             continue
         body = balanced(code, m.end() - 1)
         assert not re.search(r"\bp\.(wf|bf|wdf|wdd|bd|wr|br)\b", body), \
             m.group(1)
-        assert "rgb" not in body and "sm.d" not in body, m.group(1)
+        assert "rgb" not in body, m.group(1)
+    assert sorted(found) == ["align128", "point_coord", "sincos_col",
+                             "weights_at"], found
 
 
 def test_hopper_helpers_issue_the_ptx():

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Hold this checkout's wgmma kernels against another checkout's build of
-them, on one NVIDIA GPU, and time both:
+"""Hold this checkout's kernels against another checkout's build of them,
+on one NVIDIA GPU, and time both:
 
     git archive <commit> | tar -x -C build/parent
     python tools/check_kernels_parent.py build/parent [--kernels a,b,...]
@@ -22,19 +22,26 @@ targets, points and weights:
   * mlp_fwd at P = 65,536 and 131,072 (a dense training step's coarse and
     fine pass);
   * render_eval at (R, S) = (4099, 64), (32768, 128) and (32768, 192)
-    (white background; the eval chunk at 64 + 64 and 64 + 128 samples).
+    (white background; the eval chunk at 64 + 64 and 64 + 128 samples);
+  * sigma_render at (R, S) = (4099, 64), (32768, 64) and (32768, 128)
+    (the eval chunk's coarse pass);
+  * sigma_fwd at P = 262,144 and 2,097,152 (the coarse pass of a perturbed
+    test-time chunk of 4096 and of 32768 rays at 64 samples).
 
-out8, the weights and render_eval's outputs are held at the kernels' bars
-(weights 5e-3, rgb and opacity 1e-2, depth 5e-2), mlp_fwd's rgb within
-5e-3 and its raw sigma within 5e-3 x max(1, max |sigma|), and each of the
-17 gradient leaves within 0.03 relative max error. Not bit for bit: a
-kernel redesigned on wgmma sums in another order than the WMMA products
-of an earlier build. Both builds are called the same way, through their C
-entries with outputs and workspace allocated once (the wrappers' checks
-and allocations would add host time to one side only). Prints the median
-ms of each build at each shape (parent, this, this, parent in turn; 10
-runs each) and the ratio parent / this. `--kernels` runs only the named
-kernels (comma-separated; default all). Exits non-zero past a bar.
+out8, the weights and the render kernels' outputs are held at the
+kernels' bars (weights 5e-3, rgb and opacity 1e-2, depth 5e-2), mlp_fwd's
+rgb within 5e-3, raw sigma (mlp_fwd's and sigma_fwd's) within 5e-3 x
+max(1, max |sigma|), and each of the 17 gradient leaves within 0.03
+relative max error. A kernel redesigned on wgmma sums in another order
+than the WMMA products of an earlier build, so it is not bit for bit the
+parent's; a kernel whose code did not change should be, and each line
+says whether its outputs are bit-identical to the parent build's. Both
+builds are called the same way, through their C entries with outputs and
+workspace allocated once (the wrappers' checks and allocations would add
+host time to one side only). Prints the median ms of each build at each
+shape (parent, this, this, parent in turn; 10 runs each) and the ratio
+parent / this. `--kernels` runs only the named kernels (comma-separated;
+default all). Exits non-zero past a bar.
 """
 import ctypes
 import statistics
@@ -55,14 +62,17 @@ SHAPES = ((8, 64), (1024, 64), (1024, 128), (37, 192))
 MLP_P = 131072
 MLP_FWD_P = (65536, 131072)
 EVAL_SHAPES = ((4099, 64), (32768, 128), (32768, 192))
+SIGMA_SHAPES = ((4099, 64), (32768, 64), (32768, 128))
+SIGMA_FWD_P = (262144, 2097152)
 KERNELS = ("mse_render", "train_fwd", "train_bwd", "mlp_bwd", "mlp_fwd",
-           "render_eval")
+           "render_eval", "sigma_render", "sigma_fwd")
 POINT_TOL = 5e-3
 TOL = {"weights": 5e-3, "rgb": 1e-2, "opacity": 1e-2, "depth": 5e-2}
 GRAD_TOL = 0.03
 ENTRIES = ("nerf_mse_workspace_bytes", "nerf_mlp_workspace_bytes",
            "nerf_mse_render", "nerf_train_fwd", "nerf_train_bwd",
-           "nerf_mlp_bwd", "nerf_mlp_fwd", "nerf_render_eval")
+           "nerf_mlp_bwd", "nerf_mlp_fwd", "nerf_render_eval",
+           "nerf_sigma_render", "nerf_sigma_fwd")
 
 
 def entries_of(root: Path):
@@ -108,6 +118,11 @@ def timed_pair(parent, here):
     p1, h1, h2, p2 = (median_ms(parent), median_ms(here), median_ms(here),
                       median_ms(parent))
     return statistics.median([p1, p2]), statistics.median([h1, h2])
+
+
+def same_bits(got, ref):
+    """Whether every tensor of got equals its partner in ref bit for bit."""
+    return all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 def rel_errs(got, ref):
@@ -225,26 +240,50 @@ class Build:
             return {"rgb": rgb, "depth": depth, "opacity": opacity}
         return run
 
+    def sigma_render(self, rays, z):
+        R, S = z.shape
+        w = torch.empty((R, S), device=rays.device)
+        opacity = torch.empty((R,), device=rays.device)
+
+        def run():
+            self.call("nerf_sigma_render", rays=rays.data_ptr(),
+                      z=z.data_ptr(), R=R, S=S, weights=w.data_ptr(),
+                      opacity=opacity.data_ptr())
+            return {"weights": w, "opacity": opacity}
+        return run
+
+    def sigma_fwd(self, x8):
+        sigma = torch.empty((x8.shape[0],), device=x8.device)
+
+        def run():
+            self.call("nerf_sigma_fwd", p8=x8.data_ptr(), P=x8.shape[0],
+                      sigma=sigma.data_ptr())
+            return sigma
+        return run
+
 
 def compare(what, got, ref, out=None):
     """Prints and returns the failures of gradients `got` against `ref`
     (none if `got` is None) and, with out = ((out8, w), (ref8, ref_w)),
     of the forward's outputs."""
-    bad = []
-    msg = f"[parent] {what}:"
+    bad, parts, same = [], [], True
     if out is not None:
         (o8, w), (r8, rw) = out
         errs = {"rgb": (o8[:, :3] - r8[:, :3]).abs().max().item(),
                 "depth": (o8[:, 3] - r8[:, 3]).abs().max().item(),
                 "opacity": (o8[:, 4] - r8[:, 4]).abs().max().item(),
                 "weights": (w - rw).abs().max().item()}
-        msg += " " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + ";"
+        parts.append(", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         bad += [k for k, v in errs.items() if not v <= TOL[k]]
+        same = same_bits((o8, w), (r8, rw))
     if got is not None:
         rels = rel_errs(got, ref)
-        msg += " grad rel per leaf " + " ".join(f"{r:.2e}" for r in rels)
+        parts.append("grad rel per leaf " + " ".join(f"{r:.2e}" for r in rels))
         bad += [f"grad {i}" for i, r in enumerate(rels) if not r <= GRAD_TOL]
-    print(msg + (f"  FAIL {bad}" if bad else ""))
+        same = same and same_bits(got, ref)
+    parts.append(f"bit-identical to the parent: {same}")
+    print(f"[parent] {what}: " + "; ".join(parts)
+          + (f"  FAIL {bad}" if bad else ""))
     return bad
 
 
@@ -320,8 +359,8 @@ def check_training(old, new, run, g, dev):
 
 
 def check_forwards(old, new, run, g, dev):
-    """mlp_fwd at MLP_FWD_P and render_eval at EVAL_SHAPES; returns
-    failures."""
+    """mlp_fwd at MLP_FWD_P, render_eval at EVAL_SHAPES, sigma_render at
+    SIGMA_SHAPES and sigma_fwd at SIGMA_FWD_P; returns failures."""
     failed = []
     for P in MLP_FWD_P if "mlp_fwd" in run else ():
         x8, d8, _ = point_batch(P, g, dev)
@@ -336,7 +375,8 @@ def check_forwards(old, new, run, g, dev):
         if h[:, 4:].any():
             bad.append("out8 columns 4..7")
         print(f"[parent] mlp_fwd P={P}: rgb {e_rgb:.3e} (tol {POINT_TOL}), "
-              f"sigma {e_sig:.3e} (tol {sig_tol:.3e})"
+              f"sigma {e_sig:.3e} (tol {sig_tol:.3e}); bit-identical to the "
+              f"parent: {torch.equal(h, p)}"
               + (f"  FAIL {bad}" if bad else ""))
         failed += bad
         report_time(f"mlp_fwd P={P}", parent, here)
@@ -345,14 +385,42 @@ def check_forwards(old, new, run, g, dev):
         here, parent = new.render_eval(rays, z), old.render_eval(rays, z)
         h, p = here(), parent()
         torch.cuda.synchronize()
-        errs = {k: (h[k] - p[k]).abs().max().item() for k in h}
-        bad = [k for k, e in errs.items() if not e <= TOL[k]]
-        print(f"[parent] render_eval R={R} S={S}: "
-              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
-              + (f"  FAIL {bad}" if bad else ""))
-        failed += bad
+        failed += compare_outputs(f"render_eval R={R} S={S}", h, p)
         report_time(f"render_eval R={R} S={S}", parent, here)
+    for R, S in SIGMA_SHAPES if "sigma_render" in run else ():
+        rays, z, _, _ = ray_batch(R, S, g, dev)
+        here, parent = new.sigma_render(rays, z), old.sigma_render(rays, z)
+        h, p = here(), parent()
+        torch.cuda.synchronize()
+        failed += compare_outputs(f"sigma_render R={R} S={S}", h, p)
+        report_time(f"sigma_render R={R} S={S}", parent, here)
+    for P in SIGMA_FWD_P if "sigma_fwd" in run else ():
+        x8, _, _ = point_batch(P, g, dev)
+        here, parent = new.sigma_fwd(x8), old.sigma_fwd(x8)
+        h, p = here(), parent()
+        torch.cuda.synchronize()
+        sig_tol = POINT_TOL * max(1.0, p.abs().max().item())
+        e_sig = (h - p).abs().max().item()
+        bad = [] if e_sig <= sig_tol else ["sigma_fwd sigma"]
+        print(f"[parent] sigma_fwd P={P}: sigma {e_sig:.3e} (tol "
+              f"{sig_tol:.3e}); bit-identical to the parent: "
+              f"{torch.equal(h, p)}" + (f"  FAIL {bad}" if bad else ""))
+        failed += bad
+        report_time(f"sigma_fwd P={P}", parent, here)
     return failed
+
+
+def compare_outputs(what, here, parent):
+    """A render kernel's outputs ({name: tensor}) against the parent's at
+    TOL; prints and returns the failures."""
+    errs = {k: (here[k] - parent[k]).abs().max().item() for k in here}
+    bad = [f"{what} {k}" for k, e in errs.items() if not e <= TOL[k]]
+    print(f"[parent] {what}: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; bit-identical to the parent: "
+          f"{same_bits(here.values(), parent.values())}"
+          + (f"  FAIL {bad}" if bad else ""))
+    return bad
 
 
 def main(argv=None):
