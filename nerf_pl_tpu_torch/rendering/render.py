@@ -16,8 +16,9 @@ Port of nerf_pl_tpu/rendering/render.py:
   * `fused_mse_train_step`: the loss-fused training step, one
     `fused_mse_render` (the training kernel on a GPU) per pass, gradients
     out of the kernel instead of autograd.
-Still raising NotImplementedError, with its ROADMAP item: occupancy
-placement (`occm`: A5).
+With a per-ray segment mask (`occm`, `n_seg`: occupancy-tightened
+training) the coarse depths come from `occupied_z_vals` instead of
+stratified sampling, on every branch.
 
 torch cannot reproduce JAX's random streams, so where JAX splits a key
 into (perturb, coarse noise, importance u, fine noise), these functions
@@ -123,13 +124,6 @@ def volume_quadrature(sigmas: torch.Tensor,
     return out
 
 
-def _check_occm(occm):
-    if occm is not None:
-        raise NotImplementedError(
-            "occupancy placement of the coarse samples (occm) is not ported "
-            "yet: ROADMAP item A5")
-
-
 def coarse_z_vals(rays: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     """(R, N_samples) stratified depths, linear in depth or disparity."""
     near, far = rays[:, 6:7], rays[:, 7:8]
@@ -146,6 +140,43 @@ def coarse_z_vals(rays: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     else:
         z_vals = 1.0 / (1.0 / near * (1.0 - z_steps) + 1.0 / far * z_steps)
     return z_vals.expand(rays.shape[0], cfg.N_samples)
+
+
+def occupied_z_vals(rays: torch.Tensor, occm: torch.Tensor, n_seg: int,
+                    N_samples: int, perturb: float,
+                    uniform: Optional[torch.Tensor],
+                    keepalive: float = 0.0) -> torch.Tensor:
+    """Coarse depths concentrated in occupied space: each ray's [near, far]
+    is split into ``n_seg`` equal segments, and the depths are a
+    stratified inverse CDF over the density "occupied = 1, empty = eps"
+    that the bit mask ``occm`` (occupancy.py ray_box_segment_bits) gives.
+    The strata ascend, so the depths come out sorted.
+
+    perturb = 0 takes the strata's midpoints; perturb > 0 moves each by
+    ``uniform`` ((R, N_samples) in [0, 1), the "perturb" draw).
+    ``keepalive`` in [0, 1) spreads that share of the mass over ALL
+    segments (weight (1 - k) * bit / n_occ + k / n_seg), so interior gaps
+    stay supervised.
+
+    Returns (R, N_samples) ascending depths in [near, far]."""
+    from .occupancy import unpack_segment_bits
+    R = rays.shape[0]
+    near, far = rays[:, 6:7], rays[:, 7:8]
+    seg = torch.arange(n_seg + 1, dtype=rays.dtype,
+                       device=rays.device) / n_seg
+    edges = near * (1.0 - seg) + far * seg             # (R, n_seg + 1)
+    bits = unpack_segment_bits(occm, n_seg)            # (R, n_seg)
+    if keepalive > 0.0:
+        n_occ = torch.clamp(bits.sum(dim=-1, keepdim=True), min=1.0)
+        bits = (1.0 - keepalive) * bits / n_occ + keepalive / n_seg
+    j = torch.arange(N_samples, dtype=rays.dtype, device=rays.device)
+    if perturb > 0:
+        xi = perturb * uniform + (1.0 - perturb) * 0.5
+    else:
+        xi = torch.full((R, N_samples), 0.5, dtype=rays.dtype,
+                        device=rays.device)
+    u = (j + xi) / N_samples
+    return sample_pdf(edges, bits, N_samples, det=True, u=u).contiguous()
 
 
 def _bin_bounds(z_vals):
@@ -193,8 +224,8 @@ def render_rays(params: Mapping[str, Any],
                 mcfg: ModelConfig = ModelConfig(),
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[TrainDraws] = None,
-                occm: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+                occm: Optional[torch.Tensor] = None,
+                n_seg: int = 0) -> Dict[str, torch.Tensor]:
     """Render a batch of rays through the coarse (+fine) NeRF.
 
     Args:
@@ -204,21 +235,25 @@ def render_rays(params: Mapping[str, Any],
       rays: (R, 8) = [origin(3), direction(3), near(1), far(1)].
       generator, draws: the random draws of perturb and sigma noise (see
         the module docstring); unused when perturb = noise_std = 0.
+      occm, n_seg: an optional (R,) int64 occupied-segment mask and its
+        segment count: the coarse depths then come from occupied_z_vals.
 
     Returns rgb_coarse/depth_coarse/opacity_coarse (opacity only at test
     time), and rgb_fine/depth_fine/opacity_fine when N_importance > 0,
     keyed like the JAX package. Differentiable in dict params, except
     through the test-time render kernels and the sigma-only fused pass.
     """
-    _check_occm(occm)
     rng = functools.partial((draws or TrainDraws()).take,
                             generator=generator, device=rays.device)
-    z_vals = coarse_z_vals(rays, cfg)
-    if cfg.perturb > 0:
-        lower, upper = _bin_bounds(z_vals)
-        z_vals = lower + (upper - lower) * (
-            cfg.perturb * rng("perturb", z_vals.shape))
-    z_vals = z_vals.contiguous()
+    if occm is not None:
+        z_vals = _occupied_z_vals(rays, occm, n_seg, cfg, rng)
+    else:
+        z_vals = coarse_z_vals(rays, cfg)
+        if cfg.perturb > 0:
+            lower, upper = _bin_bounds(z_vals)
+            z_vals = lower + (upper - lower) * (
+                cfg.perturb * rng("perturb", z_vals.shape))
+        z_vals = z_vals.contiguous()
 
     if (cfg.fused and cfg.test_time and cfg.perturb == 0
             and cfg.noise_std == 0):
@@ -271,6 +306,13 @@ def render_rays(params: Mapping[str, Any],
     return result
 
 
+def _occupied_z_vals(rays, occm, n_seg, cfg: RenderConfig, rng):
+    uniform = (rng("perturb", (rays.shape[0], cfg.N_samples))
+               if cfg.perturb > 0 else None)
+    return occupied_z_vals(rays, occm, n_seg, cfg.N_samples, cfg.perturb,
+                           uniform, keepalive=cfg.occ_keepalive)
+
+
 def _kernel_noise(cfg: RenderConfig, rng, name: str, shape, device):
     """The sigma noise of one training-kernel pass: zeros when noise_std
     is 0 (the kernels always add it)."""
@@ -313,7 +355,8 @@ def fused_mse_train_step(params: Mapping[str, Any],
                          mcfg: ModelConfig = ModelConfig(),
                          generator: Optional[torch.Generator] = None,
                          draws: Optional[TrainDraws] = None,
-                         occm: Optional[torch.Tensor] = None):
+                         occm: Optional[torch.Tensor] = None,
+                         n_seg: int = 0):
     """Loss-fused training step: loss, render outputs and parameter
     gradients from one `fused_mse_render` per pass (no autograd).
 
@@ -326,15 +369,17 @@ def fused_mse_train_step(params: Mapping[str, Any],
     SUM over rays of the per-ray squared-error means; divide it by
     global_batch for the loss.
     """
-    _check_occm(occm)
     rng = functools.partial((draws or TrainDraws()).take,
                             generator=generator, device=rays.device)
-    z_vals = coarse_z_vals(rays, cfg)
-    if cfg.perturb > 0:
-        lower, upper = _bin_bounds(z_vals)
-        z_vals = lower + (upper - lower) * cfg.perturb * \
-            rng("perturb", z_vals.shape)
-    z_vals = z_vals.contiguous()
+    if occm is not None:
+        z_vals = _occupied_z_vals(rays, occm, n_seg, cfg, rng)
+    else:
+        z_vals = coarse_z_vals(rays, cfg)
+        if cfg.perturb > 0:
+            lower, upper = _bin_bounds(z_vals)
+            z_vals = lower + (upper - lower) * cfg.perturb * \
+                rng("perturb", z_vals.shape)
+        z_vals = z_vals.contiguous()
 
     def noise(name, shape):
         return _kernel_noise(cfg, rng, name, shape, rays.device)

@@ -12,17 +12,20 @@ the format both packages load, and resuming from either package's
 checkpoints (--ckpt_path). `--fused_train` takes the loss-fused training
 kernel; without it the step runs autograd over the render, through the
 fused point-MLP kernels with `--fused_mlp` (which validation then runs
-too) or the plain MLP without. It runs on cuda:0 and raises without CUDA;
-only a caller of main(device="cpu") trains on the CPU.
+too) or the plain MLP without. `--occ_train` (with `--occ_segments`,
+`--occ_dilate`, `--occ_pack`, `--occ_mode`, ...) trains occupancy-tightened
+after `--occ_warmup_epochs`, the grid rebuilt every `--occ_refresh_epochs`
+on the training device. It runs on cuda:0 and raises without CUDA; only a
+caller of main(device="cpu") trains on the CPU.
 
 `--scan_steps` is the number of steps between two reads of the metrics.
 `--compile_cache` is accepted and does nothing. TensorBoard logging needs
 tensorboardX; without it the CLI says so and trains without logs.
 
-Flags of later slices are rejected, naming their ROADMAP item: --occ_* (A5),
---num_gpus > 1 (A10), --optimizer radam|ranger (A4) and --precision
-bfloat16 with the fused kernels (bf16 master weights, A4). Reading the
-datasets' images needs PIL.
+Flags of later slices are rejected, naming their ROADMAP item: --num_gpus
+> 1 (A10), --optimizer radam|ranger (A4) and --precision bfloat16 with the
+fused kernels (bf16 master weights, A4). Reading the datasets' images
+needs PIL.
 """
 import sys
 
@@ -32,10 +35,6 @@ def main(argv=None, device=None):
     from .training.system import NeRFSystem, unported
 
     argv = sys.argv[1:] if argv is None else list(argv)
-    occ = [a for a in argv if a.startswith("--occ_")]
-    if occ:
-        raise SystemExit(f"{occ[0]}: occupancy tightening is not ported "
-                         "yet (ROADMAP item A5)")
     hparams = get_opts(argv)
     why = unported(hparams)
     if why:

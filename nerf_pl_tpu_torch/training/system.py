@@ -5,8 +5,10 @@ the epoch loop (segments of --scan_steps steps), full-image validation
 with TensorBoard panels, top-k checkpointing, `last.ckpt` and resume, in
 checkpoints both packages load. The dataset classes, the flag checks and
 the host utilities are the port's copies of the JAX package's
-(`datasets/`, `config.py`, `utils/`). Occupancy tightening
-(`_occ_tighten`, --occ_*) is ROADMAP item A5.
+(`datasets/`, `config.py`, `utils/`). With --occ_train, after
+--occ_warmup_epochs and then every --occ_refresh_epochs, an occupancy grid
+of the current fine model tightens the ray store (`_occ_tighten`), on the
+training device.
 
 Validation renders clean (no jitter or noise) full images through
 `make_render_fn` with the training passes (test_time off), as the JAX
@@ -27,6 +29,8 @@ from ..datasets import dataset_dict
 from ..device import resolve_device
 from ..parallel.render import make_render_fn
 from ..parallel.spmd import Trainer, seed_for
+from ..rendering.occupancy import (build_occupancy_grid, pick_block,
+                                   rays_aabb, resolve_ranges)
 from ..rendering.render import ModelConfig, RenderConfig
 from ..utils.profiling import PhaseTimer
 from ..utils.visualization import visualize_depth
@@ -42,8 +46,6 @@ from .optimizers import get_optimizer
 def unported(hp) -> Optional[str]:
     """Why a flag set cannot train with the port yet, naming the ROADMAP
     item; None when it can."""
-    if hp.occ_train or hp.occ_pack:
-        return "--occ_train / --occ_pack: occupancy tightening (ROADMAP A5)"
     if hp.num_gpus > 1:
         return "--num_gpus > 1: data parallel training (ROADMAP A10)"
     if hp.optimizer in ("radam", "ranger"):
@@ -93,7 +95,8 @@ class NeRFSystem:
             compute_dtype=compute_dtype, fused=hp.fused_mlp,
             fused_train=hp.fused_train,
             # the loss-fused step is exactly the reference MSE
-            fused_loss=(hp.fused_train and hp.loss_type == "mse"))
+            fused_loss=(hp.fused_train and hp.loss_type == "mse"),
+            occ_keepalive=hp.occ_keepalive)
         self.rcfg_val = RenderConfig(
             N_samples=hp.N_samples, N_importance=hp.N_importance,
             use_disp=hp.use_disp, perturb=0.0, noise_std=0.0,
@@ -143,6 +146,50 @@ class NeRFSystem:
                                tuple(self.hparams.prefixes_to_ignore))
         self.state = self.state._replace(params=params)
         print(f"[resume] params from {ckpt_path}")
+
+    # ----------------------------------------------------------- occupancy
+    def _occ_tighten(self):
+        """Build an occupancy grid from the current fine (else coarse)
+        params and tighten every stored ray's interval to its boxes."""
+        hp = self.hparams
+        params = self.state.params.get("nerf_fine",
+                                       self.state.params["nerf_coarse"])
+        # the dataset rays never change: their hull is computed once
+        if getattr(self, "_rays_aabb", None) is None:
+            self._rays_aabb = rays_aabb(self.train_dataset.all_rays)
+        aabb = self._rays_aabb
+        self._occ_refresh_i = getattr(self, "_occ_refresh_i", -1) + 1
+        auto = hp.occ_range is None
+        ranges = resolve_ranges(hp.occ_range, params, self.mcfg, aabb=aabb,
+                                sigma_threshold=hp.occ_threshold)
+        occ = build_occupancy_grid(
+            params, self.mcfg, N=hp.occ_N, block=pick_block(hp.occ_N),
+            ranges=ranges, sigma_threshold=hp.occ_threshold,
+            max_ranges=aabb if auto else None, mode=hp.occ_mode,
+            # visibility rays: the dataset's, with their untightened
+            # intervals (the store's are tightened in place)
+            vis_rays=(self.train_dataset.all_rays
+                      if hp.occ_mode == "weight" else None),
+            # a new stride phase each refresh, so a thin structure missed
+            # by one subsample is recovered by the next rebuild
+            vis_offset=self._occ_refresh_i)
+        if occ.n_boxes == 0:
+            print("[occ] grid empty (model not yet dense) — store unchanged")
+            return
+        st = self.trainer.tighten_store(
+            occ.boxes, margin=hp.occ_margin, n_seg=hp.occ_segments,
+            dilate=hp.occ_dilate, pack=hp.occ_pack)
+        msg = (f"[occ] {occ.n_boxes} boxes "
+               f"({occ.occupied_fraction * 100:.1f}% blocks occupied); "
+               f"{st['hit_frac'] * 100:.1f}% rays hit, mean interval shrink "
+               f"{st['shrink'] * 100:.1f}%")
+        if hp.occ_segments:
+            msg += (f", {hp.occ_segments}-segment masks"
+                    + (f" (dilate {hp.occ_dilate})" if hp.occ_dilate else ""))
+        if hp.occ_pack:
+            msg += (f"; packed: x{st['expand']:.2f} effective batch, "
+                    f"culled-ray residual mse {st['miss_mse']:.2e}")
+        print(msg, flush=True)
 
     # ------------------------------------------------------------- validate
     def validate(self, global_step: int, max_items: Optional[int] = None
@@ -194,9 +241,20 @@ class NeRFSystem:
         step_seed = hp.seed + 1
         spe = self.steps_per_epoch
         start_step = self.state.step
-        # replay the per-epoch shuffles a resumed run already consumed
-        for e in range(1, start_step // spe + 1):
-            self.trainer.reshuffle(seed_for(hp.seed + 2, e))
+        start_epoch = start_step // spe
+        # Replay the per-epoch shuffles a resumed run already consumed. A
+        # packed store past warmup reshuffles canonically (its layout is a
+        # function of the grid and the last epoch's seed), so it re-derives
+        # the grid from the restored params and applies the last seed only.
+        packed_resume = (hp.occ_train and hp.occ_pack
+                         and start_epoch >= hp.occ_warmup_epochs
+                         and start_epoch >= 1)
+        if packed_resume:
+            self._occ_tighten()
+            self.trainer.reshuffle(seed_for(hp.seed + 2, start_epoch))
+        else:
+            for e in range(1, start_epoch + 1):
+                self.trainer.reshuffle(seed_for(hp.seed + 2, e))
         total_steps = hp.num_epochs * spe
         print(f"[fit] {hp.num_epochs} epochs x {spe} steps/epoch = "
               f"{total_steps} steps (resuming at {start_step}) on "
@@ -204,6 +262,11 @@ class NeRFSystem:
         if start_step == 0:
             sanity = self.validate(0, max_items=1)
             print(f"[sanity] val/psnr={sanity['val/psnr']:.2f}")
+        # past warmup, the store is tightened before any step runs
+        if hp.occ_train and not packed_resume and \
+                start_epoch >= hp.occ_warmup_epochs and \
+                start_step < total_steps:
+            self._occ_tighten()
 
         metrics = {}
         step = start_step
@@ -234,13 +297,24 @@ class NeRFSystem:
                     self.writer.add_scalar("train/psnr", m["psnr"][local_i],
                                            gs)
             rate = rays_done / max(time.time() - t_start, 1e-9)
+            eff = ""
+            if self.trainer.pack_expand > 1.0:
+                # each batch row is a surviving ray; the culled rest is
+                # covered analytically
+                eff = (f", x{self.trainer.pack_expand:.2f} packed = "
+                       f"{rate * self.trainer.pack_expand:,.0f} effective")
             print(f"[train] step {step}/{total_steps} "
                   f"loss={m['loss'][-1]:.4f} psnr={m['psnr'][-1]:.2f} "
-                  f"({rate:,.0f} rays/s)", flush=True)
+                  f"({rate:,.0f} rays/s{eff})", flush=True)
 
             epoch = step // spe
             if epoch > epoch_before and step < total_steps:
                 self.trainer.reshuffle(seed_for(hp.seed + 2, epoch))
+                if hp.occ_train and epoch >= hp.occ_warmup_epochs and \
+                        (epoch - hp.occ_warmup_epochs) \
+                        % max(hp.occ_refresh_epochs, 1) == 0:
+                    with timer.phase("occ_tighten"):
+                        self._occ_tighten()
             epoch_val = epoch > epoch_before or step >= total_steps
             mid_val = (not epoch_val and hp.val_every_steps
                        and step // hp.val_every_steps

@@ -24,8 +24,11 @@ from nerf_pl_tpu_torch.models import init_nerf_params
 from nerf_pl_tpu_torch.ops import fused_mlp as fm
 from nerf_pl_tpu_torch.ops import fused_render as fr
 from nerf_pl_tpu_torch.ops import fused_train as ft
-from nerf_pl_tpu_torch.parallel import make_render_fn
-from nerf_pl_tpu_torch.rendering import RenderConfig
+from nerf_pl_tpu_torch.parallel import Trainer, make_render_fn
+from nerf_pl_tpu_torch.rendering import ModelConfig, RenderConfig, TrainDraws
+from nerf_pl_tpu_torch.training import (get_lr_schedule, get_optimizer,
+                                        loss_dict)
+from nerf_pl_tpu_torch.training.optimizers import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -307,7 +310,8 @@ def _rel(a, b):
                                             (8, 192, True), (1032, 24, False),
                                             (1032, 64, True),
                                             (1032, 192, False),
-                                            (5, 300, True)])
+                                            (5, 300, True), (1024, 32, True),
+                                            (1024, 96, True)])
 def test_mse_render_matches_plain(dev, R, S, white_back):
     mlp = fm.pack_mlp(dense_params(0, dev), dev)
     rays, z, noise, gt = _mse_inputs(R, S, dev)
@@ -473,10 +477,12 @@ def _train_cotangent(mix, out8, w, gt):
 
 # (R, S) of the training kernels against their plain versions: the main
 # path's batch at its coarse and fine sample counts, small and ragged
-# batches, and rays longer than ~390 samples, where launch A's ring drops
-# to two stages (train_fwd's keeps three at S = 400).
+# batches, rays longer than ~390 samples, where launch A's ring drops to
+# two stages (train_fwd's keeps three at S = 400), and the culled32
+# recipe's passes: 32 coarse samples (4 rays a 128-point tile) and 32 + 64
+# (one ray a tile, 25% of it padding).
 TRAIN_SHAPES = [(R, S) for R in (8, 37, 1024, 4104) for S in (64, 128, 192)
-                ] + [(5, 400)]
+                ] + [(5, 400)] + [(R, S) for R in (8, 1024) for S in (32, 96)]
 
 
 @pytest.mark.parametrize("R,S", TRAIN_SHAPES)
@@ -642,3 +648,80 @@ def test_mlp_workspace_holds_the_mask_bits(dev):
         assert lib.nerf_mlp_workspace_bytes(P) >= need, P
     assert (lib.nerf_mlp_workspace_bytes(131072)
             <= lib.nerf_mse_workspace_bytes(1024, 128))
+
+
+
+def _culled_trainer(rcfg, dev, n=20000, seed=0):
+    """A Trainer at batch 1024 (Adam, steplr) on a random store of n rays
+    (o ~ N(0, 1), unit directions with 5% of the components 0, near 2, far
+    6), tightened as bench's culled recipes do: the box [-1.5, 1.5]^3 and
+    two inner ones, margin 0.1, 32 segments, dilate 1, packed."""
+    g = torch.Generator().manual_seed(seed)
+    o = torch.randn((n, 3), generator=g)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g),
+                                      dim=-1)
+    d[torch.rand((n, 3), generator=g) < 0.05] = 0.0
+    rays = torch.cat([o, d, torch.full((n, 1), 2.0), torch.full((n, 1), 6.0)],
+                     dim=-1)
+    sched = get_lr_schedule("steplr", 5e-4, 16, 1000, decay_step=[2, 4, 8],
+                            decay_gamma=0.5)
+    tr = Trainer(ModelConfig(), rcfg, get_optimizer("adam", sched), sched,
+                 loss_dict["mse"], 1024, dev)
+    tr.set_data(rays.numpy(), torch.rand((n, 3), generator=g).numpy())
+    boxes = [[-1.5, -1.5, -1.5, 1.5, 1.5, 1.5],
+             [-0.6, -0.6, -0.6, 0.2, 0.3, 0.4],
+             [0.5, -0.2, -1.0, 1.2, 0.6, 0.9]]
+    stats = tr.tighten_store(boxes, margin=0.1, n_seg=32, dilate=1,
+                             pack=True)
+    return tr, stats
+
+
+def test_tighten_store_on_cuda_equals_cpu(dev):
+    """The ray-box tests are elementwise ops in one order on both devices:
+    the masks, hit flags, tightened near/far, partition order and
+    statistics bit for bit."""
+    rcfg = RenderConfig(N_samples=32, N_importance=64, white_back=True)
+    gpu, st_gpu = _culled_trainer(rcfg, dev)
+    cpu, st_cpu = _culled_trainer(rcfg, "cpu")
+    assert st_gpu == st_cpu and 0.0 < st_cpu["hit_frac"] < 1.0
+    for name in ("all_rays", "all_occm", "all_hit", "all_idx", "all_nf0"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), \
+            name
+    assert gpu.all_nsurv == cpu.all_nsurv
+    gpu.reshuffle(5)
+    cpu.reshuffle(5)
+    assert torch.equal(gpu.all_idx.cpu(), cpu.all_idx)
+
+
+def test_culled_loss_fused_step_matches_plain(dev):
+    """A culled32 loss-fused step (32 + 64 samples, perturb 1, noise 1,
+    white background, occupied-segment masks) launches mse_render twice,
+    and its gradients point the way the plain autograd step's do on the
+    same draws and masks: cosine >= 0.95 per leaf."""
+    base = dict(N_samples=32, N_importance=64, perturb=1.0, noise_std=1.0,
+                white_back=True)
+    tr, _ = _culled_trainer(RenderConfig(**base, fused_train=True,
+                                         fused_loss=True), dev)
+    plain = Trainer(ModelConfig(), RenderConfig(**base), tr.optimizer,
+                    tr.lr_schedule, loss_dict["mse"], 1024, dev)
+    plain.occ_n_seg = tr.occ_n_seg
+    params = {m: dense_params(i, dev)
+              for i, m in enumerate(("nerf_coarse", "nerf_fine"))}
+    rays, rgbs, occm = tr._sample_batch(0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    draws = TrainDraws(
+        perturb=torch.rand((1024, 32), generator=g, device=dev),
+        noise_coarse=torch.randn((1024, 32), generator=g, device=dev),
+        u=torch.rand((1024, 64), generator=g, device=dev),
+        noise_fine=torch.randn((1024, 96), generator=g, device=dev))
+    n0 = ft.mse_render_launches
+    loss_f, _, g_f = tr._loss_and_grads(params, rays, rgbs, None, draws,
+                                        occm=occm)
+    assert ft.mse_render_launches == n0 + 2
+    loss_p, _, g_p = plain._loss_and_grads(params, rays, rgbs, None, draws,
+                                           occm=occm)
+    assert torch.isfinite(loss_f) and torch.isfinite(loss_p)
+    for a, b in zip(tree_leaves(g_f), tree_leaves(g_p, g_f)):
+        cos = torch.nn.functional.cosine_similarity(a.reshape(-1),
+                                                    b.reshape(-1), dim=0)
+        assert cos.item() >= 0.95

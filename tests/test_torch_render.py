@@ -171,16 +171,3 @@ def test_render_rays_fused_train_time_matches_jax(params):
     for k in ref:
         np.testing.assert_allclose(ours[k].detach().numpy(),
                                    np.asarray(ref[k]), atol=2e-2, err_msg=k)
-
-
-@pytest.mark.parametrize("change", [dict(test_time=False, fused_train=True)])
-def test_unported_configs_raise(params, change):
-    """What a later slice ports: occupancy placement of the coarse samples
-    (an occm mask, ROADMAP A5) raises before anything renders, here on the
-    fused_train branch, which renders since fused_train_render was
-    ported."""
-    cfg = RenderConfig(**{**dict(N_samples=8, test_time=True), **change})
-    occm = torch.full((2,), 0xFFFF, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_rays(_torch_params(params), torch.from_numpy(_rays(2)), cfg,
-                    occm=occm)

@@ -277,8 +277,7 @@ def test_fit_writes_checkpoints_jax_reads_and_resumes(scene, tmp_path):
     assert int(resumed.state.opt_state[1]["count"]) == 3 * spe
 
 
-@pytest.mark.parametrize("extra", [["--occ_train"], ["--occ_pack"],
-                                   ["--num_gpus", "2"],
+@pytest.mark.parametrize("extra", [["--num_gpus", "2"],
                                    ["--optimizer", "radam"],
                                    ["--optimizer", "ranger"],
                                    ["--precision", "bfloat16"]])

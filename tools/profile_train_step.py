@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Where the device time of a dense training step goes, on one NVIDIA GPU:
+"""Where the device time of a training step goes, on one NVIDIA GPU:
 
     python tools/profile_train_step.py [K]
 
@@ -8,10 +8,13 @@ perturb 1, noise 1, white background, Adam 5e-4, steplr [2, 4, 8] x 0.5)
 on a random 1 M-ray store, one per training path: loss-fused
 (`--fused_train`: mse_render), `--fused_mlp` alone (autograd through
 mlp_fwd and mlp_bwd) and fused_train without the loss-fused step (autograd
-through fused_train_render: train_fwd and train_bwd). After 30 warm-up
-steps each, 100 unprofiled steps per path in the order loss-fused,
-fused_mlp, fused_train, fused_train, fused_mlp, loss-fused, each timed on
-the host clock between two syncs on a parameter (ms/step, rays/s). Then
+through fused_train_render: train_fwd and train_bwd); and a fourth at
+bench's culled32 config (loss-fused, 32 + 64 samples, the store tightened
+as bench.py tightens it: the box [-1.5, 1.5]^3, margin 0.1, 32 segments,
+dilate 1, survivor-packed). After 30 warm-up steps each, 100 unprofiled
+steps per path in the order loss-fused, culled32, fused_mlp, fused_train,
+fused_train, fused_mlp, culled32, loss-fused, each timed on the host clock
+between two syncs on a parameter (ms/step, rays/s). Then
 torch.profiler over K steps (default 20) of each path: device time per
 step summed over device-side events only (a kernel also appears under the
 aten op that launched it, which is not counted), device events per step,
@@ -57,6 +60,8 @@ def make_trainers(dev):
                 white_back=True)
     cfgs = {"loss-fused": RenderConfig(**base, fused_train=True,
                                        fused_loss=True),
+            "culled32": RenderConfig(**dict(base, N_samples=32),
+                                     fused_train=True, fused_loss=True),
             "fused_mlp": RenderConfig(**base, fused=True),
             "fused_train": RenderConfig(**base, fused_train=True)}
     rng = np.random.default_rng(0)
@@ -74,6 +79,11 @@ def make_trainers(dev):
         tr = Trainer(ModelConfig(), rcfg, get_optimizer("adam", sched),
                      sched, loss_dict["mse"], BATCH, dev)
         tr.set_data(rays, rgbs)
+        if name == "culled32":
+            st = tr.tighten_store([[-1.5, -1.5, -1.5, 1.5, 1.5, 1.5]],
+                                  margin=0.1, n_seg=32, dilate=1, pack=True)
+            print(f"[store] culled32: hit {st['hit_frac']:.4f}, shrink "
+                  f"{st['shrink']:.4f}, expand x{st['expand']:.4f}")
         state = tr.init_state(torch.Generator().manual_seed(0))
         state, _ = tr.run_steps(state, 1, 30)
         trainers[name] = [tr, state]
@@ -98,8 +108,8 @@ def main(argv=None):
     trainers = make_trainers(dev)
 
     wall = {name: [] for name in trainers}
-    for name in ("loss-fused", "fused_mlp", "fused_train", "fused_train",
-                 "fused_mlp", "loss-fused"):
+    for name in ("loss-fused", "culled32", "fused_mlp", "fused_train",
+                 "fused_train", "fused_mlp", "culled32", "loss-fused"):
         tr, state = trainers[name]
         sync(state)
         t0 = time.perf_counter()
