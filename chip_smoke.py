@@ -7,16 +7,19 @@
 2. Builds the kernels from csrc/ (first use; one nvcc per source, all at
    once) and prints the seconds and ptxas's registers and spills.
 3. Eval path. Holds each render kernel against its plain PyTorch version
-   on the card, at ragged R = 4099 and S = 64, 128, 192, with the JAX
-   kernels' test bars (weights 5e-3, rgb and opacity 1e-2, depth 5e-2),
-   and render_eval against train_fwd on a zero noise tensor at the same
-   shapes, white background on and off: rgb, depth and opacity bit for bit
+   on the card, at ragged R = 4099 and KERNEL_S (the dense passes' S = 64,
+   128, 192 and the culled renderer's buckets: sigma_render 16 and 32,
+   render_eval 32, 48 and 96), with the JAX kernels' test bars (weights
+   5e-3, rgb and opacity 1e-2, depth 5e-2), and render_eval against
+   train_fwd on a zero noise tensor at every one of those S, white
+   background on and off: rgb, depth and opacity bit for bit
    out8[:, 0:5] (render_eval is train_fwd's forward tile loop and
    quadrature with no noise); likewise sigma_render's weights and opacity
    bit for bit train_fwd's weights and out8[:, 4] (sigma_render is
    train_fwd's trunk and the weight part of its quadrature; the max
    difference is printed). Times both render kernels at the main
-   path's tile (32768 rays) with CUDA events. Then drives the eval path:
+   path's tile (32768 rays) with CUDA events, and each alone at a culled
+   tile of 8192 rays and its buckets' S. Then drives the eval path:
    random weights from a torch.Generator seed are written as a checkpoint
    with the JAX package's keys, loaded back with load_ckpt, and 2 frames
    of 400x400 at 64 + 64 samples and 2 of 800x800 at 64 + 128 (eval.py's
@@ -92,7 +95,28 @@
    runs it, on the 40x40 synthetic scene (12 views, 32 + 16 samples,
    batch 1024, lr 5e-4, 10 epochs, in a temporary directory): val/psnr past
    20 dB by epoch 10, `last.ckpt` written, and a second process resumes
-   from it for one more epoch. Then the same recipe with --fused_train,
+   from it for one more epoch. On that checkpoint (a field with empty
+   space around the sphere), the occupancy-culled renderer ([culled]): 4
+   frames of 800x800 at 64 + 128 from sphere poses in one dispatch, the
+   weight-mode grid at occ_N 128 built on their rays and then loaded from
+   the port's cache file, and the ladder dense (make_render_fn, chunk
+   32768), cull, +tighten, +budgets, +segments 32 (base tile 8192), each
+   timed over 2 dispatches after a warm-up; prints s/frame, the survivor,
+   rendered and bucket counts, one more dispatch's cull / bucket split
+   (NERF_OCC_TIMING) and the launches, and holds: finite outputs, opacity
+   in [0, 1 + 1e-4], one sigma_render and one render_eval launch a tile
+   rendered, rows no tile renders exactly white background, 4096 rays of
+   frame 1 rendered again through the same renderer with the render
+   kernels' plain versions, on their survivors (ray_errors' rule; the
+   unfused f32 path's distance from both is printed), and the cull rung
+   against dense (its rendered rows within the kernel bars, the image
+   within mse 1e-4, the bar of tests/test_occupancy.py); the other rungs'
+   PSNR against dense is printed. Then the eval CLI on the scene's test
+   split, each run in a process of its own: dense (--fused_mlp), the
+   culled stack (--occ_grid --occ_mode weight --occ_tighten --occ_budgets
+   --occ_segments 32) twice, the first building the grid and the second
+   loading it, past 20 dB, and --occ_grid alone within 0.05 dB of dense.
+   Then the same train recipe with --fused_train,
    dense and with the culled stack (--occ_train --occ_warmup_epochs 2
    --occ_refresh_epochs 2 --occ_segments 32 --occ_dilate 1 --occ_pack
    --occ_mode weight): the culled run's [occ] lines (a packed one among
@@ -105,7 +129,11 @@
    TOL, and every train_bwd gradient leaf within GRAD_TOL under four
    cotangent mixes (the rgb MSE on a white background, depth^2 + 0.3
    opacity and mean(weights^2) on black, and the sum of the three on
-   white; mean(weights^2) at R, S = 1024, 32 is left out, TRAIN_LEFT_OUT),
+   white; the leaves whose terms cancel, TERMS_HELD, are held to GRAD_TOL
+   of their largest sum of |terms|: layer 0's sin/cos rows under
+   mean(weights^2) at R, S = 1024, 32 and the sigma head's weight and bias
+   under the rgb MSE at R = 8, S = 32 and 96; the noise and ground truth
+   of every case come from a CPU generator),
    two launches of each bit-identical, train_fwd's out8 and
    weights bit for bit equal to mse_render's (the same forward and
    quadrature; the max difference is printed), and train_bwd on the MSE
@@ -117,7 +145,9 @@
    per step and no other kernel, the loss falling, and the gradient cosine
    >= 0.95 per leaf against the plain autograd step. Prints train rays/s.
 9. Prints one JSON line about the kernels (each with its launches on its
-   path, its error, its ms and its plain version's at the main shape, its
+   paths, sigma_render's and render_eval's on the eval path and the
+   [culled] ladder together, its error, its ms and its plain version's at
+   the main shape, its
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    bf16 operations over 989 TFLOP/s (mlp_flops_per_point), and
    library_ms, null: no single
@@ -126,7 +156,9 @@
    (1024, 96), the nvidia-smi line, and last {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero without those lines.
 """
+import contextlib
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -142,16 +174,22 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from nerf_pl_tpu_torch.datasets.rays import frame_rays, sphere_pose  # noqa: E402
-from nerf_pl_tpu_torch.models import init_nerf_params  # noqa: E402
+from nerf_pl_tpu_torch.eval import load_params  # noqa: E402
+from nerf_pl_tpu_torch.models import (init_nerf_params,  # noqa: E402
+                                      params_from_numpy)
 from nerf_pl_tpu_torch.ops import _build  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_mlp as fm  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_render as fr  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_train as ft  # noqa: E402
 from nerf_pl_tpu_torch.parallel import Trainer, make_render_fn  # noqa: E402
-from nerf_pl_tpu_torch.rendering import (ModelConfig, RenderConfig,  # noqa: E402
-                                         TrainDraws, render_rays)
+from nerf_pl_tpu_torch.rendering import (CulledRenderer,  # noqa: E402
+                                         ModelConfig, RenderConfig,
+                                         TrainDraws, load_or_build_grid,
+                                         render_rays)
+from nerf_pl_tpu_torch.rendering import render as rr  # noqa: E402
 from nerf_pl_tpu_torch.rendering.occupancy import (  # noqa: E402
-    build_occupancy_grid, pick_block, rays_aabb, resolve_ranges)
+    build_occupancy_grid, pick_block, ray_box_hits, rays_aabb,
+    resolve_ranges)
 from nerf_pl_tpu_torch.training import (get_lr_schedule,  # noqa: E402
                                         get_optimizer, loss_dict)
 from nerf_pl_tpu_torch.training.checkpoints import load_ckpt  # noqa: E402
@@ -201,6 +239,12 @@ TRAIN_BATCH = 1024
 TRAIN_SEED = 7
 WARMUP_STEPS, SEGMENTS, SEGMENT_STEPS = 50, 3, 100
 CLI_EPOCHS, CLI_PSNR_BAR = 10, 20.0
+CLI_CULL_DB = 0.05       # cull-only eval against dense (test_occupancy.py)
+CULLED_THETAS = (0.3, 1.9, 3.5, 5.1)   # the [culled] dispatch's 4 poses
+CULLED_LADDER = (("cull", {}), ("tighten", dict(tighten=True)),
+                 ("budgets", dict(tighten=True, budgets=True)),
+                 ("segments", dict(tighten=True, budgets=True, segments=32)))
+CULL_MSE_BAR = 1e-4      # cull against dense (tests/test_occupancy.py:288)
 OCC_N = 128              # the train CLI's default --occ_N
 TEACHER_SEEDS = (20, 21)   # dense_params seeds of the teacher's two MLPs
 CULLED_SAMPLES = 32      # bench's culled32: 32 coarse + 64 fine samples
@@ -270,22 +314,30 @@ def rel_errs(got, ref):
             for a, b in zip(got, ref)]
 
 
-def check_train_kernel(what, got, ref):
+def check_train_kernel(what, got, ref, terms=None):
     """A training kernel's (out8, weights, gradients) against its plain
-    version's: prints the errors and raises past TOL or GRAD_TOL. Returns
-    (max abs errors of out8 and weights, max abs gradient error, relative
-    gradient errors)."""
+    version's: prints the errors and raises past TOL or GRAD_TOL. A leaf i
+    of `terms` ({leaf: its sum of |terms|}) is held to GRAD_TOL relative to
+    the largest sum of |terms| of its elements instead of its own largest
+    value (a leaf whose terms cancel). Returns (max abs errors of out8 and
+    weights, max abs gradient error, the relative gradient errors held)."""
     (out8, w, grads), (ref8, ref_w, ref_g) = got, ref
     errs = {"rgb": max_err(out8[:, 0:3], ref8[:, 0:3]),
             "depth": max_err(out8[:, 3], ref8[:, 3]),
             "opacity": max_err(out8[:, 4], ref8[:, 4]),
             "weights": max_err(w, ref_w)}
     rels = rel_errs(grads, ref_g)
+    held = {i: max_err(grads[i], ref_g[i]) / t.abs().max().item()
+            for i, t in (terms or {}).items()}
     e_g = max(max_err(a, b) for a, b in zip(grads, ref_g))
+    note = "".join(f"; leaf {i}: {rels[i]:.3e} of its largest value, "
+                   f"{v:.3e} of its largest sum of |terms| (held)"
+                   for i, v in held.items())
+    rels = [held.get(i, v) for i, v in enumerate(rels)]
     print(f"[compare] {what}: "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f"; grad abs {e_g:.3e}, rel max {max(rels):.3e} (tol "
-          f"{GRAD_TOL}); bit-identical twice")
+          f"{GRAD_TOL}){note}; bit-identical twice")
     if out8[:, 5:].any():
         raise AssertionError(f"{what}: out8 columns 5..7 not zero")
     for k, v in errs.items():
@@ -297,20 +349,55 @@ def check_train_kernel(what, got, ref):
     return errs, e_g, rels
 
 
+def grad_terms(mlp, rays, z, noise, white, g8, gw):
+    """Each gradient leaf's sum of |terms|, in the pack_params layout: the
+    plain backward with every weight product a^T dz taken over |a| and
+    |dz|, and for the sigma bias (leaf 13) the sum of |dL/dsigma| over the
+    points. The other bias leaves stay signed sums."""
+    dot_t = fm._dot_t
+    fm._dot_t = lambda a, b: fm._bf16(a).abs().T @ fm._bf16(b).abs()
+    try:
+        terms = list(ft.fused_train_render_backward_reference(
+            mlp, rays, z, noise, white, g8, gw))
+    finally:
+        fm._dot_t = dot_t
+    f = ft._forward(mlp, rays, z, noise, white)
+    d_sigma, _ = ft.quad_vjp(f.q, f.rgbs, g8[:, 0:3], white,
+                             ft.cotangent_base(z, g8, gw))
+    terms[13] = d_sigma.abs().sum().reshape(1, 1)
+    return terms
+
+
+# S of the render kernels' checks at R = 4099: the dense passes (64, 128,
+# 192) and the culled renderer's buckets at eval's defaults (64 + 128:
+# sigma_render 16, 32, 64; render_eval 48, 96, 192) and at 64 + 64 (16,
+# 32, 64; 32, 64, 128). S = 16 and 48 leave a 128-point tile part filled.
+KERNEL_S = {"sigma_render": (16, 32, 64, 128, 192),
+            "render_eval": (32, 48, 64, 96, 128, 192)}
+# (kernel, S) timed at a culled tile of 8192 rays: eval's defaults' buckets
+CULLED_TILE = 8192
+CULLED_TIMED = (("sigma_render", (16, 32, 64)),
+                ("render_eval", (48, 96, 192)))
+
+
 def compare_kernels(mlp, dev):
-    """Kernel vs plain at R = 4099; returns {kernel: max abs error}."""
+    """Kernel vs plain at R = 4099 and KERNEL_S; returns {kernel: max abs
+    error}."""
     errs = {"sigma_render": 0.0, "render_eval": 0.0}
-    for S in (64, 128, 192):
+    for S in sorted(set(KERNEL_S["sigma_render"] + KERNEL_S["render_eval"])):
         rays, z = rays_z(4099, S, dev, seed=S)
-        w_k, op_k = fr.fused_sigma_render(mlp, rays, z)
-        w_p, op_p = fr.fused_sigma_render_reference(mlp, rays, z)
-        out_k = fr.fused_render_eval(mlp, rays, z, white_back=True)
-        out_p = fr.fused_render_eval_reference(mlp, rays, z, True)
+        got = {}
+        if S in KERNEL_S["sigma_render"]:
+            w_k, op_k = fr.fused_sigma_render(mlp, rays, z)
+            w_p, op_p = fr.fused_sigma_render_reference(mlp, rays, z)
+            got["sigma_render"] = {"weights": max_err(w_k, w_p),
+                                   "opacity": max_err(op_k, op_p)}
+        if S in KERNEL_S["render_eval"]:
+            out_k = fr.fused_render_eval(mlp, rays, z, white_back=True)
+            out_p = fr.fused_render_eval_reference(mlp, rays, z, True)
+            got["render_eval"] = {k: max_err(out_k[k], out_p[k])
+                                  for k in ("rgb", "depth", "opacity")}
         torch.cuda.synchronize()
-        got = {"sigma_render": {"weights": max_err(w_k, w_p),
-                                "opacity": max_err(op_k, op_p)},
-               "render_eval": {k: max_err(out_k[k], out_p[k])
-                               for k in ("rgb", "depth", "opacity")}}
         for name, per in got.items():
             print(f"[compare] {name} R=4099 S={S}: "
                   + ", ".join(f"{k} {v:.3e} (tol {TOL[k]})"
@@ -325,10 +412,10 @@ def compare_kernels(mlp, dev):
 
 def compare_eval_to_train_fwd(mlp, dev):
     """render_eval and sigma_render against train_fwd with zero noise at
-    compare_kernels' shapes, white background on and off: render_eval's
+    every S of KERNEL_S, white background on and off: render_eval's
     rgb, depth and opacity must equal out8[:, 0:5], and sigma_render's
     weights and opacity train_fwd's weights and out8[:, 4], bit for bit."""
-    for S in (64, 128, 192):
+    for S in sorted(set(KERNEL_S["sigma_render"] + KERNEL_S["render_eval"])):
         rays, z = rays_z(4099, S, dev, seed=S)
         zero = torch.zeros_like(z)
         w, op = fr.fused_sigma_render(mlp, rays, z)
@@ -353,11 +440,11 @@ def compare_eval_to_train_fwd(mlp, dev):
 
 
 def time_kernels(mlp, dev):
-    """Median ms of kernel and plain version at R = CHUNK rays."""
-    times = {}
-    for S in (64, 128, 192):
-        rays, z = rays_z(CHUNK, S, dev, seed=1000 + S)
-        pairs = {
+    """Median ms of kernel and plain version at R = CHUNK rays (the dense
+    path's tile), and of each kernel alone at CULLED_TILE rays and the
+    culled buckets' S."""
+    def pairs(rays, z):
+        return {
             "sigma_render": (lambda: fr.fused_sigma_render(mlp, rays, z),
                              lambda: fr.fused_sigma_render_reference(
                                  mlp, rays, z)),
@@ -365,13 +452,24 @@ def time_kernels(mlp, dev):
                             lambda: fr.fused_render_eval_reference(
                                 mlp, rays, z, True)),
         }
-        for name, (kern, plain) in pairs.items():
+
+    times = {}
+    for S in (64, 128, 192):
+        rays, z = rays_z(CHUNK, S, dev, seed=1000 + S)
+        for name, (kern, plain) in pairs(rays, z).items():
             t_k, t_p = median_ms(kern), median_ms(plain, reps=5, warmup=1)
             times[(name, S)] = (t_k, t_p)
             print(f"[time] {name} R={CHUNK} S={S}: kernel {t_k:.3f} ms, "
                   f"plain {t_p:.3f} ms ({t_p / t_k:.2f}x)")
         del rays, z
         torch.cuda.empty_cache()
+    for name, S_all in CULLED_TIMED:
+        for S in S_all:
+            rays, z = rays_z(CULLED_TILE, S, dev, seed=6000 + S)
+            t_k = median_ms(pairs(rays, z)[name][0])
+            print(f"[time] {name} R={CULLED_TILE} S={S} (a culled tile): "
+                  f"kernel {t_k:.3f} ms, {1e3 * t_k / CULLED_TILE:.3f} us "
+                  f"a ray")
     return times
 
 
@@ -467,10 +565,13 @@ def eval_frames(dev, params, img, n_imp):
 
 
 def mse_inputs(R, S, dev, seed):
+    """rays_z's rays and depths, and sigma noise and ground truth from a
+    CPU torch.Generator: the same inputs on any machine (a CPU test holds
+    the JAX package on them)."""
     rays, z = rays_z(R, S, dev, seed)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    noise = torch.randn((R, S), generator=g, device=dev)
-    gt = torch.rand((R, 3), generator=g, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    noise = torch.randn((R, S), generator=g).to(dev)
+    gt = torch.rand((R, 3), generator=g).to(dev)
     return rays, z, noise, gt
 
 
@@ -719,8 +820,8 @@ def ray_errors(out, plain, keys):
     return errs
 
 
-def check_ray_errors(what, errs):
-    print(f"[{what}] vs plain unfused path (99.5th pct, max, rays past "
+def check_ray_errors(what, errs, against="plain unfused path"):
+    print(f"[{what}] vs {against} (99.5th pct, max, rays past "
           f"the bar, bar, cap; at most {RAYS_PAST_BAR} rays past): "
           + ", ".join(f"{k} {q:.3e} {m:.3e} {n} {b} {c}"
                       for k, (q, m, n, b, c) in errs.items()))
@@ -847,11 +948,17 @@ TRAIN_MIXES = (("rgb", True), ("depth_opacity", False), ("weights", False),
 TRAIN_SHAPES = ([(R, S) for R in (8, 1024, 4104) for S in (64, 128, 192)]
                 + [(5, 400), (3, 1024)]
                 + [(R, S) for S in (32, 96) for R in (8, 1024, 4104)])
-# (R, S, mix) left out of compare_train: at (1024, 32) the weights
-# cotangent's leaf 1 came out 0.0338 from the plain version on the card,
-# past GRAD_TOL (ROADMAP Queue C, open). tests/test_torch_cuda.py holds the
-# shape at GRAD_TOL on its own inputs; mse_render is held here at it.
-TRAIN_LEFT_OUT = {(1024, 32, "weights")}
+# (R, S, mix): gradient leaves held to GRAD_TOL of their largest sum of
+# |terms| (check_train_kernel), leaves whose terms cancel, where the JAX
+# package's fused_train_render VJP and the port's plain version, two bf16
+# implementations, part by more than the kernel and the plain version do
+# (tests/test_torch_fused_train_render.py::
+# test_cancelling_leaves_against_jax, on these inputs): layer 0's sin/cos
+# rows (leaf 1) under mean(weights^2) at (1024, 32), ROADMAP Queue C; the
+# sigma head's weight and bias (leaves 12, 13) under the rgb MSE on white
+# at R = 8 with S = 32 and 96, sums over 256 and 768 points.
+TERMS_HELD = {(1024, 32, "weights"): (1,), (8, 32, "rgb"): (12, 13),
+              (8, 96, "rgb"): (12, 13)}
 
 
 def train_cotangent(mix, out8, w, gt):
@@ -879,10 +986,6 @@ def compare_train(mlp, dev):
     for R, S in TRAIN_SHAPES:
         rays, z, noise, gt = mse_inputs(R, S, dev, seed=7 * R + S)
         for mix, white in TRAIN_MIXES:
-            if (R, S, mix) in TRAIN_LEFT_OUT:
-                print(f"[compare] train_fwd + train_bwd R={R} S={S} {mix}: "
-                      f"left out (ROADMAP Queue C)")
-                continue
             f1 = ft.train_forward(mlp, rays, z, noise, white)
             f2 = ft.train_forward(mlp, rays, z, noise, white)
             ref8, ref_w = ft.fused_train_render_reference(
@@ -897,9 +1000,13 @@ def compare_train(mlp, dev):
                                                          f2 + b2)):
                 raise AssertionError(f"train kernels R={R} S={S} {mix}:"
                                      f" two launches differ")
+            held = TERMS_HELD.get((R, S, mix), ())
+            terms = (grad_terms(mlp, rays, z, noise, white, g8, gw)
+                     if held else None)
             fe, e_g, rels = check_train_kernel(
                 f"train_fwd + train_bwd R={R} S={S} {mix} white={white}",
-                (*f1, b1), (ref8, ref_w, ref_g))
+                (*f1, b1), (ref8, ref_w, ref_g),
+                {i: terms[i] for i in held})
             errs["train_fwd"] = max(errs["train_fwd"], *fe.values())
             errs["train_bwd"] = max(errs["train_bwd"], e_g)
             worst_rel = max(worst_rel, *rels)
@@ -1131,35 +1238,245 @@ def val_psnr(out):
         r"^\[val\] epoch (\d+) loss=\S+ psnr=(\S+)", out, re.M)}
 
 
-def train_cli_path():
+def train_cli_path(work):
     """The train CLI with --fused_mlp alone and its resume, each in a
-    process of its own; returns val/psnr by epoch."""
+    process of its own, in `work` (the scene in work/scene); returns the
+    resumed run's last.ckpt."""
     flags = CLI_FLAGS + ["--exp_name", "v1", "--fused_mlp"]
+    run_cli(["-m", "nerf_pl_tpu_torch.datasets.synthetic", "scene"],
+            "scene", work)
+    out, secs = run_cli(["-m", "nerf_pl_tpu_torch.train", *flags,
+                         "--num_epochs", str(CLI_EPOCHS)], "train CLI", work)
+    psnr = val_psnr(out)
+    print(f"[cli] train --fused_mlp, {CLI_EPOCHS} epochs, {secs:.1f} s: "
+          f"val/psnr by epoch {psnr}")
+    if not psnr.get(CLI_EPOCHS, 0.0) > CLI_PSNR_BAR:
+        raise AssertionError(f"train CLI: val/psnr {psnr} not past "
+                             f"{CLI_PSNR_BAR} dB by epoch {CLI_EPOCHS}")
+    ckpt = os.path.join(work, "ckpts", "v1", "last.ckpt")
+    if not os.path.isfile(ckpt):
+        raise AssertionError("train CLI wrote no last.ckpt")
+    out, secs = run_cli(["-m", "nerf_pl_tpu_torch.train", *flags,
+                         "--num_epochs", str(CLI_EPOCHS + 1),
+                         "--ckpt_path", ckpt], "train CLI resume", work)
+    resumed = re.search(r"^\[resume\] full train state .*$", out, re.M)
+    last = re.search(rf"^\[val\] epoch {CLI_EPOCHS + 1} .*$", out, re.M)
+    if not (resumed and last):
+        raise AssertionError(f"train CLI resume:\n{out[-3000:]}")
+    print(f"[cli] resume, {secs:.1f} s: {resumed.group(0)}; "
+          f"{last.group(0)}")
+    return ckpt
 
-    with tempfile.TemporaryDirectory() as tmp:
-        run_cli(["-m", "nerf_pl_tpu_torch.datasets.synthetic", "scene"],
-                "scene", tmp)
-        out, secs = run_cli(["-m", "nerf_pl_tpu_torch.train", *flags,
-                             "--num_epochs", str(CLI_EPOCHS)], "train CLI",
-                            tmp)
-        psnr = val_psnr(out)
-        print(f"[cli] train --fused_mlp, {CLI_EPOCHS} epochs, {secs:.1f} s: "
-              f"val/psnr by epoch {psnr}")
-        if not psnr.get(CLI_EPOCHS, 0.0) > CLI_PSNR_BAR:
-            raise AssertionError(f"train CLI: val/psnr {psnr} not past "
-                                 f"{CLI_PSNR_BAR} dB by epoch {CLI_EPOCHS}")
-        ckpt = os.path.join(tmp, "ckpts", "v1", "last.ckpt")
-        if not os.path.isfile(ckpt):
-            raise AssertionError("train CLI wrote no last.ckpt")
-        out, secs = run_cli(["-m", "nerf_pl_tpu_torch.train", *flags,
-                             "--num_epochs", str(CLI_EPOCHS + 1),
-                             "--ckpt_path", ckpt], "train CLI resume", tmp)
-        resumed = re.search(r"^\[resume\] full train state .*$", out, re.M)
-        last = re.search(rf"^\[val\] epoch {CLI_EPOCHS + 1} .*$", out, re.M)
-        if not (resumed and last):
-            raise AssertionError(f"train CLI resume:\n{out[-3000:]}")
-        print(f"[cli] resume, {secs:.1f} s: {resumed.group(0)}; "
-              f"{last.group(0)}")
+
+def sync_secs(fn):
+    """(fn(), seconds from a torch.cuda.synchronize to the next)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def psnr_db(a, b):
+    return (-10.0 * torch.log10(((a - b) ** 2).mean())).item()
+
+
+def culled_path(dev, ckpt):
+    """The occupancy-culled renderer on the trained sphere field: 4 frames
+    of 800x800 at 64 + 128 in one dispatch, the weight-mode grid at OCC_N
+    built then loaded from the port's cache, and the ladder dense, cull,
+    tighten, budgets, segments (CULLED_LADDER), each timed over 2
+    dispatches after a warm-up one. Holds: finite outputs, opacity in [0,
+    1 + 1e-4], one sigma_render and one render_eval launch a tile, rows no
+    tile renders exactly background, 4096 rays of frame 1 against the
+    same renderer with the render kernels' plain versions (on their
+    survivors, ray_errors' rule), and the cull rung against dense
+    (the rendered rows within the kernel bars, the image within
+    CULL_MSE_BAR). Returns the kernels' launches over the ladder."""
+    params = {k: params_from_numpy(v, dev)
+              for k, v in load_params(ckpt).items()}
+    focal = 0.5 * BIG_IMG / np.tan(0.5 * CAMERA_ANGLE_X)
+    rays = torch.cat([frame_rays(sphere_pose(t, np.pi / 5, 4.0), BIG_IMG,
+                                 BIG_IMG, focal, 2.0, 6.0, dev)
+                      for t in CULLED_THETAS])
+    R, px = rays.shape[0], BIG_IMG * BIG_IMG
+    rcfg = RenderConfig(N_samples=N_SAMPLES, N_importance=BIG_IMPORTANCE,
+                        test_time=True, white_back=True, fused=True)
+
+    grid_kw = dict(N=OCC_N, aabb=rays_aabb(rays.cpu().numpy()),
+                   mode="weight", vis_rays=rays)
+    (occ, secs) = sync_secs(lambda: load_or_build_grid(
+        ckpt, params["nerf_fine"], **grid_kw))
+    caches = glob.glob(glob.escape(ckpt) + ".torch_occ.*.npz")
+    stamp = [os.stat(c).st_mtime_ns for c in caches]
+    (again, secs2) = sync_secs(lambda: load_or_build_grid(
+        ckpt, params["nerf_fine"], **grid_kw))
+    print(f"[culled] weight grid at N={OCC_N} on the 4 frames' rays: "
+          f"{occ.n_boxes} boxes, {100 * occ.occupied_fraction:.2f}% of "
+          f"blocks occupied; built in {secs:.3f} s, loaded from "
+          f"{[os.path.basename(c) for c in caches]} in {secs2:.3f} s")
+    if not (len(caches) == 1 and stamp == [os.stat(caches[0]).st_mtime_ns]
+            and np.array_equal(occ.boxes, again.boxes)
+            and 0 < occ.occupied_fraction < 1):
+        raise AssertionError("grid cache: not one file loaded back, or the "
+                             "grid holds nothing or everything")
+
+    idx = torch.linspace(0, px - 1, 4096, device=dev).long()   # frame 1
+    dense_fn = make_render_fn(rcfg, CHUNK, dev, device_out=True)
+    reset_counts()
+    rungs = [("dense", lambda: (dense_fn(params, rays), None), None)]
+    for name, cfg in CULLED_LADDER:
+        cr = CulledRenderer(occ, rcfg, chunk=CulledRenderer.DEFAULT_CHUNK,
+                            device=dev, **cfg)
+        rungs.append((name, lambda cr=cr: cr(params, rays,
+                                             return_stats=True), cr))
+    for name, fn, cr in rungs:
+        fn()                                            # warm-up
+        n0 = read_counts()
+        (out, stats), t1 = sync_secs(fn)
+        _, t2 = sync_secs(fn)
+        n = {k: v - n0[k] for k, v in read_counts().items()}
+        tiles = (2 * -(-R // CHUNK) if cr is None else 2 * sum(
+            p[2] for p in cr._tile_plan(R, stats.get(
+                "bucket_counts", [stats["n_survivors"]]))))
+        want = {k: tiles if k in ("sigma_render", "render_eval") else 0
+                for k in n}
+        print(f"[culled] {name}: {t1 / 4:.4f}, {t2 / 4:.4f} s/frame; "
+              + ("" if stats is None else
+                 f"survivors {stats['n_survivors']} of {R}, rendered "
+                 f"{stats['n_rendered']}, buckets "
+                 f"{stats.get('bucket_counts')}; ")
+              + f"launches in 2 dispatches {n} ({tiles // 2} tiles a "
+              f"dispatch)")
+        if n != want:
+            raise AssertionError(f"culled {name}: launched {n}, not {want}")
+        for k in ("rgb_fine", "depth_fine", "opacity_fine"):
+            if out[k].shape[0] != R or not torch.isfinite(out[k]).all():
+                raise AssertionError(f"culled {name}: {k} not finite or "
+                                     f"misshapen")
+        lo, hi = out["opacity_fine"].min().item(), \
+            out["opacity_fine"].max().item()
+        if lo < 0.0 or hi > 1.0 + 1e-4:
+            raise AssertionError(f"culled {name}: opacity in [{lo}, {hi}]")
+        if cr is None:
+            dense = out
+            continue
+        os.environ["NERF_OCC_TIMING"] = "1"
+        try:
+            print(f"[culled] {name}: the split of one more dispatch:")
+            cr(params, rays)
+        finally:
+            del os.environ["NERF_OCC_TIMING"]
+        check_culled_rung(dev, name, cr, occ, params, rays, idx, out, stats,
+                          dense)
+    counts = read_counts()
+    return {k: counts[k] for k in ("sigma_render", "render_eval")}
+
+
+@contextlib.contextmanager
+def plain_render_kernels():
+    """render_rays with the two render kernels' plain PyTorch versions in
+    their place."""
+    saved = rr.fused_sigma_render, rr.fused_render_eval
+    rr.fused_sigma_render = fr.fused_sigma_render_reference
+    rr.fused_render_eval = fr.fused_render_eval_reference
+    try:
+        yield
+    finally:
+        rr.fused_sigma_render, rr.fused_render_eval = saved
+
+
+def check_culled_rung(dev, name, cr, occ, params, rays, idx, out, stats,
+                      dense):
+    """One culled rung's holds (culled_path)."""
+    R = rays.shape[0]
+    cull = cr._cull(rays, 0)
+    rendered = torch.zeros(R, dtype=torch.bool, device=dev)
+    rendered[cull.order[:stats["n_survivors"] if cr.budgets
+                        else min(stats["n_rendered"], R)]] = True
+    bg = (out["rgb_fine"][~rendered] == 1.0).all() and not (
+        out["depth_fine"][~rendered].any()
+        or out["opacity_fine"][~rendered].any())
+    if not bg:
+        raise AssertionError(f"culled {name}: a row no tile renders is not "
+                             f"background")
+    # the 4096 rays again through the same renderer with the render
+    # kernels' plain versions (held), and through one of the same settings
+    # on the unfused f32 path (printed beside the plain versions' own
+    # distance from it: bf16 against f32 on the trained surface)
+    hit = ray_box_hits(cr.boxes, rays[idx])[0]
+    keys = ("rgb_fine", "depth_fine", "opacity_fine")
+    with plain_render_kernels():
+        plain = cr(params, rays[idx])
+    unfused = CulledRenderer(
+        occ, dataclasses.replace(cr.rcfg, fused=False), chunk=cr.chunk,
+        tighten=cr.tighten, budgets=cr.budgets, segments=cr.segments,
+        device=dev)(params, rays[idx])
+    fused = {k: out[k][idx][hit] for k in keys}
+    plain, unfused = ({k: v[k][hit] for k in keys} for v in (plain, unfused))
+    for what, a, b in (("kernels vs unfused f32", fused, unfused),
+                       ("plain versions vs unfused f32", plain, unfused)):
+        errs = ray_errors(a, b, keys)
+        print(f"[culled] {name}: {what} on {int(hit.sum())} survivors "
+              f"(printed, not held): " + ", ".join(
+                  f"{k} {q:.3e} {m:.3e} {n}" for k, (q, m, n, _, _)
+                  in errs.items()))
+    check_ray_errors(f"culled {name}", ray_errors(fused, plain, keys),
+                     "the render kernels' plain versions")
+    psnr = psnr_db(out["rgb_fine"], dense["rgb_fine"])
+    if name != "cull":
+        print(f"[culled] {name}: PSNR against dense {psnr:.2f} dB (printed, "
+              f"not held)")
+        return
+    diff = {k: max_err(out[k][rendered], dense[k][rendered]) for k in keys}
+    mse = ((out["rgb_fine"] - dense["rgb_fine"]) ** 2).mean().item()
+    print(f"[culled] cull against dense on its {int(rendered.sum())} "
+          f"rendered rows: " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in diff.items())
+          + f"; image mse {mse:.3e} (bar {CULL_MSE_BAR}), PSNR {psnr:.2f} dB")
+    for k, v in diff.items():
+        if not v <= TOL[k.split("_")[0]]:
+            raise AssertionError(f"cull vs dense {k}: {v}")
+    if not mse <= CULL_MSE_BAR:
+        raise AssertionError(f"cull vs dense: image mse {mse}")
+
+
+def eval_cli_path(work, ckpt):
+    """The eval CLI on the scene's test split with `ckpt`, each run in a
+    process of its own: dense (--fused_mlp), the culled stack twice (the
+    grid built, then loaded from its cache; mean PSNR past CLI_PSNR_BAR)
+    and --occ_grid alone (within CLI_CULL_DB of dense). Returns the mean
+    PSNR of each."""
+    base = ["-m", "nerf_pl_tpu_torch.eval", "--root_dir", "scene",
+            "--dataset_name", "blender", "--img_wh", "40", "40",
+            "--N_samples", "32", "--N_importance", "16", "--ckpt_path",
+            ckpt, "--fused_mlp"]
+    stack = ["--occ_grid", "--occ_mode", "weight", "--occ_tighten",
+             "--occ_budgets", "--occ_segments", "32"]
+    psnr = {}
+    for name, extra, want in (("dense", [], None),
+                              ("culled", stack, "built grid"),
+                              ("culled again", stack, "loaded cached grid"),
+                              ("cull only", ["--occ_grid"], "built grid")):
+        metrics = os.path.join(work, f"{name.replace(' ', '_')}.json")
+        out, secs = run_cli(base + extra + ["--scene_name", name.split()[0],
+                                            "--metrics_out", metrics],
+                            f"eval CLI {name}", work)
+        with open(metrics) as f:
+            psnr[name] = json.load(f)["mean_psnr"]
+        occ = [ln for ln in out.splitlines() if ln.startswith("[occ]")]
+        print(f"[cli] eval {' '.join(extra) or '(dense)'}, {secs:.1f} s: "
+              f"mean PSNR {psnr[name]}; " + "; ".join(occ))
+        if want and not any(ln.startswith(f"[occ] {want}") for ln in occ):
+            raise AssertionError(f"eval CLI {name}: no '[occ] {want}' line")
+    print(f"[cli] eval mean PSNR: dense {psnr['dense']}, culled stack "
+          f"{psnr['culled']} and {psnr['culled again']}, cull only "
+          f"{psnr['cull only']} (bars: culled past {CLI_PSNR_BAR} dB, cull "
+          f"only within {CLI_CULL_DB} dB of dense)")
+    if not min(psnr["culled"], psnr["culled again"]) > CLI_PSNR_BAR:
+        raise AssertionError(f"culled eval CLI: {psnr}")
+    if not abs(psnr["cull only"] - psnr["dense"]) <= CLI_CULL_DB:
+        raise AssertionError(f"cull-only eval CLI against dense: {psnr}")
     return psnr
 
 
@@ -1261,7 +1578,12 @@ def main():
     torch.cuda.empty_cache()
     params, rays, _ = validation_path(dev)
     launches["sigma_fwd"] = perturbed_path(dev, params, rays)["sigma_fwd"]
-    train_cli_path()
+    with tempfile.TemporaryDirectory() as work:
+        ckpt = train_cli_path(work)
+        culled_launches = culled_path(dev, ckpt)
+        eval_cli_path(work, ckpt)
+    for k, n in culled_launches.items():
+        launches[k] += n
     culled_cli_path()
 
     fine_S = N_SAMPLES + N_IMPORTANCE

@@ -9,10 +9,15 @@ and SSIM when ground truth exists. It renders on cuda:0 and raises when
 there is no CUDA device; only a caller of main(device="cpu") renders on
 the CPU. `--fused_mlp` takes the fused render kernels.
 
-Flags of later slices are rejected: the occupancy-culled renderer
-(--occ_grid and its siblings, ROADMAP item A8) and more than one device
-(--num_chips > 1, ROADMAP item A10). --compile_cache is accepted and does
-nothing: PyTorch runs eagerly and the kernels are cached under build/.
+`--occ_grid` (with `--occ_mode`, `--occ_tighten`, `--occ_budgets`,
+`--occ_segments`, `--occ_bucket_fracs`, `--culled_chunk`) renders through
+the occupancy-culled renderer (`rendering.CulledRenderer`), its grid
+cached beside the checkpoint, as eval.py does; like eval.py it pads the
+last group of --frames_per_dispatch frames with copies of its last frame,
+since the cull sorts and tiles the rays of a whole dispatch. More than one
+device (--num_chips > 1, ROADMAP item A10) is rejected. --compile_cache is
+accepted and does nothing: PyTorch runs eagerly and the kernels are cached
+under build/.
 
 The dataset classes are the port's copies of the JAX package's (numpy;
 PIL where an image is read).
@@ -26,10 +31,6 @@ import numpy as np
 import torch
 
 from .config import COMPILE_CACHE_DEFAULT
-
-OCC_FLAGS = ("occ_grid", "occ_threshold", "occ_mode", "occ_range", "occ_N",
-             "occ_tighten", "occ_budgets", "occ_segments", "occ_bucket_fracs",
-             "culled_chunk")
 
 
 def build_parser() -> ArgumentParser:
@@ -61,8 +62,9 @@ def build_parser() -> ArgumentParser:
     parser.add_argument('--chunk', type=int, default=32 * 1024,
                         help='rays per render tile')
     parser.add_argument('--culled_chunk', type=int, default=None,
-                        help='occupancy-culled renderer tile (not ported: '
-                             'ROADMAP A8)')
+                        help='base ray tile of the occupancy-culled '
+                             'renderer (default: min(--chunk, '
+                             'CulledRenderer.DEFAULT_CHUNK=8192))')
     parser.add_argument('--ckpt_path', type=str, required=True,
                         help='trained checkpoint to render from')
     parser.add_argument('--save_depth', default=False, action="store_true",
@@ -80,25 +82,38 @@ def build_parser() -> ArgumentParser:
     parser.add_argument('--fused_mlp', default=False, action='store_true',
                         help='use the fused render kernels')
     parser.add_argument('--occ_grid', default=False, action='store_true',
-                        help='occupancy-grid culling (not ported: ROADMAP A8)')
+                        help='occupancy-grid empty-space skipping (rays '
+                             'that miss every box keep the analytic '
+                             'background; grid cached next to the '
+                             'checkpoint)')
     parser.add_argument('--occ_threshold', type=float, default=1.0,
-                        help='with --occ_grid (not ported)')
+                        help='sigma above which a grid cell is occupied')
     parser.add_argument('--occ_mode', type=str, default='sigma',
                         choices=['sigma', 'weight'],
-                        help='with --occ_grid (not ported)')
+                        help='cell criterion: sigma = raw density '
+                             'threshold; weight = visibility-pruned (a '
+                             'cell is kept only if some eval ray deposits '
+                             'quadrature weight on it)')
     parser.add_argument('--occ_range', nargs='+', type=float, default=None,
-                        help='with --occ_grid (not ported)')
+                        help='grid world extent: 2 values (symmetric lo hi)'
+                             ' or 6 (lox loy loz hix hiy hiz); omit to '
+                             'auto-derive from the model + cameras')
     parser.add_argument('--occ_N', type=int, default=128,
-                        help='with --occ_grid (not ported)')
+                        help='occupancy grid resolution per axis')
     parser.add_argument('--occ_tighten', default=False, action='store_true',
-                        help='with --occ_grid (not ported)')
+                        help='clip surviving rays to their occupied interval')
     parser.add_argument('--occ_budgets', default=False, action='store_true',
-                        help='with --occ_grid (not ported)')
+                        help='with --occ_tighten: render short-span rays '
+                             'with proportionally fewer samples')
     parser.add_argument('--occ_segments', type=int, default=0,
-                        help='with --occ_grid (not ported)')
+                        help='per-ray occupied-segment mask bits (<=32): '
+                             'samples concentrate in occupied segments of '
+                             'the tightened interval; with --occ_budgets, '
+                             'buckets key on occupied length. 0 = off')
     parser.add_argument('--occ_bucket_fracs', nargs='+', type=float,
                         default=None,
-                        help='with --occ_grid (not ported)')
+                        help='budgeted span-bucket sample fractions '
+                             '(ascending, must end at 1.0)')
     parser.add_argument('--metrics_out', type=str, default=None,
                         help='write per-view PSNR/SSIM + the flag set as '
                              'JSON to this path')
@@ -118,10 +133,6 @@ def get_opts(argv=None):
 
 def check_ported(args, parser):
     """Reject the flags of slices that are not ported yet."""
-    for name in OCC_FLAGS:
-        if getattr(args, name) != parser.get_default(name):
-            parser.error(f"--{name}: the occupancy-culled renderer is not "
-                         f"ported yet (ROADMAP item A8)")
     if args.num_chips != 1:
         parser.error("--num_chips: rendering on more than one device is not "
                      "ported yet (ROADMAP item A10)")
@@ -138,16 +149,81 @@ def save_gif(path, frames, fps=30):
                      duration=int(1000 / fps), loop=0)
 
 
+def load_params(ckpt_path, with_fine=True):
+    """Both MLPs of a checkpoint (either package's format) as CPU tensors;
+    the fine one only `with_fine` (a coarse-only checkpoint then raises
+    rather than rendering from random fine weights)."""
+    from .models import init_nerf_params
+    from .training.checkpoints import load_ckpt
+
+    gen = torch.Generator().manual_seed(0)
+    params = {"nerf_coarse": init_nerf_params(gen),
+              "nerf_fine": init_nerf_params(gen)}
+    params = load_ckpt(params, ckpt_path, "nerf_coarse")
+    if with_fine:
+        params = load_ckpt(params, ckpt_path, "nerf_fine")
+    return params
+
+
+def culled_renderer(args, occ, rcfg, mcfg, device):
+    """The CLIs' CulledRenderer from their --occ_* flags. The base tile is
+    min(--chunk, DEFAULT_CHUNK) unless --culled_chunk gives it (0 raises
+    there); tightening is on with any of --occ_tighten, --occ_budgets and
+    --occ_segments."""
+    from .rendering import CulledRenderer
+
+    return CulledRenderer(
+        occ, rcfg, mcfg,
+        chunk=(args.culled_chunk if args.culled_chunk is not None else
+               min(args.chunk, CulledRenderer.DEFAULT_CHUNK)),
+        tighten=(args.occ_tighten or args.occ_budgets
+                 or args.occ_segments > 0),
+        budgets=args.occ_budgets, segments=args.occ_segments,
+        bucket_fracs=(tuple(args.occ_bucket_fracs)
+                      if args.occ_bucket_fracs else None),
+        device=device)
+
+
+def culled_render_fn(args, dataset, params, rcfg, mcfg, device):
+    """The --occ_grid renderer of eval.py: the grid built (or loaded from
+    its cache) on the fine MLP, the aabb from every len//8-th pose and, in
+    weight mode, the visibility rays from every len//32-th; returns
+    render(params, rays) -> numpy outputs."""
+    from .models import params_from_numpy
+    from .rendering import load_or_build_grid, rays_aabb
+
+    n = len(dataset)
+    aabb_rays = np.concatenate(
+        [dataset[i]['rays'] for i in range(0, n, max(1, n // 8))], 0)
+    vis_rays = None
+    if args.occ_mode == "weight":
+        # the poses about to be rendered: a cell is culled only if no eval
+        # ray can visibly reach it
+        vis_rays = np.concatenate(
+            [dataset[i]['rays'] for i in range(0, n, max(1, n // 32))], 0)
+    grid_mlp = params["nerf_fine" if args.N_importance > 0 else "nerf_coarse"]
+    occ = load_or_build_grid(
+        args.ckpt_path, params_from_numpy(grid_mlp, device), mcfg,
+        N=args.occ_N, occ_range=args.occ_range,
+        sigma_threshold=args.occ_threshold, aabb=rays_aabb(aabb_rays),
+        mode=args.occ_mode, vis_rays=vis_rays)
+    print(f"[occ] {occ.n_boxes} boxes, "
+          f"{occ.occupied_fraction * 100:.1f}% blocks occupied")
+    cr = culled_renderer(args, occ, rcfg, mcfg, device)
+
+    def render(params, rays):
+        return {k: v.cpu().numpy() for k, v in cr(params, rays).items()}
+    return render
+
+
 def main(argv=None, device=None):
     from PIL import Image
 
     from .datasets import dataset_dict
     from .datasets.depth_utils import save_pfm
     from .device import resolve_device
-    from .models import init_nerf_params
     from .parallel import make_render_fn
     from .rendering import ModelConfig, RenderConfig
-    from .training.checkpoints import load_ckpt
     from .training.metrics import psnr as psnr_fn
     from .training.metrics import ssim as ssim_fn
 
@@ -168,14 +244,7 @@ def main(argv=None, device=None):
     dataset = dataset_dict[args.dataset_name](**kwargs)
 
     mcfg = ModelConfig()
-    gen = torch.Generator().manual_seed(0)
-    params = {"nerf_coarse": init_nerf_params(gen, mcfg.nerf),
-              "nerf_fine": init_nerf_params(gen, mcfg.nerf)}
-    params = load_ckpt(params, args.ckpt_path, "nerf_coarse")
-    if args.N_importance > 0:
-        # a coarse-only checkpoint raises here rather than rendering from
-        # random fine weights
-        params = load_ckpt(params, args.ckpt_path, "nerf_fine")
+    params = load_params(args.ckpt_path, with_fine=args.N_importance > 0)
 
     rcfg = RenderConfig(
         N_samples=args.N_samples, N_importance=args.N_importance,
@@ -184,7 +253,10 @@ def main(argv=None, device=None):
         compute_dtype=(torch.bfloat16 if args.precision == "bfloat16"
                        else torch.float32),
         fused=args.fused_mlp)
-    render = make_render_fn(rcfg, args.chunk, device, mcfg)
+    if args.occ_grid:
+        render = culled_render_fn(args, dataset, params, rcfg, mcfg, device)
+    else:
+        render = make_render_fn(rcfg, args.chunk, device, mcfg)
 
     typ = "fine" if args.N_importance > 0 else "coarse"
     dir_name = os.path.join(args.out_dir, args.dataset_name, args.scene_name)
@@ -198,6 +270,12 @@ def main(argv=None, device=None):
         idxs = list(range(start, min(start + fpd, len(dataset))))
         samples = [dataset[i] for i in idxs]
         rays_all = np.concatenate([s['rays'] for s in samples], 0)
+        # the culled path pads the last group to a whole dispatch, as
+        # eval.py does: the cull sorts and tiles a dispatch's rays together
+        n_pad_frames = fpd - len(idxs) if (start and args.occ_grid) else 0
+        if n_pad_frames:
+            rays_all = np.concatenate(
+                [rays_all] + [samples[-1]['rays']] * n_pad_frames, 0)
         t0 = time.perf_counter()
         results = render(params, rays_all)
         dispatch_times.append((time.perf_counter() - t0, len(idxs)))

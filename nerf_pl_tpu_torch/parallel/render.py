@@ -11,9 +11,8 @@ from typing import Any, Callable, Dict, Mapping
 
 import torch
 
-from ..models.nerf import params_from_numpy
-from ..ops.fused_mlp import pack_mlp
-from ..rendering.render import ModelConfig, RenderConfig, render_rays
+from ..rendering.render import (ModelConfig, RenderConfig, prepare_params,
+                                render_rays)
 
 
 def make_render_fn(rcfg: RenderConfig, chunk: int,
@@ -34,13 +33,6 @@ def make_render_fn(rcfg: RenderConfig, chunk: int,
     """
     device = torch.device(device)
 
-    def prepare(params: Mapping[str, Any]) -> Dict[str, Any]:
-        model = {name: params_from_numpy(mlp, device)
-                 for name, mlp in params.items()}
-        if rcfg.fused:
-            return {name: pack_mlp(mlp, device) for name, mlp in model.items()}
-        return model
-
     @torch.no_grad()
     def render(params: Mapping[str, Any], rays) -> Dict[str, Any]:
         rays_t = torch.as_tensor(rays, dtype=torch.float32, device=device)
@@ -50,7 +42,7 @@ def make_render_fn(rcfg: RenderConfig, chunk: int,
             pad_rows = torch.zeros((pad, 8), dtype=rays_t.dtype, device=device)
             pad_rows[:, 7] = 1.0
             rays_t = torch.cat([rays_t, pad_rows])
-        model = prepare(params)
+        model = prepare_params(params, rcfg, device)
         outs = [render_rays(model, tile, rcfg, mcfg)
                 for tile in rays_t.split(chunk)]
         out = {k: torch.cat([o[k] for o in outs])[:R] for k in outs[0]}

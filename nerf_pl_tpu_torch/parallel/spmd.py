@@ -22,7 +22,7 @@ import torch
 
 from ..models.nerf import init_nerf_params
 from ..rendering.occupancy import (dilate_segment_bits, ray_box_hits,
-                                   ray_box_segment_bits)
+                                   ray_box_segment_bits, tighten_intervals)
 from ..rendering.render import (ModelConfig, RenderConfig, TrainDraws,
                                 fused_mse_train_step, render_rays)
 from ..training.optimizers import Optimizer, apply_updates, tree_leaves, \
@@ -189,9 +189,7 @@ class Trainer:
         hit, t_lo, t_hi = ray_box_hits(
             boxes, torch.cat([rays[:, :6], self.all_nf0], dim=1))
         near0, far0 = self.all_nf0[:, 0], self.all_nf0[:, 1]
-        near = torch.where(hit, torch.maximum(near0, t_lo - margin), near0)
-        far = torch.where(hit, torch.minimum(far0, t_hi + margin), far0)
-        far = torch.maximum(far, near + 1e-4)
+        near, far = tighten_intervals(near0, far0, hit, t_lo, t_hi, margin)
         self.all_rays = torch.cat([rays[:, :6], near[:, None], far[:, None]],
                                   dim=1)
         n = self.n_rays_local

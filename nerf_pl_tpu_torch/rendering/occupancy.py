@@ -1,21 +1,25 @@
-"""Occupancy: the σ-grid build and the ray-box tests that tighten the
-training store.
+"""Occupancy: the σ-grid build, its cache, the ray-box tests that tighten
+the training store, and the occupancy-culled renderer of eval.
 
-Port of the training side of nerf_pl_tpu/rendering/occupancy.py, plain
-PyTorch (the JAX module is plain XLA and holds no kernel):
+Port of nerf_pl_tpu/rendering/occupancy.py, plain PyTorch (the JAX module
+is plain XLA and holds no kernel):
   * the grid build: the σ field of the plain f32 σ-only MLP at the cell
     centres of an N^3 grid, thresholded (or, in weight mode, marched by
     the training rays and kept where some ray deposits quadrature weight),
     dilated by one cell, reduced to a block map and merged into
     world-space boxes (`build_occupancy_grid`);
+  * the grid cache beside the checkpoint (`load_or_build_grid`), keyed as
+    the JAX package keys it, under a file suffix of the port's own;
   * the ray-box slab tests: `ray_box_hits` (hit flag and the union
     interval of a ray's box overlaps) and `ray_box_segment_bits` (a
     per-ray mask of the equal z segments some box overlaps), and the mask
-    helpers.
+    helpers;
+  * `CulledRenderer`: the cull pass (`cull_rays`) and tiles of
+    `render_rays` over the surviving rays, scattered into a background
+    image.
 Everything runs on the device of its inputs. `_blocks_to_boxes`,
-`rays_aabb` and `_boundary_occupied` are numpy and are copies of the JAX
-package's, line for line. The eval side (`CulledRenderer`, the grid
-caches) is ROADMAP item A8.
+`rays_aabb`, `_boundary_occupied` and `_grid_cache_key` are numpy and are
+copies of the JAX package's, line for line.
 
 The segment masks are int64 tensors holding the 32 bits of the JAX
 package's uint32 masks: torch's uint32 has no shifts or ORs on CUDA, and
@@ -29,15 +33,20 @@ same bits.
 from __future__ import annotations
 
 import dataclasses
+import glob
+import hashlib
+import os
+import time
 import warnings
-from typing import Dict, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models.embedding import embed
 from ..models.nerf import nerf_apply
-from .render import ModelConfig
+from .render import ModelConfig, RenderConfig, prepare_params, render_rays
 
 RAY_CHUNK = 1 << 20
 
@@ -381,6 +390,121 @@ def build_occupancy_grid(params: Dict, mcfg: ModelConfig = ModelConfig(),
     return OccupancyGrid(boxes=boxes, block_map=block_map, lo=lo, hi=hi)
 
 
+# ------------------------------------------------------------------ caching
+
+# The port's cache files are <ckpt>.torch_occ.<hash>.npz. The JAX package
+# writes <ckpt>.occ.<hash>.npz (and once wrote a keyless <ckpt>.occ.npz),
+# and its prune sweep deletes every file of its own pattern whose key is
+# stale: neither package's glob matches the other's files, so each leaves
+# the other's caches alone.
+CACHE_SUFFIX = ".torch_occ"
+
+
+def grid_cache_path(ckpt_path: str, key: str) -> str:
+    """Cache file of one grid build: per key (a hash suffix), so that
+    alternating settings (occ_N sweeps) keep their grids. Follows
+    nerf_pl_tpu/rendering/occupancy.py:494 (grid_cache_path), without its
+    keyless legacy path."""
+    h = hashlib.sha1(key.encode()).hexdigest()[:10]
+    return f"{ckpt_path}{CACHE_SUFFIX}.{h}.npz"
+
+
+def _grid_cache_key(ckpt_path: str, N: int, occ_range, threshold: float,
+                    mode: str = "sigma", vis_rays=None, aabb=None) -> str:
+    """The JAX package's key (occupancy.py:506), line for line: checkpoint
+    mtime_ns:size, N, the range spec (with the viewing-volume AABB when
+    the ranges are automatic), the threshold, and in weight mode the
+    visibility rays' count and moments."""
+    st = os.stat(ckpt_path)
+    rng_s = "auto" if (occ_range is None or occ_range == "auto") \
+        else ",".join(f"{float(v):.6g}" for v in occ_range)
+    if rng_s == "auto" and aabb is not None:
+        # auto ranges are capped by the caller's viewing-volume AABB: a
+        # grid auto-built for one pose set must not be reused for another
+        rng_s += "@" + ",".join(
+            f"{float(v):.5g}" for part in aabb for v in np.ravel(part))
+    key = f"{st.st_mtime_ns}:{st.st_size}:{N}:{rng_s}:{threshold:.6g}"
+    if mode != "sigma":
+        # fingerprint the visibility ray set (shape and moments) so that
+        # another pose set rebuilds instead of reusing a stale grid
+        v = np.asarray(vis_rays, np.float32)
+        key += (f":{mode}:{v.shape[0]}:{float(v[:, :6].mean()):.5g}"
+                f":{float(v[:, :6].std()):.5g}")
+    return key
+
+
+def load_or_build_grid(ckpt_path: str, params: Dict,
+                       mcfg: ModelConfig = ModelConfig(),
+                       N: int = 128,
+                       occ_range=None,
+                       sigma_threshold: float = 1.0,
+                       aabb: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                       verbose: bool = True,
+                       mode: str = "sigma",
+                       vis_rays=None) -> OccupancyGrid:
+    """Grid build with a cache file next to the checkpoint
+    (nerf_pl_tpu/rendering/occupancy.py:528). The build runs on the
+    params' device; `vis_rays` (weight mode) may be numpy or a tensor.
+
+    The key embeds the checkpoint's mtime and size, so a retrained
+    checkpoint rebuilds; a build then deletes the port's caches of this
+    checkpoint whose key is stale, and keeps its live siblings."""
+    if isinstance(vis_rays, torch.Tensor):
+        vis_rays = vis_rays.cpu().numpy()
+    key = _grid_cache_key(ckpt_path, N, occ_range, sigma_threshold,
+                          mode=mode, vis_rays=vis_rays, aabb=aabb)
+    path = grid_cache_path(ckpt_path, key)
+    if os.path.exists(path):
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                if str(z["key"]) == key:
+                    if verbose:
+                        print(f"[occ] loaded cached grid from {path}")
+                    return OccupancyGrid(boxes=z["boxes"],
+                                         block_map=z["block_map"],
+                                         lo=z["lo"], hi=z["hi"])
+        except (KeyError, ValueError, OSError):
+            pass
+    auto = occ_range is None or occ_range == "auto"
+    if auto and aabb is None:
+        raise ValueError("auto occupancy ranges need the dataset rays' "
+                         "AABB (pass aabb=rays_aabb(...)) or an explicit "
+                         "--occ_range")
+    ranges = resolve_ranges(occ_range, params, mcfg, aabb=aabb,
+                            sigma_threshold=sigma_threshold)
+    occ = build_occupancy_grid(params, mcfg, N=N, block=pick_block(N),
+                               ranges=ranges,
+                               sigma_threshold=sigma_threshold,
+                               max_ranges=aabb if auto else None,
+                               mode=mode, vis_rays=vis_rays)
+    np.savez(path, key=key, boxes=occ.boxes, block_map=occ.block_map,
+             lo=occ.lo, hi=occ.hi)
+    # prune this checkpoint's stale caches: every key embeds the
+    # checkpoint's mtime_ns:size, so the files of an earlier train can
+    # never match again. glob.escape: a checkpoint path with glob
+    # metacharacters ('sweep[lr].ckpt') must match only itself.
+    st = os.stat(ckpt_path)
+    live_prefix = f"{st.st_mtime_ns}:{st.st_size}:"
+    for p in glob.glob(glob.escape(ckpt_path) + CACHE_SUFFIX + ".*.npz"):
+        if os.path.abspath(p) == os.path.abspath(path):
+            continue
+        try:
+            with np.load(p, allow_pickle=False) as z:
+                stale = not str(z["key"]).startswith(live_prefix)
+        except (KeyError, ValueError, OSError):
+            stale = True
+        if stale:
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+    if verbose:
+        print(f"[occ] built grid ({occ.n_boxes} boxes, "
+              f"{occ.occupied_fraction * 100:.1f}% occupied), cached to "
+              f"{path}")
+    return occ
+
+
 # ------------------------------------------------------------------ ray-box
 
 def _inv_dirs(d: torch.Tensor) -> torch.Tensor:
@@ -477,3 +601,334 @@ def dilate_segment_bits(mask: torch.Tensor, n_seg: int,
     for _ in range(k):
         mask = mask | ((mask << 1) & valid) | (mask >> 1)
     return mask
+
+
+def tighten_intervals(near0: torch.Tensor, far0: torch.Tensor,
+                      hit: torch.Tensor, t_lo: torch.Tensor,
+                      t_hi: torch.Tensor, margin: float):
+    """Each hit ray's [near, far] clipped to the union of its box overlaps
+    widened by `margin` (a missing ray keeps its own), with far >= near +
+    1e-4: (near, far), each (R,). The tighten step of the JAX package's
+    cull pass and of its Trainer.tighten_store (occupancy.py:894-898)."""
+    near = torch.where(hit, torch.maximum(near0, t_lo - margin), near0)
+    far = torch.where(hit, torch.minimum(far0, t_hi + margin), far0)
+    return near, torch.maximum(far, near + 1e-4)
+
+
+# ------------------------------------------------------------------ culling
+
+class Cull(NamedTuple):
+    """The cull pass's outputs: the rays (tightened when asked) and their
+    segment masks in sorted order, survivors first (budget buckets in
+    order, then the misses), each padded by pad_rows copies of the last
+    sorted row; `order`, the input row of each sorted row (R for a padded
+    row); and the survivor count of each bucket (one count without
+    budgets)."""
+    rays: torch.Tensor        # (R + pad_rows, 8)
+    occm: torch.Tensor        # (R + pad_rows,) int64 holding the bits
+    order: torch.Tensor       # (R + pad_rows,) int64
+    counts: torch.Tensor      # (n_buckets,) int64
+
+
+def cull_rays(boxes: torch.Tensor, rays: torch.Tensor, tighten: bool = False,
+              margin: float = 0.05,
+              fracs: Optional[Tuple[float, ...]] = None, n_seg: int = 0,
+              dilate: int = 1, pad_rows: int = 0) -> Cull:
+    """The cull pass of `CulledRenderer`
+    (nerf_pl_tpu/rendering/occupancy.py:877, `_cull_fn`), on the rays'
+    device.
+
+    Hit test; with `tighten` each hit ray's interval clipped to its box
+    overlaps (`tighten_intervals`); with n_seg > 0 the segment masks of
+    the (tightened) rays, dilated by `dilate`. With budget `fracs` (they
+    need `tighten`; ascending, ending at 1.0) a hit ray's bucket is the
+    count of fracs[:-1] below the ratio of its tightened span to its
+    original one (times its occupied share of segments with n_seg > 0),
+    and a miss's is len(fracs); without, survivors take key 0 and misses
+    1. A stable sort on the key orders the rays: the JAX package's
+    stable_counting_argsort is a TPU stand-in for the same permutation.
+    """
+    hit, t_lo, t_hi = ray_box_hits(boxes, rays)
+    near0, far0 = rays[:, 6], rays[:, 7]
+    near, far = near0, far0
+    if tighten:
+        near, far = tighten_intervals(near0, far0, hit, t_lo, t_hi, margin)
+        rays = torch.cat([rays[:, :6], near[:, None], far[:, None]], dim=1)
+    R, dev = rays.shape[0], rays.device
+    if n_seg > 0:
+        occm = dilate_segment_bits(ray_box_segment_bits(boxes, rays, n_seg),
+                                   n_seg, dilate)
+    else:
+        occm = torch.zeros(R, dtype=torch.int64, device=dev)
+    if fracs is not None:
+        # the smallest bucket b with occupied length / full span <=
+        # fracs[b]: the sample density per unit length never drops below
+        # the dense render's. Tensor divisors throughout: a GPU divides by
+        # a host scalar as a product with its reciprocal.
+        ratio = (far - near) / torch.clamp(far0 - near0, min=1e-12)
+        if n_seg > 0:
+            popcount = unpack_segment_bits(occm, n_seg).sum(dim=-1)
+            ratio = ratio * (popcount / torch.tensor(float(n_seg),
+                                                     device=dev))
+        key = torch.zeros(R, dtype=torch.int64, device=dev)
+        for f in fracs[:-1]:
+            key = key + (ratio > f).to(torch.int64)
+        key = torch.where(hit, key, len(fracs))
+        counts = torch.bincount(key, minlength=len(fracs) + 1)[:len(fracs)]
+    else:
+        key = (~hit).to(torch.int64)
+        counts = hit.sum()[None]
+    order = torch.argsort(key, stable=True)
+    rays_sorted, occm_sorted = rays[order], occm[order]
+    if pad_rows:
+        rays_sorted = torch.cat(
+            [rays_sorted, rays_sorted[-1:].expand(pad_rows, 8)])
+        occm_sorted = torch.cat(
+            [occm_sorted, occm_sorted[-1:].expand(pad_rows)])
+        order = torch.cat([order, order.new_full((pad_rows,), R)])
+    return Cull(rays_sorted, occm_sorted, order, counts)
+
+
+class CulledRenderer:
+    """Full-image renderer with occupancy culling
+    (nerf_pl_tpu/rendering/occupancy.py:779, one device).
+
+      1. The cull pass (`cull_rays`) sorts the survivors first; the host
+         reads back the bucket counts, its one sync before the render.
+      2. Fixed-size tiles of `render_rays` over the sorted rays, scattered
+         into a background image: culled rays keep the analytic background
+         (rgb 1 or 0, depth 0, opacity 0).
+
+    Without budgets the tiles cover the first n_tiles * chunk sorted rows,
+    so the misses that fall into the last tile are rendered too (the JAX
+    package's near-parity quirk, kept: `n_rendered` and the outputs equal
+    its own). With `budgets` each bucket renders with its own sample
+    counts (`_rcfg_for_frac`) in its own cost-capped tiles
+    (`_chunk_for_bucket`); rows of a tile past the bucket's count go to
+    a dump row R, sliced off at the end.
+
+    tighten: clip each surviving ray to its occupied interval ± margin.
+    budgets (needs tighten): fewer samples for short-span rays.
+    segments (needs tighten): occupied-segment placement of the coarse
+      samples (render.py `occupied_z_vals`); with budgets the bucket key
+      becomes the occupied length.
+    device: where the boxes live and the tiles render (cuda:0 unless
+      given; the rays and params are moved there).
+
+    The JAX package's `mesh=` (tiles sharded over a device mesh) is not
+    ported: one device renders (ROADMAP item A10).
+
+    NERF_OCC_TIMING=1 in the environment prints the cull pass's time and
+    each bucket's, each after a sync of the device.
+    """
+
+    _BUCKET_FRACS = (0.25, 0.5, 1.0)   # sample fraction per span bucket
+
+    # Default base ray tile, tuned on the TPU by the JAX package (its
+    # round-5 base-tile descent); the base tile decides which misses spill
+    # into a rendered tile, so it stays as it is for parity.
+    DEFAULT_CHUNK = 8192
+
+    # Per-tile point-work cap, in units of chunk rays x samples: a bucket
+    # whose rays cost more than 32 samples renders in proportionally
+    # smaller tiles (the JAX package's measured rule: cap, not normalize).
+    _TILE_COST_REF = 32
+
+    def __init__(self, occ: OccupancyGrid, rcfg: RenderConfig,
+                 mcfg: ModelConfig = ModelConfig(),
+                 chunk: int = DEFAULT_CHUNK, tighten: bool = False,
+                 tighten_margin: float = 0.05, budgets: bool = False,
+                 segments: int = 0, segment_dilate: int = 1,
+                 bucket_fracs: Optional[Tuple[float, ...]] = None,
+                 device: Optional[torch.device | str] = None):
+        if occ.n_boxes == 0:
+            raise ValueError("occupancy grid is empty — threshold too high?")
+        if budgets and not tighten:
+            raise ValueError("budgets=True requires tighten=True (budgets "
+                             "are derived from the tightened spans)")
+        if segments and not tighten:
+            raise ValueError("segments>0 requires tighten=True (masks are "
+                             "computed over the tightened interval)")
+        if not 0 <= segments <= 32:
+            raise ValueError(f"segments={segments} must be in [0, 32]")
+        if chunk < 8:
+            raise ValueError(f"chunk={chunk} must be >= 8 (ray tiles are "
+                             "8-row-aligned; 0 does not mean 'default')")
+        if bucket_fracs is not None:
+            if not budgets:
+                raise ValueError("bucket_fracs is only meaningful with "
+                                 "budgets=True (it parameterizes the "
+                                 "budgeted span buckets)")
+            # input order is irrelevant (sorted ascending); a duplicate
+            # would make a bucket that is always empty
+            fracs = tuple(sorted({float(f) for f in bucket_fracs}))
+            if not fracs or fracs[-1] != 1.0 or fracs[0] <= 0:
+                raise ValueError(
+                    f"bucket_fracs={bucket_fracs} must be positive and end "
+                    "at 1.0 (the full-span bucket)")
+            self._BUCKET_FRACS = fracs
+        self.device = resolve_device(device)
+        self.boxes = torch.as_tensor(np.asarray(occ.boxes, np.float32),
+                                     device=self.device)
+        self.rcfg = rcfg
+        self.mcfg = mcfg
+        self.chunk = chunk
+        self.tighten = tighten
+        self.margin = tighten_margin
+        self.budgets = budgets
+        self.segments = segments
+        self.segment_dilate = segment_dilate
+
+    def _cull(self, rays: torch.Tensor, pad_rows: int) -> Cull:
+        return cull_rays(self.boxes, rays, tighten=self.tighten,
+                         margin=self.margin,
+                         fracs=self._BUCKET_FRACS if self.budgets else None,
+                         n_seg=self.segments, dilate=self.segment_dilate,
+                         pad_rows=pad_rows)
+
+    def _chunk_for(self, R: int) -> int:
+        """Effective tile: never larger than the image needs, a multiple
+        of 8."""
+        return min(self.chunk, -(-R // 8) * 8)
+
+    def _bucket_cost(self, frac: float) -> int:
+        """Per-ray point evaluations of a span bucket."""
+        r = self._rcfg_for_frac(frac)
+        return r.N_samples + max(r.N_importance, 0)
+
+    def _chunk_for_bucket(self, chunk: int, frac: float) -> int:
+        """Cost-capped ray tile of a span bucket: a multiple of 8, at
+        least 2048, never above the base chunk."""
+        c = chunk * self._TILE_COST_REF // max(self._bucket_cost(frac), 1)
+        return min(chunk, max(-(-c // 8) * 8, 2048))
+
+    def _rcfg_for_frac(self, frac: float) -> RenderConfig:
+        """Scaled sample counts of a span bucket, floored at 8: a ray is
+        in bucket `frac` only when its occupied length is at most frac of
+        its span, so its sample density per occupied unit stays at least
+        the dense render's."""
+        if frac >= 1.0:
+            return self.rcfg
+        N_s = max(int(self.rcfg.N_samples * frac), 8)
+        N_i = self.rcfg.N_importance
+        if N_i > 0:
+            N_i = max(int(N_i * frac), 8)
+        return dataclasses.replace(self.rcfg, N_samples=N_s,
+                                   N_importance=N_i)
+
+    @staticmethod
+    def _round_tiles(n: int, cap_tiles: int, chunk: int) -> int:
+        """Tiles for n rows, at least 1, at most cap_tiles."""
+        return min(max(1, -(-n // chunk)), cap_tiles)
+
+    def _background(self, rows: int) -> Dict[str, torch.Tensor]:
+        """All-background outputs of the last pass, `rows` rows."""
+        typ = "fine" if self.rcfg.N_importance > 0 else "coarse"
+        bg_rgb = 1.0 if self.rcfg.white_back else 0.0
+        dev = self.device
+        return {
+            f"rgb_{typ}": torch.full((rows, 3), bg_rgb, device=dev),
+            f"depth_{typ}": torch.zeros((rows,), device=dev),
+            f"opacity_{typ}": torch.zeros((rows,), device=dev),
+        }
+
+    def _tile_plan(self, R: int, counts):
+        """The tiles of one call on R rays with these survivor counts:
+        (bucket frac, first sorted row, tiles, rows a tile, valid rows) of
+        each run of tiles. Without budgets one run covers the survivors
+        at frac 1.0; every row of its tiles is scattered, so a miss that
+        falls in the last tile is rendered too, and padded rows (order R)
+        go to the dump row. With budgets each non-empty bucket has its own
+        run, and its rows past the bucket's count go to the dump row."""
+        chunk = self._chunk_for(R)
+        if not self.budgets:
+            n_tiles = self._round_tiles(max(sum(counts), 1), -(-R // chunk),
+                                        chunk)
+            return [(1.0, 0, n_tiles, chunk, n_tiles * chunk)]
+        plan, start = [], 0
+        for n_b, frac in zip(counts, self._BUCKET_FRACS):
+            if n_b:
+                chunk_b = self._chunk_for_bucket(chunk, frac)
+                plan.append((frac, start,
+                             self._round_tiles(n_b, -(-R // chunk_b),
+                                               chunk_b), chunk_b, n_b))
+            start += n_b
+        return plan
+
+    def _render_tiles(self, model, cull: Cull, start: int, n_tiles: int,
+                      chunk: int, rcfg: RenderConfig, n_valid: int,
+                      img: Dict[str, torch.Tensor], written: torch.Tensor):
+        """Render n_tiles tiles of `chunk` sorted rows from `start` and
+        scatter them into img, whose last row R is the dump row: a tile
+        row at or past n_valid, or a padded row (order R), goes there.
+        `written` counts the writes into each row."""
+        R = written.shape[0] - 1
+        n_seg = self.segments
+        rows = torch.arange(chunk, device=self.device)
+        for t in range(n_tiles):
+            lo = start + t * chunk
+            tile = cull.rays[lo:lo + chunk]
+            if tile.shape[0] != chunk:
+                raise AssertionError(f"tile at row {lo} has {tile.shape[0]} "
+                                     f"rows, not {chunk}: pad_rows too small")
+            out = render_rays(model, tile, rcfg, self.mcfg,
+                              occm=cull.occm[lo:lo + chunk] if n_seg else None,
+                              n_seg=n_seg)
+            idx = torch.where(rows < n_valid - t * chunk,
+                              cull.order[lo:lo + chunk], R)
+            written.index_add_(0, idx, torch.ones_like(idx))
+            for k in img:
+                if k in out:
+                    img[k][idx] = out[k]
+
+    @torch.no_grad()
+    def __call__(self, params: Mapping[str, Any], rays,
+                 return_stats: bool = False):
+        """Render (R, 8) rays (numpy or a tensor) -> dict of (R, ...)
+        tensors on the renderer's device (and the stats with
+        return_stats). `params` holds the MLPs as `make_render_fn` takes
+        them; with rcfg.fused they are packed once per call."""
+        timing = bool(os.environ.get("NERF_OCC_TIMING"))
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else (lambda: None))
+        t0 = time.perf_counter()
+        rays = torch.as_tensor(rays, dtype=torch.float32, device=self.device)
+        R = rays.shape[0]
+        chunk = self._chunk_for(R)
+        cap_tiles = -(-R // chunk)                      # all rays survive
+        # worst case: every ray survives, and with budgets a bucket's
+        # tiles round past the image
+        gran = 2 if self.budgets else 1
+        pad_rows = (-(-cap_tiles // gran) * gran) * chunk
+        cull = self._cull(rays, pad_rows)
+        counts = cull.counts.tolist()                   # the one readback
+        if timing:
+            print(f"[occ-timing] cull+readback: "
+                  f"{time.perf_counter() - t0:.3f}s", flush=True)
+        model = prepare_params(params, self.rcfg, self.device)
+        written = torch.zeros(R + 1, dtype=torch.int64, device=self.device)
+        img = self._background(R + 1)           # row R: the dump row
+        plan = self._tile_plan(R, counts)
+        for frac, start, n_tiles, chunk_b, n_valid in plan:
+            if timing:
+                sync()
+                tb = time.perf_counter()
+            self._render_tiles(model, cull, start, n_tiles, chunk_b,
+                               self._rcfg_for_frac(frac), n_valid, img,
+                               written)
+            if timing:
+                sync()
+                print(f"[occ-timing] bucket frac={frac} rows={n_valid} "
+                      f"tiles={n_tiles} ({n_tiles * chunk_b} rendered): "
+                      f"{time.perf_counter() - tb:.3f}s", flush=True)
+        if int(written[:R].max()) > 1:
+            raise AssertionError("a ray was written by two tiles")
+        img = {k: v[:R] for k, v in img.items()}
+        if not return_stats:
+            return img
+        stats = {"n_rays": R, "n_survivors": sum(counts),
+                 "n_rendered": sum(p[2] * p[3] for p in plan),
+                 "n_boxes": self.boxes.shape[0]}
+        if self.budgets:
+            stats["bucket_counts"] = counts
+        return img, stats

@@ -36,9 +36,9 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 
 from ..models.embedding import EmbeddingConfig, embed
-from ..models.nerf import NeRFConfig, nerf_apply
-from ..ops.fused_mlp import (nerf_apply_fused, nerf_sigma_fused, pack_params,
-                             unpack_grads)
+from ..models.nerf import NeRFConfig, nerf_apply, params_from_numpy
+from ..ops.fused_mlp import (nerf_apply_fused, nerf_sigma_fused, pack_mlp,
+                             pack_params, unpack_grads)
 from ..ops.fused_render import fused_render_eval, fused_sigma_render
 from ..ops.fused_train import fused_mse_render, fused_train_render
 from ..ops.sample_pdf import sample_pdf
@@ -86,6 +86,18 @@ class TrainDraws:
             return given.to(device=device, dtype=torch.float32)
         draw = torch.rand if name in ("perturb", "u") else torch.randn
         return draw(shape, generator=generator, device=device)
+
+
+def prepare_params(params: Mapping[str, Any], cfg: RenderConfig,
+                   device: torch.device) -> Dict[str, Any]:
+    """Every MLP of `params` (numpy or tensor leaves) as tensors on
+    `device`; with cfg.fused, packed to the kernels' bf16 buffers. A
+    full-image renderer calls this once per image, not once per tile."""
+    model = {name: params_from_numpy(mlp, device)
+             for name, mlp in params.items()}
+    if cfg.fused:
+        return {name: pack_mlp(mlp, device) for name, mlp in model.items()}
+    return model
 
 
 def volume_quadrature(sigmas: torch.Tensor,

@@ -725,3 +725,88 @@ def test_culled_loss_fused_step_matches_plain(dev):
         cos = torch.nn.functional.cosine_similarity(a.reshape(-1),
                                                     b.reshape(-1), dim=0)
         assert cos.item() >= 0.95
+
+
+@pytest.mark.parametrize("cfg", [dict(), dict(tighten=True, budgets=True,
+                                              segments=32)],
+                         ids=["cull", "budgets_segments"])
+def test_culled_renderer_kernels_match_plain(dev, cfg, monkeypatch):
+    """CulledRenderer at 64 + 128 samples (eval's defaults) on 4096 rays of
+    a 64x64 sphere-pose frame against three boxes, base tile 1024: with the
+    render kernels, then with their plain versions on the card. Stats
+    equal, one sigma_render and one render_eval launch a tile, outputs
+    within the kernel bars, and rows no tile renders exactly white
+    background."""
+    import math
+    from nerf_pl_tpu_torch.datasets.rays import frame_rays, sphere_pose
+    from nerf_pl_tpu_torch.rendering import CulledRenderer, OccupancyGrid
+    from nerf_pl_tpu_torch.rendering import render as rr
+
+    boxes = torch.tensor([[-0.6, -0.6, -0.6, 0.2, 0.3, 0.4],
+                          [0.5, -0.2, -1.0, 1.2, 0.6, 0.9],
+                          [-1.2, 0.6, -0.2, -0.5, 1.1, 0.5]]).numpy()
+    occ = OccupancyGrid(boxes=boxes, block_map=torch.ones(
+        (2, 2, 2), dtype=torch.uint8).numpy(), lo=boxes[:, :3].min(0),
+        hi=boxes[:, 3:].max(0))
+    focal = 0.5 * 64 / math.tan(0.5 * 0.8575560450553894)
+    rays = frame_rays(sphere_pose(0.3, math.pi / 5, 4.0), 64, 64, focal,
+                      2.0, 6.0, dev)
+    params = {"nerf_coarse": dense_params(10, dev),
+              "nerf_fine": dense_params(11, dev)}
+    cr = CulledRenderer(occ, RenderConfig(N_samples=64, N_importance=128,
+                                          test_time=True, white_back=True,
+                                          fused=True),
+                        chunk=1024, device=dev, **cfg)
+    n0 = (fr.sigma_render_launches, fr.render_eval_launches)
+    out, stats = cr(params, rays, return_stats=True)
+    tiles = sum(p[2] for p in cr._tile_plan(4096, stats.get(
+        "bucket_counts", [stats["n_survivors"]])))
+    assert (fr.sigma_render_launches - n0[0],
+            fr.render_eval_launches - n0[1]) == (tiles, tiles)
+    assert 0 < stats["n_survivors"] < 4096
+    monkeypatch.setattr(rr, "fused_sigma_render",
+                        fr.fused_sigma_render_reference)
+    monkeypatch.setattr(rr, "fused_render_eval",
+                        fr.fused_render_eval_reference)
+    plain, plain_stats = cr(params, rays, return_stats=True)
+    torch.cuda.synchronize()
+    assert plain_stats == stats
+    for k, bar in (("rgb_fine", TOL["rgb"]), ("depth_fine", TOL["depth"]),
+                   ("opacity_fine", TOL["opacity"])):
+        assert torch.isfinite(out[k]).all()
+        assert max_err(out[k], plain[k]) <= bar, k
+    cull = cr._cull(rays, 0)
+    rendered = torch.zeros(4096, dtype=torch.bool, device=dev)
+    n_rows = (stats["n_survivors"] if cr.budgets
+              else min(stats["n_rendered"], 4096))
+    rendered[cull.order[:n_rows]] = True
+    assert (out["rgb_fine"][~rendered] == 1.0).all()
+    assert not out["depth_fine"][~rendered].any()
+    assert not out["opacity_fine"][~rendered].any()
+
+
+@pytest.mark.parametrize("cfg", [dict(tighten=True), dict(
+    tighten=True, fracs=(0.25, 0.5, 1.0), n_seg=32)],
+    ids=["tighten", "budgets_segments"])
+def test_cull_pass_on_cuda_equals_cpu(dev, cfg):
+    """The cull pass is elementwise ops in one order, a stable sort and
+    gathers: on 20,000 random rays (5% of the direction components 0)
+    against the three boxes of _culled_trainer, padded by 1000 rows, the
+    card's sorted rays, masks, order and counts equal the CPU's bit for
+    bit."""
+    from nerf_pl_tpu_torch.rendering.occupancy import cull_rays
+    g = torch.Generator().manual_seed(4)
+    o = torch.randn((20000, 3), generator=g)
+    d = torch.nn.functional.normalize(torch.randn((20000, 3), generator=g),
+                                      dim=-1)
+    d[torch.rand((20000, 3), generator=g) < 0.05] = 0.0
+    rays = torch.cat([o, d, torch.full((20000, 1), 2.0),
+                      torch.full((20000, 1), 6.0)], dim=-1)
+    boxes = torch.tensor([[-1.5, -1.5, -1.5, 1.5, 1.5, 1.5],
+                          [-0.6, -0.6, -0.6, 0.2, 0.3, 0.4],
+                          [0.5, -0.2, -1.0, 1.2, 0.6, 0.9]])
+    cpu = cull_rays(boxes, rays, pad_rows=1000, **cfg)
+    gpu = cull_rays(boxes.to(dev), rays.to(dev), pad_rows=1000, **cfg)
+    assert 0 < cpu.counts.sum() < 20000
+    for name, a, b in zip(cpu._fields, gpu, cpu):
+        assert torch.equal(a.cpu(), b), name

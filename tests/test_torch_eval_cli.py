@@ -3,6 +3,7 @@ package's: one checkpoint written by the JAX package renders the same
 images through both CLIs."""
 import json
 import os
+import re
 import sys
 
 import jax
@@ -134,12 +135,80 @@ def test_parsers_share_flags_and_defaults():
     assert vars(teval.get_opts(argv)) == vars(jeval.get_opts(argv))
 
 
-@pytest.mark.parametrize("extra", [["--occ_grid"], ["--occ_budgets"],
-                                   ["--occ_segments", "8"],
-                                   ["--num_chips", "2"]])
-def test_unported_flags_rejected(extra, capsys):
+@pytest.fixture(scope="module")
+def scene3(tmp_path_factory):
+    """Three test views: with --frames_per_dispatch 2 the last group is
+    padded."""
+    return make_blender_scene(
+        str(tmp_path_factory.mktemp("scene3")), n_train=3, n_val=1,
+        n_test=3, wh=(20, 20))
+
+
+@pytest.fixture(scope="module")
+def occ_ckpt(tmp_path_factory, jax_params):
+    """jax_params with both sigma heads x50: raw sigma in about +-0.3
+    over [-1.5, 1.5]^3, so a threshold of 0.3 occupies part of the grid."""
+    import jax.numpy as jnp
+    params = jax.tree_util.tree_map(np.asarray, jax_params)
+    for mlp in params.values():
+        mlp["sigma"]["w"] = mlp["sigma"]["w"] * 50
+    path = str(tmp_path_factory.mktemp("occ") / "occ.ckpt")
+    save_checkpoint(path, TrainState(params, {"mu": params},
+                                     jnp.zeros([], jnp.int32)))
+    return path
+
+
+def test_culled_eval_cli_matches_jax_cli(scene3, occ_ckpt, tmp_path, capsys,
+                                         monkeypatch):
+    """--occ_grid with tighten, budgets and 8 segments through both CLIs on
+    one checkpoint: the same grid (boxes, occupied share strictly between 0
+    and 1), PSNR within 0.05 dB, PNGs within 3 levels; the last dispatch
+    is padded to 2 frames, as eval.py pads it. Unfused: with the x50 sigma
+    heads the fused bf16 paths of the two packages part on a ray whose
+    last fine sample has sigma +0.0021 in f32 (the infinite last interval
+    turns its sign into opacity 1 or 0.04); tests/test_torch_culled.py
+    holds the fused culled render against JAX's."""
+    import eval as jeval
+    from nerf_pl_tpu_torch.rendering import occupancy as tocc
+    flags = ["--root_dir", scene3, "--dataset_name", "blender",
+             "--img_wh", "20", "20", "--N_samples", "8",
+             "--N_importance", "4", "--chunk", "256", "--ckpt_path",
+             occ_ckpt, "--occ_grid", "--occ_tighten",
+             "--occ_budgets", "--occ_segments", "8", "--occ_threshold=0.3",
+             "--occ_range", "-1.5", "1.5", "--occ_N", "32",
+             "--frames_per_dispatch", "2", "--culled_chunk", "64",
+             "--scene_name", "s"]
+    psnr_j = jeval.main(flags + ["--out_dir", str(tmp_path / "jax")])
+    out_j = capsys.readouterr().out
+    seen = []
+    call = tocc.CulledRenderer.__call__
+
+    def counting(self, params, rays, **kw):
+        seen.append(len(rays))
+        return call(self, params, rays, **kw)
+
+    monkeypatch.setattr(tocc.CulledRenderer, "__call__", counting)
+    psnr_t = teval.main(flags + ["--out_dir", str(tmp_path / "torch")],
+                        device="cpu")
+    out_t = capsys.readouterr().out
+    grid = [re.search(r"^\[occ\] (\d+) boxes, ([\d.]+)% blocks occupied",
+                      out, re.M).groups() for out in (out_j, out_t)]
+    assert grid[0] == grid[1] and 0 < float(grid[1][1]) < 100, grid
+    assert "cached to" in out_t and ".torch_occ." in out_t
+    assert seen == [800, 800]
+    assert np.isfinite(psnr_t) and abs(psnr_t - psnr_j) <= 0.05
+    dj = tmp_path / "jax" / "blender" / "s"
+    dt = tmp_path / "torch" / "blender" / "s"
+    for name in ("000.png", "001.png", "002.png"):
+        a = np.asarray(Image.open(dj / name), np.int16)
+        b = np.asarray(Image.open(dt / name), np.int16)
+        assert np.abs(a - b).max() <= 3, name
+
+
+def test_unported_flags_rejected(capsys):
     with pytest.raises(SystemExit):
-        teval.main(["--root_dir", "r", "--ckpt_path", "c"] + extra)
+        teval.main(["--root_dir", "r", "--ckpt_path", "c", "--num_chips",
+                    "2"])
     assert "ROADMAP" in capsys.readouterr().err
 
 
