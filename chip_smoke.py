@@ -43,8 +43,9 @@
    batch 1024, perturb 1, noise 1, white background, adam 5e-4, steplr
    decay [2, 4, 8] x 0.5) fits that 640,000-ray store: 50 warm-up steps,
    then three timed segments of 100 steps, each ending in a sync on a
-   parameter. Requires finite metrics, a mean loss over the last 50 steps
-   below the first 50, exactly 2 mse_render launches per step, and on one
+   parameter (run_steps replays the captured step, 9). Requires finite
+   metrics, a mean loss over the last 50 steps below the first 50,
+   exactly 2 mse_render launches per step launched, and on one
    batch gradients of the fused step pointing the way the plain autograd
    step's do with the same draws (cosine >= 0.95 per leaf, the bar of
    test_grad_direction_vs_f32_reference, the cosine taken in float64)
@@ -144,7 +145,27 @@
    for the same 350 steps: exactly 2 train_fwd and 2 train_bwd launches
    per step and no other kernel, the loss falling, and the gradient cosine
    >= 0.95 per leaf against the plain autograd step. Prints train rays/s.
-9. Prints one JSON line about the kernels (each with its launches on its
+9. The step as a CUDA graph (Trainer.run_steps on the card replays one
+   captured step). On the four training paths (loss-fused, culled32
+   packed, fused_train, --fused_mlp), two trainers from one initial state
+   on a store of 40 batches (the teacher store's first rays) run a
+   segment of one epoch, the epoch's reshuffle and 12 steps more, one
+   replayed, one eager (run_steps(eager=True)), on the same draws:
+   params, Adam state and metrics must be bit-identical, the graph
+   captured once across the in-place reshuffle, culled32's survivors
+   fewer batches than an epoch (its offset wraps), and the launches those
+   of the steps run (a capture's 3 warm-up steps among them). Then each
+   runs 100 steps eager, graph, graph, eager, and 10 profiled steps a
+   mode: wall ms/step, rays/s, device ms/step and the idle share, with
+   the card's name and power limit; in the profiled steps the device's
+   own count of each kernel's launches must equal the wrappers' count
+   (under the graph, the capture's launches times the replays). In 4, 5 and 8 (run_steps replayed)
+   the launch checks count each capture's warm-up steps the same way. A
+   ranger run and an Adam run on bf16 master weights, 60 replayed
+   loss-fused steps each, must descend (masters still bf16), and in a
+   process of its own a step that reads a value back to the host under
+   capture must make run_steps raise, not fall back to eager steps.
+10. Prints one JSON line about the kernels (each with its launches on its
    paths, sigma_render's and render_eval's on the eval path and the
    [culled] ladder together, its error, its ms and its plain version's at
    the main shape, its
@@ -178,10 +199,14 @@ from nerf_pl_tpu_torch.eval import load_params  # noqa: E402
 from nerf_pl_tpu_torch.models import (init_nerf_params,  # noqa: E402
                                       params_from_numpy)
 from nerf_pl_tpu_torch.ops import _build  # noqa: E402
+from nerf_pl_tpu_torch.ops import (add_launches, by_symbol,  # noqa: E402
+                                   device_events, device_ms,
+                                   kernel_events, launch_counts)
 from nerf_pl_tpu_torch.ops import fused_mlp as fm  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_render as fr  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_train as ft  # noqa: E402
 from nerf_pl_tpu_torch.parallel import Trainer, make_render_fn  # noqa: E402
+from nerf_pl_tpu_torch.parallel.spmd import _StepGraph, seed_for  # noqa: E402
 from nerf_pl_tpu_torch.rendering import (CulledRenderer,  # noqa: E402
                                          ModelConfig, RenderConfig,
                                          TrainDraws, load_or_build_grid,
@@ -222,16 +247,6 @@ KERNELS = {   # name: (TPU kernel it replaces, source of the port's)
     "train_bwd": ("nerf_pl_tpu/ops/fused_train.py:250",
                   "nerf_pl_tpu_torch/csrc/fused_train.cu"),
 }
-COUNTERS = {   # kernel: (wrapper module, its launch count)
-    "sigma_render": (fr, "sigma_render_launches"),
-    "render_eval": (fr, "render_eval_launches"),
-    "mse_render": (ft, "mse_render_launches"),
-    "mlp_fwd": (fm, "mlp_fwd_launches"),
-    "mlp_bwd": (fm, "mlp_bwd_launches"),
-    "sigma_fwd": (fm, "sigma_fwd_launches"),
-    "train_fwd": (ft, "train_fwd_launches"),
-    "train_bwd": (ft, "train_bwd_launches"),
-}
 GRAD_TOL = 0.03
 COS_BAR = 0.95
 POINT_TOL = 5e-3         # point-MLP rgb; raw sigma x max(1, max |sigma|)
@@ -257,12 +272,11 @@ BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, same source
 
 
 def reset_counts():
-    for mod, attr in COUNTERS.values():
-        setattr(mod, attr, 0)
+    add_launches({k: -n for k, n in launch_counts().items()})
 
 
 def read_counts():
-    return {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
+    return launch_counts()
 
 
 def dense_params(seed, device):
@@ -661,7 +675,9 @@ def train_path(dev, store, name, rcfg, per_step, tighten=None,
 
     reset_counts()
     state, m = tr.run_steps(state, TRAIN_SEED, WARMUP_STEPS)
-    warm = state   # the steps build new parameter tensors, never in place
+    # run_steps returns clones of the captured step's static buffers, so a
+    # TrainState kept from before later segments stays as it was
+    warm = state
     losses, rates = [m["loss"]], []
     for _ in range(SEGMENTS):
         float(state.params["nerf_coarse"]["xyz_0"]["w"][0, 0])
@@ -676,11 +692,15 @@ def train_path(dev, store, name, rcfg, per_step, tighten=None,
                 raise AssertionError(f"train metric {k} not finite")
     launches = read_counts()
     n_steps = WARMUP_STEPS + SEGMENTS * SEGMENT_STEPS
+    # each capture first runs its warm-up steps, which launch eagerly
+    n_launched = n_steps + _StepGraph.WARMUP_STEPS * tr.captures
     losses = torch.cat(losses).cpu()
     first, last = losses[:50].mean().item(), losses[-50:].mean().item()
     print(f"[train] {name}: {n_steps} steps at batch {TRAIN_BATCH}, "
           f"{rcfg.N_samples}+{rcfg.N_importance} samples, store of "
-          f"{rays.shape[0]} rays: launches {launches}; mean loss first 50 "
+          f"{rays.shape[0]} rays, {tr.captures} graph captures "
+          f"({n_launched} steps launched): launches {launches}; mean loss "
+          f"first 50 "
           f"{first:.5f}, last 50 {last:.5f}; final psnr "
           f"{m['psnr'][-1].item():.2f}")
     eff = (f"; x{tr.pack_expand:.4f} packed = "
@@ -689,9 +709,9 @@ def train_path(dev, store, name, rcfg, per_step, tighten=None,
     print(f"[train] {name}: rays/s per segment "
           f"{[round(r, 1) for r in rates]}; best {max(rates):.1f}{eff}")
     for k, n in launches.items():
-        if n != per_step.get(k, 0) * n_steps:
+        if n != per_step.get(k, 0) * n_launched:
             raise AssertionError(f"{name}: {k} launched {n} times in "
-                                 f"{n_steps} steps, not "
+                                 f"{n_launched} steps, not "
                                  f"{per_step.get(k, 0)} per step")
     if not last < first:
         raise AssertionError(f"loss did not fall: {first} -> {last}")
@@ -727,6 +747,214 @@ def train_path(dev, store, name, rcfg, per_step, tighten=None,
     if not min(cos) >= COS_BAR:
         raise AssertionError(f"gradient direction: cosine {min(cos)}")
     return launches, rates
+
+
+GRAPH_EPOCH = 40          # steps an epoch of the graph phase's store
+GRAPH_SEGMENTS = (GRAPH_EPOCH, 12)   # an epoch, its reshuffle, 12 more
+GRAPH_TIMED, GRAPH_PROFILED = 100, 10
+
+
+def step_device_ms(tag, tr, state, eager, n=GRAPH_PROFILED):
+    """Device time a step over n profiled steps, and the state after them.
+    The device's own count of each kernel's launches in those steps must
+    equal the wrappers' (under the graph: the capture's recorded launches
+    times n replays, which no wrapper sees)."""
+    before = read_counts()
+    (state, _), events = device_events(
+        lambda: tr.run_steps(state, TRAIN_SEED + 1, n, eager=eager))
+    inferred = {k: c - before[k] for k, c in read_counts().items()}
+    if not eager and inferred != {k: tr._graph.launches.get(k, 0) * n
+                                  for k in inferred}:
+        raise AssertionError(f"graph launches {inferred}: not the "
+                             f"capture's {tr._graph.launches} x {n}")
+    seen = kernel_events(events)
+    print(f"[graph] {tag}: {n} profiled steps: kernel launches the device "
+          f"ran {seen}, the wrappers' count {by_symbol(inferred)}")
+    if seen != by_symbol(inferred):
+        raise AssertionError(f"{tag}: the device ran {seen} launches, the "
+                             f"wrappers counted {by_symbol(inferred)}")
+    return device_ms(events) / n, state
+
+
+def graph_path(dev, store, smi):
+    """Trainer.run_steps replayed from its captured CUDA graph against the
+    same steps launched eagerly, on the four training paths, each from the
+    same initial state and draws on a store of GRAPH_EPOCH batches (the
+    teacher store's first rays): a segment of one epoch, the epoch's
+    reshuffle (the store permuted in place), a segment of 12 more; culled32
+    tightened and packed as in 4, so its offset wraps past the survivors.
+    Params and optimizer state must be bit-identical, and the graph
+    captured once. Then each trainer in each mode runs GRAPH_TIMED steps,
+    eager, graph, graph, eager, timed on the host clock between syncs on a
+    parameter, and GRAPH_PROFILED profiled steps for the device time and
+    the device's count of each kernel's launches, which must equal the
+    wrappers': wall ms/step, rays/s and the idle share 1 - device / wall
+    of each. The device time is the profiled steps' and the wall the
+    unprofiled ones', so the profiler's own cost on the device (a few %)
+    bounds how small an idle share this resolves.
+    Returns {path: (launches of the graph run, steps launched)}."""
+    rays, rgbs = (t[:GRAPH_EPOCH * TRAIN_BATCH].cpu().numpy() for t in store)
+    base = dict(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE, perturb=1.0,
+                noise_std=1.0, white_back=True)
+    paths = (("loss-fused", RenderConfig(**base, fused_train=True,
+                                         fused_loss=True), None),
+             ("culled32", RenderConfig(**dict(base, N_samples=CULLED_SAMPLES),
+                                       fused_train=True, fused_loss=True),
+              CULLED_TIGHTEN),
+             ("fused_train", RenderConfig(**base, fused_train=True), None),
+             ("fused_mlp", RenderConfig(**base, fused=True), None))
+    sched = get_lr_schedule("steplr", 5e-4, 16, 1000, decay_step=[2, 4, 8],
+                            decay_gamma=0.5)
+    out = {}
+    for name, rcfg, tighten in paths:
+        trainers, finals = {}, {}
+        for mode in ("eager", "graph"):
+            tr = Trainer(ModelConfig(), rcfg, get_optimizer("adam", sched),
+                         sched, loss_dict["mse"], TRAIN_BATCH, dev)
+            tr.set_data(rays, rgbs)
+            if tighten:
+                tr.tighten_store(**tighten)
+                if not tr.all_nsurv // TRAIN_BATCH < GRAPH_EPOCH:
+                    raise AssertionError(f"{name}: no packed wrap")
+            state = tr.init_state(torch.Generator().manual_seed(0))
+            reset_counts()
+            for n in GRAPH_SEGMENTS:
+                state, m = tr.run_steps(state, TRAIN_SEED, n,
+                                        eager=mode == "eager")
+                if state.step % tr.steps_per_epoch == 0:
+                    tr.reshuffle(seed_for(TRAIN_SEED, state.step))
+            counts = read_counts()
+            trainers[mode], finals[mode] = [tr, state], (state, m, counts)
+        (se, me, _), (sg, mg, counts) = finals["eager"], finals["graph"]
+        leaves_e = tree_leaves(se.params) + tree_leaves(se.opt_state[0])
+        leaves_g = tree_leaves(sg.params) + tree_leaves(sg.opt_state[0])
+        same = all(torch.equal(a, b) for a, b in zip(leaves_e, leaves_g))
+        same_m = all(torch.equal(me[k], mg[k]) for k in me)
+        tr_g = trainers["graph"][0]
+        n_steps = sum(GRAPH_SEGMENTS)
+        n_launched = n_steps + _StepGraph.WARMUP_STEPS * tr_g.captures
+        wrap = (f"; {tr_g.all_nsurv} survivors = "
+                f"{tr_g.all_nsurv // TRAIN_BATCH} batches of an epoch's "
+                f"{tr_g.steps_per_epoch}" if tighten else "")
+        print(f"[graph] {name}: {n_steps} steps over an epoch boundary and "
+              f"its reshuffle{wrap}: params and Adam state bit-identical "
+              f"eager vs graph: {same}; metrics: {same_m}; captures "
+              f"{tr_g.captures}; launches {counts} for {n_launched} steps "
+              f"launched")
+        if not (same and same_m):
+            worst = max(max_err(a.float(), b.float())
+                        for a, b in zip(leaves_e, leaves_g))
+            raise AssertionError(f"{name}: graph steps differ from eager "
+                                 f"ones (max abs {worst})")
+        if tr_g.captures != 1:
+            raise AssertionError(f"{name}: {tr_g.captures} captures")
+        out[name] = (counts, n_launched)
+
+        wall = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            tr, state = trainers[mode]
+            float(tree_leaves(state.params)[0][0, 0])
+            t0 = time.perf_counter()
+            state, _ = tr.run_steps(state, TRAIN_SEED + 1, GRAPH_TIMED,
+                                    eager=mode == "eager")
+            float(tree_leaves(state.params)[0][0, 0])   # sync
+            wall[mode].append((time.perf_counter() - t0) / GRAPH_TIMED * 1e3)
+            trainers[mode][1] = state
+        for mode in ("eager", "graph"):
+            tr, state = trainers[mode]
+            dev_ms, trainers[mode][1] = step_device_ms(
+                f"{name} {mode}", tr, state, mode == "eager")
+            walls = wall[mode]
+            print(f"[graph] {name} {mode}: wall "
+                  f"{', '.join(f'{w:.3f}' for w in walls)} ms/step = "
+                  f"{', '.join(f'{TRAIN_BATCH / w * 1e3:.1f}' for w in walls)}"
+                  f" rays/s; device {dev_ms:.3f} ms/step; idle share "
+                  f"{', '.join(f'{1 - dev_ms / w:.4f}' for w in walls)}"
+                  f" ({smi})")
+        del trainers, finals
+        torch.cuda.empty_cache()
+    return out
+
+
+DESCENT_STEPS = 60
+
+
+def descent_path(dev, store):
+    """A short ranger run, and an Adam run on bf16 master weights, on the
+    loss-fused path through the graph (the train CLI's --optimizer ranger
+    and --precision bfloat16 --fused_train): DESCENT_STEPS steps each from
+    one initial state; the mean loss of the last 20 steps must be below
+    the first 20, and bf16 masters must stay bf16."""
+    rays, rgbs = (t.cpu().numpy() for t in store)
+    rcfg = RenderConfig(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+                        perturb=1.0, noise_std=1.0, white_back=True,
+                        fused_train=True, fused_loss=True)
+    sched = get_lr_schedule("steplr", 5e-4, 16, 1000, decay_step=[2, 4, 8],
+                            decay_gamma=0.5)
+    for name, opt, master in (("ranger", "ranger", None),
+                              ("adam, bf16 masters", "adam", torch.bfloat16)):
+        tr = Trainer(ModelConfig(), rcfg, get_optimizer(opt, sched), sched,
+                     loss_dict["mse"], TRAIN_BATCH, dev)
+        tr.set_data(rays, rgbs)
+        state = tr.init_state(torch.Generator().manual_seed(0),
+                              master_dtype=master)
+        state, m = tr.run_steps(state, TRAIN_SEED, DESCENT_STEPS)
+        losses = m["loss"].cpu()
+        first, last = losses[:20].mean().item(), losses[-20:].mean().item()
+        dtypes = {t.dtype for t in tree_leaves(state.params)}
+        print(f"[descent] {name}: {DESCENT_STEPS} replayed steps "
+              f"({tr.captures} capture), loss first 20 {first:.5f}, last 20 "
+              f"{last:.5f}; master dtypes {dtypes}")
+        if not (last < first and torch.isfinite(losses).all()):
+            raise AssertionError(f"{name}: loss did not fall: {first} -> "
+                                 f"{last}")
+        if dtypes != {master or torch.float32}:
+            raise AssertionError(f"{name}: master dtypes {dtypes}")
+        del tr, state
+        torch.cuda.empty_cache()
+
+
+CAPTURE_FAILURE = """
+import sys, torch
+from nerf_pl_tpu_torch.parallel import Trainer
+from nerf_pl_tpu_torch.rendering import ModelConfig, RenderConfig
+from nerf_pl_tpu_torch.training import get_optimizer, loss_dict
+import chip_smoke as cs
+
+
+def checked_mse(out, rgbs):   # a check that reads a value back each step
+    loss = loss_dict["mse"](out, rgbs)
+    if not torch.isfinite(loss).item():
+        raise FloatingPointError("loss is not finite")
+    return loss
+
+
+dev = torch.device("cuda", 0)
+rays, _ = cs.rays_z(4 * cs.TRAIN_BATCH, 1, dev, seed=3)
+tr = Trainer(ModelConfig(), RenderConfig(N_samples=16, N_importance=16,
+             fused=True), get_optimizer("adam", 5e-4), lambda s: s * 0.0,
+             checked_mse, cs.TRAIN_BATCH, dev)
+tr.set_data(rays.cpu().numpy(), rays[:, :3].abs().cpu().numpy() % 1.0)
+state = tr.init_state(torch.Generator().manual_seed(0))
+try:
+    tr.run_steps(state, 1, 4)
+except Exception as e:
+    print(f"raised {type(e).__name__}: {str(e).splitlines()[0][:200]}")
+    sys.exit(0)
+print("run_steps returned: the capture did not fail, or fell back")
+sys.exit(1)
+"""
+
+
+def capture_failure_path():
+    """A step that cannot be captured (its loss reads a value back to the
+    host every step) must make run_steps raise, not fall back to eager
+    steps; in a process of its own, since a failed capture leaves its
+    stream's capture invalidated."""
+    out, secs = run_cli(["-c", CAPTURE_FAILURE], "capture failure",
+                        os.path.dirname(os.path.abspath(__file__)))
+    print(f"[graph] a step that syncs with the host under capture, "
+          f"{secs:.1f} s: run_steps {out.strip()}")
 
 
 def cosine(a, b):
@@ -1574,6 +1802,8 @@ def main():
                            {"train_fwd": 2, "train_bwd": 2})
     launches["train_fwd"], launches["train_bwd"] = (counts["train_fwd"],
                                                     counts["train_bwd"])
+    graph_path(dev, store, smi)
+    descent_path(dev, store)
     del store
     torch.cuda.empty_cache()
     params, rays, _ = validation_path(dev)
@@ -1585,6 +1815,7 @@ def main():
     for k, n in culled_launches.items():
         launches[k] += n
     culled_cli_path()
+    capture_failure_path()
 
     fine_S = N_SAMPLES + N_IMPORTANCE
     times[("mse_render", fine_S)] = mse_times[fine_S]

@@ -7,6 +7,7 @@ weights of the two packages line up row for row.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -29,9 +30,18 @@ class EmbeddingConfig:
         return np.linspace(1, 2.0 ** (self.N_freqs - 1), self.N_freqs)
 
 
+@functools.lru_cache(maxsize=None)
+def _freqs(cfg: EmbeddingConfig, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """The frequency bands on `device`, copied there once: a CUDA graph
+    cannot capture a copy from the host, and reads this tensor's address
+    on every replay."""
+    return torch.as_tensor(cfg.freq_bands(), dtype=dtype, device=device)
+
+
 def embed(x: torch.Tensor, cfg: EmbeddingConfig) -> torch.Tensor:
     """Embed x (..., C) -> (..., C * (2*N_freqs + 1))."""
-    freqs = torch.as_tensor(cfg.freq_bands(), dtype=x.dtype, device=x.device)
+    freqs = _freqs(cfg, x.dtype, x.device)
     xb = x[..., None, :] * freqs[:, None]                 # (..., F, C)
     sc = torch.stack([torch.sin(xb), torch.cos(xb)], dim=-2)  # (..., F, 2, C)
     sc = sc.reshape(*x.shape[:-1], 2 * cfg.N_freqs * cfg.in_channels)

@@ -4,8 +4,19 @@ occupancy tightening of the store.
 
 Port of `Trainer` in nerf_pl_tpu/parallel/spmd.py for one device (the
 data-parallel mesh is ROADMAP item A10, tensor parallelism A12).
-`run_steps` is a plain Python loop over steps; nothing in a step waits for
-the device (no host sync), so a later CUDA graph can capture it.
+
+`run_steps` runs K steps of one function, `_step`, whose inputs are all on
+the device: the params and optimizer state, a 0-dim step counter (the
+batch offset and the logged lr follow from it, as JAX's dynamic_slice and
+metrics do) and the step's random draws, made beforehand from the host
+generator of (seed, step). On the CPU it loops over eager steps. On CUDA
+it is the port's counterpart of the JAX Trainer's lax.scan: the step is
+captured once as a CUDA graph (`_StepGraph`) and replayed K times; a step
+that cannot be captured raises, with no eager fallback. The graph reads
+and writes fixed addresses: the state lives in static buffers that a
+segment loads from the caller's state and returns clones of; the store is
+permuted in place, and a new store (set_data, tighten_store) or a new
+state structure captures the step anew.
 
 Occupancy (`tighten_store`) clips every stored ray's [near, far] to its
 occupancy-box overlaps, stores a per-ray occupied-segment mask for the
@@ -15,12 +26,14 @@ host reads back only the counts it prints.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from ..models.nerf import init_nerf_params
+from ..ops import add_launches, launch_counts
 from ..rendering.occupancy import (dilate_segment_bits, ray_box_hits,
                                    ray_box_segment_bits, tighten_intervals)
 from ..rendering.render import (ModelConfig, RenderConfig, TrainDraws,
@@ -32,7 +45,8 @@ from ..training.optimizers import Optimizer, apply_updates, tree_leaves, \
 class TrainState(NamedTuple):
     params: Any       # {'nerf_coarse': {layer: {w, b}}, 'nerf_fine': ...}
     opt_state: Any    # the optimizer's tree (training/optimizers.py)
-    step: int         # global step, kept on the host
+    step: int         # global step; a host int, for bookkeeping (the
+                      # step itself reads a device counter, run_steps)
 
 
 def seed_for(seed: int, *counters: int) -> int:
@@ -89,6 +103,8 @@ class Trainer:
         self.device = torch.device(device)
         self.all_rays = None
         self.all_rgbs = None
+        self._graph = None       # the captured step (CUDA only)
+        self.captures = 0        # how many times the step was captured
 
     # ---------------------------------------------------------------- data
     def set_data(self, all_rays: np.ndarray, all_rgbs: np.ndarray,
@@ -136,8 +152,10 @@ class Trainer:
         return [(n, a) for n, a in named if a is not None]
 
     def _permute(self, order: torch.Tensor):
-        for name, arr in self._store_named():
-            setattr(self, name, arr[order])
+        """Reorder every store array in place, so that a captured step's
+        addresses stay valid across the per-epoch reshuffles."""
+        for _, arr in self._store_named():
+            arr.copy_(arr[order])
 
     def reshuffle(self, seed: int):
         """Per-epoch re-permutation of the store on the device, from a
@@ -221,30 +239,41 @@ class Trainer:
                 "expand": self.pack_expand}
 
     # --------------------------------------------------------------- state
-    def init_state(self, generator: torch.Generator) -> TrainState:
+    def init_state(self, generator: torch.Generator,
+                   master_dtype: Optional[torch.dtype] = None) -> TrainState:
         """Params drawn from `generator` (torch.nn.Linear's init), on the
-        device, and the optimizer's state at step 0."""
+        device, and the optimizer's state at step 0. master_dtype (e.g.
+        torch.bfloat16) casts the stored (master) weights, and the
+        optimizer's moments follow them; the kernels run bf16 products
+        either way, so it moves only where the update rounds."""
         names = ["nerf_coarse"] + (["nerf_fine"]
                                    if self.rcfg_train.N_importance > 0 else [])
         params = {name: init_nerf_params(generator, self.mcfg.nerf,
                                          self.device) for name in names}
+        if master_dtype is not None:
+            params = tree_unflatten(params, [p.to(master_dtype) for p in
+                                             tree_leaves(params)])
         return TrainState(params, self.optimizer.init(params), 0)
 
     # --------------------------------------------------------------- train
-    def _sample_batch(self, step: int):
+    def _sample_batch(self, step):
         """Contiguous block `step % steps_per_epoch` of the store: (rays,
-        rgbs), and the segment masks when the store has them. With
+        rgbs), and the segment masks when the store has them. `step` is an
+        int or a 0-dim integer tensor on the store's device (the offset is
+        then computed there, as JAX's dynamic_slice takes it). With
         survivor packing the offset wraps over the survivor region [0, K),
         K = max(nsurv // batch, 1) * batch, so an epoch keeps its step
         count and cycles through the survivors."""
         b = self.batch_size
         off = (step % self.steps_per_epoch) * b
         if self.all_nsurv is not None:
-            off %= max(self.all_nsurv // b, 1) * b
-        batch = (self.all_rays[off:off + b], self.all_rgbs[off:off + b])
+            off = off % (max(self.all_nsurv // b, 1) * b)
+        idx = off + torch.arange(b, device=self.device)
+        batch = (self.all_rays.index_select(0, idx),
+                 self.all_rgbs.index_select(0, idx))
         if self.all_occm is None:
             return batch
-        return batch + (self.all_occm[off:off + b],)
+        return batch + (self.all_occm.index_select(0, idx),)
 
     def _loss_and_grads(self, params, rays, rgbs,
                         generator: Optional[torch.Generator],
@@ -276,37 +305,194 @@ class Trainer:
             self.batch_size * 3)
         return loss_sum / self.batch_size, mse, grads
 
-    def _one_step(self, state: TrainState,
-                  generator: torch.Generator) -> Tuple[TrainState, Dict]:
-        rays, rgbs, *occm = self._sample_batch(state.step)
-        loss, mse, grads = self._loss_and_grads(state.params, rays, rgbs,
-                                                generator,
-                                                occm=occm[0] if occm
+    def _step(self, params, opt_state, step: torch.Tensor,
+              draws: TrainDraws):
+        """One optimizer step on device inputs only: the batch at the
+        device step, the given draws, the gradients cast to the master
+        dtype (the kernels accumulate f32), the update, and the metrics
+        loss, psnr and lr (the schedule at the device step). No host sync,
+        so a CUDA graph can capture it."""
+        rays, rgbs, *occm = self._sample_batch(step)
+        loss, mse, grads = self._loss_and_grads(params, rays, rgbs, None,
+                                                draws, occm=occm[0] if occm
                                                 else None)
-        updates, opt_state = self.optimizer.update(grads, state.opt_state,
-                                                   state.params)
-        params = apply_updates(state.params, updates)
+        p = tree_leaves(params)
+        grads = tree_unflatten(params, [g.to(q.dtype) for g, q in
+                                        zip(tree_leaves(grads, params), p)])
+        updates, opt_state = self.optimizer.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
         # clamp: mse == 0 would give an infinite psnr
         psnr = -10.0 * torch.log10(torch.clamp(mse, min=1e-10))
-        return (TrainState(params, opt_state, state.step + 1),
-                {"loss": loss, "psnr": psnr})
+        return params, opt_state, {"loss": loss, "psnr": psnr,
+                                   "lr": self.lr_schedule(step)}
 
     def step_generator(self, seed: int, step: int) -> torch.Generator:
         """The draws of global step `step`: a function of (seed, step)."""
         return torch.Generator(device=self.device).manual_seed(
             seed_for(seed, step))
 
-    def run_steps(self, state: TrainState, seed: int, n_steps: int
+    def _draw_specs(self) -> List[Tuple[str, Tuple[int, int], bool]]:
+        """(name, shape, uniform) of the draws a step takes, in the order
+        the render takes them from its generator: the perturb uniforms and
+        the coarse noise, then the importance u and the fine noise. These
+        are all the random numbers of a step on every path."""
+        cfg, R = self.rcfg_train, self.batch_size
+        S, S_imp = cfg.N_samples, cfg.N_importance
+        specs = []
+        if cfg.perturb > 0:
+            specs.append(("perturb", (R, S), True))
+        if cfg.noise_std > 0:
+            specs.append(("noise_coarse", (R, S), False))
+        if S_imp > 0 and cfg.perturb > 0:
+            specs.append(("u", (R, S_imp), True))
+        if S_imp > 0 and cfg.noise_std > 0:
+            specs.append(("noise_fine", (R, S + S_imp), False))
+        return specs
+
+    def _draw_into(self, draws: TrainDraws, seed: int, step: int):
+        """Fill `draws` in place with step `step`'s draws (in-place
+        uniform_ / normal_ give torch.rand's / torch.randn's numbers)."""
+        g = self.step_generator(seed, step)
+        for name, _, uniform in self._draw_specs():
+            buf = getattr(draws, name)
+            if uniform:
+                buf.uniform_(generator=g)
+            else:
+                buf.normal_(generator=g)
+
+    def step_draws(self, seed: int, step: int) -> TrainDraws:
+        """Every random draw of global step `step`, as tensors."""
+        draws = TrainDraws(**{name: torch.empty(shape, device=self.device)
+                              for name, shape, _ in self._draw_specs()})
+        self._draw_into(draws, seed, step)
+        return draws
+
+    def run_steps(self, state: TrainState, seed: int, n_steps: int,
+                  eager: bool = False
                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """n_steps optimizer steps; returns (K,) metric tensors: loss and
-        psnr on the device, lr (from the host's step count) on the CPU."""
-        losses, psnrs, lrs = [], [], []
-        for _ in range(n_steps):
-            lrs.append(self.lr_schedule(state.step))
-            state, m = self._one_step(state,
-                                      self.step_generator(seed, state.step))
-            losses.append(m["loss"])
-            psnrs.append(m["psnr"])
-        return state, {"loss": torch.stack(losses),
-                       "psnr": torch.stack(psnrs),
-                       "lr": torch.stack(lrs)}
+        """n_steps optimizer steps; returns the new state and (n_steps,)
+        metric tensors loss, psnr and lr on the device. On CUDA the steps
+        replay a captured graph, unless `eager` (a comparison's switch);
+        on the CPU they run eagerly. The caller's state is never written."""
+        if self.device.type == "cuda" and not eager:
+            return self._run_graph(state, seed, n_steps)
+        params, opt_state = state.params, state.opt_state
+        metrics: Dict[str, List[torch.Tensor]] = {"loss": [], "psnr": [],
+                                                  "lr": []}
+        for i in range(n_steps):
+            s = state.step + i
+            params, opt_state, m = self._step(
+                params, opt_state,
+                torch.full((), s, dtype=torch.int64, device=self.device),
+                self.step_draws(seed, s))
+            for k, v in m.items():
+                metrics[k].append(v)
+        return (TrainState(params, opt_state, state.step + n_steps),
+                {k: torch.stack(v) for k, v in metrics.items()})
+
+    # --------------------------------------------------------- CUDA graph
+    def _graph_key(self, state: TrainState):
+        """What a captured step has baked in: the store's addresses and
+        layout, and the state's structure, shapes and dtypes."""
+        store = tuple((n, a.data_ptr(), tuple(a.shape))
+                      for n, a in self._store_named())
+        leaves, spec = pytree.tree_flatten((state.params, state.opt_state))
+        return (store, self.occ_n_seg, self.all_nsurv, self.steps_per_epoch,
+                str(spec), tuple((tuple(t.shape), t.dtype) for t in leaves))
+
+    def _run_graph(self, state: TrainState, seed: int, n_steps: int):
+        key = self._graph_key(state)
+        g = self._graph
+        if g is None or g.key != key or g.capacity < n_steps:
+            capacity = max(n_steps, _StepGraph.MIN_ROWS,
+                           g.capacity if g is not None else 0)
+            self._graph = g = None    # free the old graph's pool first
+            g = self._graph = _StepGraph(self, state, key, capacity)
+            self.captures += 1
+        g.load(state)
+        for i in range(n_steps):
+            self._draw_into(g.draws, seed, state.step + i)
+            g.graph.replay()
+        add_launches(g.launches, times=n_steps)
+        params, opt_state = g.state()
+        return (TrainState(params, opt_state, state.step + n_steps),
+                {k: v[:n_steps].clone() for k, v in g.metrics.items()})
+
+
+class _StepGraph:
+    """`Trainer._step` captured as a CUDA graph over static buffers: the
+    params and optimizer state (the graph copies each step's new state
+    back into them), the device step counter, the metric rows' index, the
+    draws and the (capacity,) metric rows. Warm-up steps (the nvcc build at
+    first use, autograd's and the allocator's first passes) run on a side
+    stream before capture, on these buffers, before any caller's state is
+    loaded. Capture runs nothing; it records each kernel wrapper's launch
+    once, and those counts are taken back and added per replay."""
+
+    WARMUP_STEPS = 3
+    MIN_ROWS = 1024     # metric rows: segments up to this long share a graph
+
+    def __init__(self, trainer: Trainer, state: TrainState, key,
+                 capacity: int):
+        dev = trainer.device
+        self.key, self.capacity = key, capacity
+        leaves, self.spec = pytree.tree_flatten((state.params,
+                                                 state.opt_state))
+        self.static = [t.detach().clone() for t in leaves]
+        # one _foreach_copy_ per dtype: a list that mixes dtypes (the int32
+        # counts among f32 leaves) takes the slow path, a copy per tensor
+        by_dtype: Dict[torch.dtype, List[int]] = {}
+        for i, t in enumerate(leaves):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        self.groups = list(by_dtype.values())
+        params, opt_state = pytree.tree_unflatten(self.static, self.spec)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.row = torch.zeros((), dtype=torch.int64, device=dev)
+        self.draws = trainer.step_draws(0, 0)
+        self.metrics = {k: torch.zeros((capacity,), device=dev)
+                        for k in ("loss", "psnr", "lr")}
+
+        def body():
+            p, o, m = trainer._step(params, opt_state, self.step,
+                                    self.draws)
+            self._copy_in(pytree.tree_leaves((p, o)))
+            for k, v in m.items():
+                self.metrics[k].index_copy_(0, self.row.view(1),
+                                            v.detach().float().view(1))
+            self.step.add_(1)
+            self.row.add_(1)
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP_STEPS):
+                body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.row.zero_()
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                body()
+        finally:
+            recorded = launch_counts()
+            add_launches({k: before[k] - n for k, n in recorded.items()})
+        self.launches = {k: n - before[k] for k, n in recorded.items()
+                         if n != before[k]}
+
+    def _copy_in(self, leaves: List[torch.Tensor]):
+        for idx in self.groups:
+            torch._foreach_copy_([self.static[i] for i in idx],
+                                 [leaves[i] for i in idx])
+
+    def load(self, state: TrainState):
+        """The caller's state into the static buffers, the step counter
+        at its step, the metric rows from 0."""
+        self._copy_in(pytree.tree_leaves((state.params, state.opt_state)))
+        self.step.fill_(state.step)
+        self.row.zero_()
+
+    def state(self):
+        """Clones of the static (params, opt_state)."""
+        return pytree.tree_unflatten([t.clone() for t in self.static],
+                                     self.spec)

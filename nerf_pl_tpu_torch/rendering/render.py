@@ -100,6 +100,27 @@ def prepare_params(params: Mapping[str, Any], cfg: RenderConfig,
     return model
 
 
+class _PositiveCumprod(torch.autograd.Function):
+    """torch.cumprod along the last dim of a tensor with no zero entry,
+    with the backward torch takes for such an input (the reversed cumsum
+    of output * grad, divided by the input) but without torch's test for
+    zeros, which reads a value back to the host: a CUDA graph cannot
+    capture that."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        w = out * grad
+        return torch.flip(torch.cumsum(torch.flip(w, [-1]), dim=-1),
+                          [-1]) / x
+
+
 def volume_quadrature(sigmas: torch.Tensor,
                       z_vals: torch.Tensor,
                       dir_norms: torch.Tensor,
@@ -121,8 +142,8 @@ def volume_quadrature(sigmas: torch.Tensor,
         sigmas = sigmas + noise
     alphas = 1.0 - torch.exp(-deltas * torch.relu(sigmas))
     shifted = torch.cat([torch.ones_like(alphas[:, :1]),
-                         1.0 - alphas + 1e-10], dim=-1)
-    transmittance = torch.cumprod(shifted, dim=-1)[:, :-1]
+                         1.0 - alphas + 1e-10], dim=-1)   # no zero entry
+    transmittance = _PositiveCumprod.apply(shifted)[:, :-1]
     weights = alphas * transmittance
     opacity = weights.sum(dim=-1)
 
@@ -141,12 +162,13 @@ def coarse_z_vals(rays: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     near, far = rays[:, 6:7], rays[:, 7:8]
     # jnp.linspace's rounding, i * f32(1 / (N - 1)) and an exact 1 at the
     # end: torch.linspace rounds otherwise, and the 2^9 embedding
-    # frequencies see one ulp of depth
+    # frequencies see one ulp of depth (fill_, not an index assignment,
+    # which copies a host scalar: a CUDA graph cannot capture that)
     N = cfg.N_samples
     z_steps = torch.arange(N, dtype=rays.dtype, device=rays.device) * (
         1.0 / max(N - 1, 1))
     if N > 1:
-        z_steps[-1] = 1.0
+        z_steps[-1:].fill_(1.0)
     if not cfg.use_disp:
         z_vals = near * (1.0 - z_steps) + far * z_steps
     else:

@@ -22,9 +22,11 @@ caller of main(device="cpu") trains on the CPU.
 `--compile_cache` is accepted and does nothing. TensorBoard logging needs
 tensorboardX; without it the CLI says so and trains without logs.
 
-Flags of later slices are rejected, naming their ROADMAP item: --num_gpus
-> 1 (A10), --optimizer radam|ranger (A4) and --precision bfloat16 with the
-fused kernels (bf16 master weights, A4). Reading the datasets' images
+`--optimizer` takes sgd, adam, radam and ranger; `--precision bfloat16`
+with `--fused_train` or `--fused_mlp` keeps bf16 master weights and
+moments. On the card each segment of steps replays one captured CUDA
+graph of the step. Data parallel training is a later slice: --num_gpus > 1
+is rejected, naming its ROADMAP item (A10). Reading the datasets' images
 needs PIL.
 """
 import sys

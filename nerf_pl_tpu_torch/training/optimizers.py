@@ -1,30 +1,37 @@
-"""Optimizers: sgd and adam with torch-style coupled L2, as functions over the
-params dict.
+"""Optimizers: sgd, adam, radam and ranger with torch-style coupled L2, as
+functions over the params dict.
 
 Port of nerf_pl_tpu/training/optimizers.py (an optax chain). The state
 mirrors optax's tree, so it checkpoints under the JAX package's keys and a
 state saved by either package resumes in the other:
 
-  adam  (opt_state/0/count, opt_state/0/mu/..., opt_state/0/nu/...,
-         opt_state/1/count)
-  sgd   (opt_state/0/trace/..., opt_state/1/count)
+  adam, radam  (opt_state/0/count, opt_state/0/mu/..., opt_state/0/nu/...,
+                opt_state/1/count)
+  sgd           (opt_state/0/trace/..., opt_state/1/count)
+  ranger        (opt_state/inner/<radam's keys>, opt_state/slow/...,
+                 opt_state/count)
 
 With weight decay a leading stage without leaves shifts the indices by one
 (optax's add_decayed_weights), and a constant learning rate has no count.
 The learning rate is the schedule at the last stage's count, as optax's
 scale_by_learning_rate; Adam's bias correction uses its incremented count,
-as scale_by_adam. The arithmetic follows optax operation by operation, on
-the whole parameter list at once (torch._foreach_*). radam and ranger are
-ROADMAP item A4.
+as scale_by_adam; radam switches between its rectified and plain steps
+with torch.where on the device count, as optax's jnp.where, and ranger's
+lookahead syncs the same way, so no update reads a value back to the host.
+The arithmetic follows optax operation by operation, on the whole
+parameter list at once (torch._foreach_*). The moments take the params'
+dtype (bf16 master weights keep bf16 moments); the counts are int32.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
 
+import numpy as np
 import torch
 
 ScalarOrSchedule = Union[float, Callable]
 B1, B2 = 0.9, 0.999     # Adam's decays (optax's defaults)
+RADAM_THRESHOLD = 5.0   # optax.scale_by_radam's tractability threshold
 
 
 def tree_leaves(tree, like=None) -> List[torch.Tensor]:
@@ -71,28 +78,72 @@ def _zeros(params):
                                    for p in tree_leaves(params)])
 
 
-def get_optimizer(name: str,
-                  learning_rate: ScalarOrSchedule,
-                  momentum: float = 0.9,
-                  weight_decay: float = 0.0,
-                  eps: float = 1e-8) -> Optimizer:
-    """Build the optimizer named by the --optimizer flag. `learning_rate`
-    is a float or a step -> lr schedule."""
-    if name in ("radam", "ranger"):
-        raise NotImplementedError(
-            f"--optimizer {name} is not ported yet: ROADMAP item A4")
-    if name not in ("sgd", "adam"):
-        raise ValueError(f"optimizer not recognized: {name!r}")
+class LookaheadState(NamedTuple):
+    """The JAX package's lookahead state: the inner optimizer's state, the
+    slow weights and the step count."""
+    inner: Any
+    slow: Any
+    count: torch.Tensor
+
+
+def lookahead(inner: Optimizer, sync_period: int = 6,
+              slow_step_size: float = 0.5) -> Optimizer:
+    """Lookahead (Zhang et al. 2019) over `inner`, as the JAX package's:
+    every `sync_period` steps the slow weights move `slow_step_size` toward
+    the fast weights and the fast weights reset to them. Branch-free: the
+    sync is a device bool chosen by torch.where, so the update has no host
+    sync and replays in a CUDA graph."""
+
+    def init(params) -> LookaheadState:
+        slow = tree_unflatten(params, [p.clone()
+                                       for p in tree_leaves(params)])
+        return LookaheadState(inner.init(params), slow, _count(params))
+
+    def update(grads, state: LookaheadState, params):
+        u, inner_state = inner.update(grads, state.inner, params)
+        p = tree_leaves(params)
+        u = tree_leaves(u, params)
+        fast = torch._foreach_add(p, u)
+        count = state.count + 1
+        sync = (count % sync_period) == 0
+        slow = tree_leaves(state.slow, params)
+        lerp = torch._foreach_add(slow, torch._foreach_mul(
+            torch._foreach_sub(fast, slow), slow_step_size))
+        slow_new = [torch.where(sync, a, s) for a, s in zip(lerp, slow)]
+        final = [torch.where(sync, s - q, du)
+                 for du, s, q in zip(u, slow_new, p)]
+        return (tree_unflatten(params, final),
+                LookaheadState(inner_state, tree_unflatten(params, slow_new),
+                               count))
+
+    return Optimizer(init, update)
+
+
+def _decay_pow(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """decay^count in float32, correctly rounded: optax's `decay**count`
+    as XLA computes it under jit (decay rounded to float32 first). radam's
+    ro amplifies an ulp of b2^count a thousandfold, so this is taken in
+    float64 rather than by a float32 pow, whose last bit differs between
+    libraries."""
+    base = float(np.float32(decay))
+    return torch.pow(base, count.to(torch.float64)).to(torch.float32)
+
+
+def _chain(name: str, learning_rate: ScalarOrSchedule, momentum: float,
+           weight_decay: float, eps: float, b1: float = B1,
+           b2: float = B2) -> Optimizer:
+    """optax.chain(add_decayed_weights?, scale_by_<name>,
+    scale_by_learning_rate) for name in sgd, adam, radam."""
     decay = bool(weight_decay and weight_decay > 0)
     scheduled = callable(learning_rate)
+    ro_inf = 2.0 / (1.0 - b2) - 1.0     # radam's maximum length of the SMA
 
     def init(params) -> Tuple:
-        if name == "adam":
-            inner: Dict[str, Any] = {"count": _count(params),
-                                     "mu": _zeros(params),
-                                     "nu": _zeros(params)}
+        if name == "sgd":
+            inner: Dict[str, Any] = {"trace": _zeros(params)}
         else:
-            inner = {"trace": _zeros(params)}
+            inner = {"count": _count(params), "mu": _zeros(params),
+                     "nu": _zeros(params)}
         lr_stage = {"count": _count(params)} if scheduled else {}
         return ((({},) if decay else ()) + (inner, lr_stage))
 
@@ -102,24 +153,37 @@ def get_optimizer(name: str,
         if decay:   # torch-style coupled L2: g + wd * p
             g = torch._foreach_add(g, torch._foreach_mul(p, weight_decay))
         inner, lr_stage = state[-2], state[-1]
-        if name == "adam":
-            mu = torch._foreach_mul(tree_leaves(inner["mu"], params), B1)
-            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - B1))
-            nu = torch._foreach_mul(tree_leaves(inner["nu"], params), B2)
-            torch._foreach_add_(nu, torch._foreach_mul(
-                torch._foreach_mul(g, g), 1 - B2))
-            count = inner["count"] + 1
-            c = count.to(torch.float32)
-            den = torch._foreach_sqrt(torch._foreach_div(nu, 1 - B2 ** c))
-            torch._foreach_add_(den, eps)
-            u = torch._foreach_div(torch._foreach_div(mu, 1 - B1 ** c), den)
-            inner = {"count": count, "mu": tree_unflatten(params, mu),
-                     "nu": tree_unflatten(params, nu)}
-        else:
+        if name == "sgd":
             u = torch._foreach_mul(tree_leaves(inner["trace"], params),
                                    momentum)
             torch._foreach_add_(u, g)
             inner = {"trace": tree_unflatten(params, u)}
+        else:
+            mu = torch._foreach_mul(tree_leaves(inner["mu"], params), b1)
+            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
+            nu = torch._foreach_mul(tree_leaves(inner["nu"], params), b2)
+            torch._foreach_add_(nu, torch._foreach_mul(
+                torch._foreach_mul(g, g), 1 - b2))
+            count = inner["count"] + 1
+            b1t, b2t = _decay_pow(b1, count), _decay_pow(b2, count)
+            mu_hat = torch._foreach_div(mu, 1 - b1t)
+            nu_hat = torch._foreach_div(nu, 1 - b2t)
+            den = torch._foreach_sqrt(nu_hat)
+            torch._foreach_add_(den, eps)
+            u = torch._foreach_div(mu_hat, den)
+            if name == "radam":
+                # optax.scale_by_radam: the rectified step where the
+                # variance is tractable (ro >= 5), else the plain momentum;
+                # torch.where on the device count, no host branch
+                ro = ro_inf - (2 * count).to(torch.float32) * b2t / (1 - b2t)
+                r = torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / (
+                    (ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+                rect = torch._foreach_div(
+                    [r.to(m.dtype) * m for m in mu_hat], den)
+                u = [torch.where(ro >= RADAM_THRESHOLD, x, m)
+                     for x, m in zip(rect, mu_hat)]
+            inner = {"count": count, "mu": tree_unflatten(params, mu),
+                     "nu": tree_unflatten(params, nu)}
         if scheduled:
             step_size = -learning_rate(lr_stage["count"]).to(torch.float32)
             lr_stage = {"count": lr_stage["count"] + 1}
@@ -130,3 +194,20 @@ def get_optimizer(name: str,
                 state[:-2] + (inner, lr_stage))
 
     return Optimizer(init, update)
+
+
+def get_optimizer(name: str,
+                  learning_rate: ScalarOrSchedule,
+                  momentum: float = 0.9,
+                  weight_decay: float = 0.0,
+                  eps: float = 1e-8) -> Optimizer:
+    """Build the optimizer named by the --optimizer flag. `learning_rate`
+    is a float or a step -> lr schedule."""
+    if name in ("sgd", "adam", "radam"):
+        return _chain(name, learning_rate, momentum, weight_decay, eps)
+    if name == "ranger":
+        # the reference Ranger's betas (0.95, 0.999) and eps 1e-5
+        return lookahead(_chain("radam", learning_rate, momentum,
+                                weight_decay, 1e-5, b1=0.95, b2=0.999),
+                         sync_period=6, slow_step_size=0.5)
+    raise ValueError(f"optimizer not recognized: {name!r}")

@@ -48,11 +48,6 @@ def unported(hp) -> Optional[str]:
     item; None when it can."""
     if hp.num_gpus > 1:
         return "--num_gpus > 1: data parallel training (ROADMAP A10)"
-    if hp.optimizer in ("radam", "ranger"):
-        return f"--optimizer {hp.optimizer} (ROADMAP A4)"
-    if hp.precision == "bfloat16" and (hp.fused_train or hp.fused_mlp):
-        return ("--precision bfloat16 with the fused kernels: bf16 master "
-                "weights (ROADMAP A4)")
     return None
 
 
@@ -119,8 +114,13 @@ class NeRFSystem:
                                hp.batch_size, self.device)
         self.trainer.set_data(self.train_dataset.all_rays,
                               self.train_dataset.all_rgbs)
+        # --precision bfloat16 with the fused kernels (which run bf16
+        # products either way) selects bf16 master weights and moments, as
+        # the JAX package does; f32 masters stay the default
+        master_dtype = (torch.bfloat16 if hp.precision == "bfloat16"
+                        and (hp.fused_train or hp.fused_mlp) else None)
         self.state = self.trainer.init_state(
-            torch.Generator().manual_seed(hp.seed))
+            torch.Generator().manual_seed(hp.seed), master_dtype=master_dtype)
         if hp.ckpt_path:
             self._restore(hp.ckpt_path)
 

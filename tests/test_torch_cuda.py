@@ -810,3 +810,59 @@ def test_cull_pass_on_cuda_equals_cpu(dev, cfg):
     assert 0 < cpu.counts.sum() < 20000
     for name, a, b in zip(cpu._fields, gpu, cpu):
         assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.parametrize("route", ["loss_fused", "fused_mlp"])
+def test_run_steps_graph_equals_eager(dev, route):
+    """run_steps on the card replays one captured step: on the packed
+    culled store (its offset wraps past the survivors), 6 replayed steps,
+    the in-place reshuffle, 4 more give params and Adam state bit for bit
+    those of the same steps launched eagerly, with one capture; a new store
+    (tighten_store) captures the step anew."""
+    extra = (dict(fused_train=True, fused_loss=True) if route == "loss_fused"
+             else dict(fused=True))
+    rcfg = RenderConfig(N_samples=32, N_importance=64, perturb=1.0,
+                        noise_std=1.0, white_back=True, **extra)
+    finals = []
+    for eager in (True, False):
+        tr, _ = _culled_trainer(rcfg, dev)
+        assert tr.all_nsurv // 1024 < tr.steps_per_epoch
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        for n in (6, 4):
+            state, m = tr.run_steps(state, 5, n, eager=eager)
+            tr.reshuffle(7 + state.step)
+        finals.append((tr, state, m))
+    (_, se, me), (tr, sg, mg) = finals
+    assert tr.captures == 1
+    for a, b in zip(tree_leaves(se.params) + tree_leaves(se.opt_state[0]),
+                    tree_leaves(sg.params) + tree_leaves(sg.opt_state[0])):
+        assert torch.equal(a, b)
+    for k in ("loss", "psnr", "lr"):
+        assert torch.equal(me[k], mg[k]), k
+    tr.tighten_store([[-1.0, -1.0, -1.0, 1.0, 1.0, 1.0]], n_seg=32,
+                     pack=True)
+    state, m = tr.run_steps(sg, 5, 2)
+    assert tr.captures == 2 and torch.isfinite(m["loss"]).all()
+
+
+def test_run_steps_graph_captures_the_plain_path(dev):
+    """The unfused autograd step (embed + nerf_apply + the plain
+    quadrature, the train CLI without --fused_train or --fused_mlp)
+    captures too: nothing on it reads back to the host (the frequency
+    bands are cached on the device; the cumprod's backward skips torch's
+    test for zeros). 3 replayed steps against 3 eager ones: the loss
+    finite and the params within 1e-5 of each leaf's largest value (cuBLAS
+    may pick another algorithm under capture)."""
+    rcfg = RenderConfig(N_samples=16, N_importance=16, perturb=1.0,
+                        noise_std=1.0, white_back=True)
+    finals = []
+    for eager in (True, False):
+        tr, _ = _culled_trainer(rcfg, dev)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        state, m = tr.run_steps(state, 5, 3, eager=eager)
+        assert torch.isfinite(m["loss"]).all()
+        finals.append((tr, state))
+    (_, se), (tr, sg) = finals
+    assert tr.captures == 1
+    for a, b in zip(tree_leaves(se.params), tree_leaves(sg.params)):
+        assert max_err(a, b) <= 1e-5 * a.abs().max().item()

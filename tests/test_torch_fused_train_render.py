@@ -55,6 +55,17 @@ from nerf_pl_tpu_torch.training.optimizers import tree_leaves, \
 GRAD_TOL = 0.03
 
 
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two intra-op threads: the steps here run thousands of small ops,
+    which more threads only slow down when the lane's other workers share
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def params():
     return _dense(0)

@@ -1,5 +1,7 @@
 #!/usr/bin/env python
-"""Where the device time of a training step goes, on one NVIDIA GPU:
+"""Where the device time of a training step goes, on one NVIDIA GPU, with
+the steps replayed from a captured CUDA graph (what `Trainer.run_steps`
+does on the card) and launched eagerly from Python, side by side:
 
     python tools/profile_train_step.py [K]
 
@@ -11,15 +13,16 @@ mlp_fwd and mlp_bwd) and fused_train without the loss-fused step (autograd
 through fused_train_render: train_fwd and train_bwd); and a fourth at
 bench's culled32 config (loss-fused, 32 + 64 samples, the store tightened
 as bench.py tightens it: the box [-1.5, 1.5]^3, margin 0.1, 32 segments,
-dilate 1, survivor-packed). After 30 warm-up steps each, 100 unprofiled
-steps per path in the order loss-fused, culled32, fused_mlp, fused_train,
-fused_train, fused_mlp, culled32, loss-fused, each timed on the host clock
-between two syncs on a parameter (ms/step, rays/s). Then
-torch.profiler over K steps (default 20) of each path: device time per
-step summed over device-side events only (a kernel also appears under the
-aten op that launched it, which is not counted), device events per step,
-peak memory, the share of each kernel launch and of the plain ops, and
-the device's idle share of each unprofiled run, 1 - device / wall.
+dilate 1, survivor-packed). After 30 warm-up steps each, eager and then
+replayed (the graph's capture among them), each path runs 100 unprofiled
+steps in the order eager, graph, graph, eager, each timed on the host
+clock between two syncs on a parameter (ms/step, rays/s). Then
+torch.profiler over K steps (default 20) of each path in each mode:
+device time per step summed over device-side events only (a kernel also
+appears under the aten op that launched it, which is not counted), device
+events per step, peak memory, the share of each kernel launch and of the
+plain ops, and the device's idle share of each unprofiled run of that
+mode, 1 - device / wall.
 """
 import os
 import subprocess
@@ -28,11 +31,11 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from nerf_pl_tpu_torch.ops import device_events, device_ms  # noqa: E402
 from nerf_pl_tpu_torch.parallel import Trainer  # noqa: E402
 from nerf_pl_tpu_torch.rendering import ModelConfig, RenderConfig  # noqa: E402
 from nerf_pl_tpu_torch.training import (get_lr_schedule,  # noqa: E402
@@ -85,6 +88,7 @@ def make_trainers(dev):
             print(f"[store] culled32: hit {st['hit_frac']:.4f}, shrink "
                   f"{st['shrink']:.4f}, expand x{st['expand']:.4f}")
         state = tr.init_state(torch.Generator().manual_seed(0))
+        state, _ = tr.run_steps(state, 1, 30, eager=True)
         state, _ = tr.run_steps(state, 1, 30)
         trainers[name] = [tr, state]
     torch.cuda.synchronize()
@@ -107,51 +111,56 @@ def main(argv=None):
                          text=True, check=True).stdout.strip())
     trainers = make_trainers(dev)
 
-    wall = {name: [] for name in trainers}
-    for name in ("loss-fused", "culled32", "fused_mlp", "fused_train",
-                 "fused_train", "fused_mlp", "culled32", "loss-fused"):
-        tr, state = trainers[name]
-        sync(state)
-        t0 = time.perf_counter()
-        state, _ = tr.run_steps(state, 1, STEPS)
-        sync(state)
-        dt = time.perf_counter() - t0
-        trainers[name][1] = state
-        wall[name].append(dt / STEPS * 1e3)
-        print(f"[time] {name}: {STEPS} steps {dt:.4f} s = "
-              f"{dt / STEPS * 1e3:.3f} ms/step, {STEPS * BATCH / dt:.1f} "
-              f"rays/s")
+    modes = {"eager": True, "graph": False}
+    wall = {(name, mode): [] for name in trainers for mode in modes}
+    for name in trainers:
+        for mode in ("eager", "graph", "graph", "eager"):
+            tr, state = trainers[name]
+            sync(state)
+            t0 = time.perf_counter()
+            state, _ = tr.run_steps(state, 1, STEPS, eager=modes[mode])
+            sync(state)
+            dt = time.perf_counter() - t0
+            trainers[name][1] = state
+            wall[name, mode].append(dt / STEPS * 1e3)
+            print(f"[time] {name} {mode}: {STEPS} steps {dt:.4f} s = "
+                  f"{dt / STEPS * 1e3:.3f} ms/step, "
+                  f"{STEPS * BATCH / dt:.1f} rays/s")
 
-    for name, (tr, state) in trainers.items():
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            state, _ = tr.run_steps(state, 1, K)
-            torch.cuda.synchronize()
-        trainers[name][1] = state
-        ka = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA"]
-        total = sum(e.self_device_time_total for e in ka) / 1e3
-        per_step = total / K
-        idle = ", ".join(f"{1 - per_step / w:.4f}" for w in wall[name])
-        print(f"[prof] {name}: {K} steps, device time {total:.3f} ms "
-              f"({per_step:.3f} ms/step), "
-              f"{sum(e.count for e in ka) / K:.1f} device events per step, "
-              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-              f" GiB; idle share of the unprofiled runs {idle}")
-        groups = {}
-        for e in ka:
-            groups[group(e.key)] = (groups.get(group(e.key), 0.0)
-                                    + e.self_device_time_total / 1e3)
-        for g, t in sorted(groups.items(), key=lambda x: -x[1]):
-            print(f"[prof] {name}: {t / K:8.4f} ms/step "
-                  f"{100 * t / total:6.2f}%  {g}")
-        for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:16]:
-            t = e.self_device_time_total / 1e3
-            print(f"[prof] {name}: {t / K:8.4f} ms/step "
-                  f"{100 * t / total:6.2f}% calls/step {e.count / K:6.1f}  "
-                  f"{e.key[:80]}")
+    for name in trainers:
+        for mode in modes:
+            profile_path(trainers, name, mode, modes[mode], K,
+                         wall[name, mode])
 
+
+def profile_path(trainers, name, mode, eager, K, wall):
+    tr, state = trainers[name]
+    torch.cuda.reset_peak_memory_stats()
+    (state, _), ka = device_events(
+        lambda: tr.run_steps(state, 1, K, eager=eager))
+    trainers[name][1] = state
+    total = device_ms(ka)
+    per_step = total / K
+    idle = ", ".join(f"{1 - per_step / w:.4f}" for w in wall)
+    tag = f"{name} {mode}"
+    print(f"[prof] {tag}: {K} steps, device time {total:.3f} ms "
+          f"({per_step:.3f} ms/step), "
+          f"{sum(e.count for e in ka) / K:.1f} device events per step, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; wall ms/step of the unprofiled runs "
+          f"{', '.join(f'{w:.3f}' for w in wall)}; idle share {idle}")
+    groups = {}
+    for e in ka:
+        groups[group(e.key)] = (groups.get(group(e.key), 0.0)
+                                + e.self_device_time_total / 1e3)
+    for g, t in sorted(groups.items(), key=lambda x: -x[1]):
+        print(f"[prof] {tag}: {t / K:8.4f} ms/step "
+              f"{100 * t / total:6.2f}%  {g}")
+    for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:16]:
+        t = e.self_device_time_total / 1e3
+        print(f"[prof] {tag}: {t / K:8.4f} ms/step "
+              f"{100 * t / total:6.2f}% calls/step {e.count / K:6.1f}  "
+              f"{e.key[:80]}")
 
 if __name__ == "__main__":
     main()
