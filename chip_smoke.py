@@ -117,6 +117,20 @@
    culled stack (--occ_grid --occ_mode weight --occ_tighten --occ_budgets
    --occ_segments 32) twice, the first building the grid and the second
    loading it, past 20 dB, and --occ_grid alone within 0.05 dB of dense.
+   Then mesh extraction on that checkpoint ([mesh]; the plain f32 MLP, no
+   kernel, as in the JAX package): the mesh CLI at N_grid 256 over +-1.3
+   at --sigma_threshold MESH_SIGMA, in a process of its own, with the
+   default fusion and --export_vol, and with --use_vertex_normal
+   --mesh_format dae: each mesh read back with triangles, finite vertices
+   and colours, its median vertex radius in [0.8, 1.2], the .vol
+   non-empty. In-process on the card, each timed from a sync to a sync:
+   make_grid and query_grid (16.8 M points), marching cubes + the largest
+   cluster, the fusion over the 12 views (and one view's occlusion render
+   alone) and the vertex-normal render at 64 + 64; none of the eight
+   kernels may launch. Card against CPU at N_grid 64: sigma within 1e-4
+   of max(1, max |sigma|), the same triangles with vertices within 0.01
+   cells, and occlusion opacity on 2048 vertex rays of one view within
+   1e-3 (flips at 0.2 printed).
    Then the same train recipe with --fused_train,
    dense and with the culled stack (--occ_train --occ_warmup_epochs 2
    --occ_refresh_epochs 2 --occ_segments 32 --occ_dilate 1 --occ_pack
@@ -194,8 +208,16 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from nerf_pl_tpu_torch.datasets import dataset_dict  # noqa: E402
 from nerf_pl_tpu_torch.datasets.rays import frame_rays, sphere_pose  # noqa: E402
 from nerf_pl_tpu_torch.eval import load_params  # noqa: E402
+from nerf_pl_tpu_torch.mesh.dae import read_dae  # noqa: E402
+from nerf_pl_tpu_torch.mesh.extract import (  # noqa: E402
+    compute_vertex_normals, fuse_colors_by_projection, grid_to_world,
+    make_grid, occlusion_opacity, query_grid)
+from nerf_pl_tpu_torch.mesh.native import (keep_largest_cluster,  # noqa: E402
+                                           marching_cubes)
+from nerf_pl_tpu_torch.mesh.ply import read_ply  # noqa: E402
 from nerf_pl_tpu_torch.models import (init_nerf_params,  # noqa: E402
                                       params_from_numpy)
 from nerf_pl_tpu_torch.ops import _build  # noqa: E402
@@ -210,7 +232,7 @@ from nerf_pl_tpu_torch.parallel.spmd import _StepGraph, seed_for  # noqa: E402
 from nerf_pl_tpu_torch.rendering import (CulledRenderer,  # noqa: E402
                                          ModelConfig, RenderConfig,
                                          TrainDraws, load_or_build_grid,
-                                         render_rays)
+                                         render_rays, render_rays_chunked)
 from nerf_pl_tpu_torch.rendering import render as rr  # noqa: E402
 from nerf_pl_tpu_torch.rendering.occupancy import (  # noqa: E402
     build_occupancy_grid, pick_block, ray_box_hits, rays_aabb,
@@ -1745,6 +1767,193 @@ def culled_cli_path():
     return psnr
 
 
+
+MESH_N = 256             # the mesh CLI's default --N_grid
+MESH_RANGE = ("-1.3", "1.3")   # the synthetic sphere: radius 1, at 0
+# --sigma_threshold. The train CLI's 40x40 checkpoint peaks near sigma 7.5
+# (mesh_path prints it), so the CLI's default of 20 finds no surface; at
+# 1.0 the largest cluster is the shell at the sphere, while at 2 and above
+# it takes in the fog inside the sphere, with several times the vertices.
+MESH_SIGMA = 1.0
+MESH_RADIUS = (0.8, 1.2)       # the median vertex radius must lie here
+MESH_CPU_N = 64          # card against CPU: the sigma grid's N
+MESH_CPU_RAYS = 2048     # and the occlusion rays of one view
+MESH_SIGMA_TOL = 1e-4    # |sigma card - CPU| over max(1, max |sigma|)
+MESH_VERTEX_TOL = 1e-2   # a marching-cubes vertex, in grid cells
+MESH_OPACITY_TOL = 1e-3
+MESH_OCC = 0.2           # the CLI's default --occ_threshold
+
+
+def check_mesh_file(path, reader):
+    """(vertices, triangles, colours) of a mesh the CLI wrote, held to:
+    triangles present, finite vertices, colours present, and the median
+    vertex radius within MESH_RADIUS."""
+    v, t, c = reader(path)
+    r = float(np.median(np.linalg.norm(v, axis=1))) if len(v) else 0.0
+    print(f"[mesh] {os.path.basename(path)}: {len(v)} vertices, {len(t)} "
+          f"triangles, median vertex radius {r:.4f} (bar {MESH_RADIUS})")
+    if not (len(t) and np.isfinite(v).all() and c is not None
+            and len(c) == len(v)):
+        raise AssertionError(f"{path}: {len(t)} triangles, finite "
+                             f"{np.isfinite(v).all()}, colours "
+                             f"{None if c is None else c.shape}")
+    if not MESH_RADIUS[0] <= r <= MESH_RADIUS[1]:
+        raise AssertionError(f"{path}: median vertex radius {r}")
+    return v, t, c
+
+
+def mesh_cli_path(work, ckpt):
+    """The mesh CLI on the card, in a process of its own, on `ckpt` and
+    work/scene at N_grid MESH_N over +-1.3: the default fusion with
+    --export_vol, then --use_vertex_normal --mesh_format dae. Each output
+    read back (check_mesh_file) and the .vol non-empty."""
+    os.makedirs(os.path.join(work, "mesh"), exist_ok=True)
+    base = ["-m", "nerf_pl_tpu_torch.extract_color_mesh", "--root_dir",
+            "scene", "--dataset_name", "blender", "--img_wh", "40", "40",
+            "--ckpt_path", ckpt, "--N_grid", str(MESH_N),
+            "--x_range", *MESH_RANGE, "--y_range", *MESH_RANGE,
+            "--z_range", *MESH_RANGE, "--sigma_threshold", str(MESH_SIGMA),
+            "--out_dir", "mesh"]
+    for name, extra, ext, reader in (
+            ("fused", ["--export_vol"], "ply", read_ply),
+            ("normal", ["--use_vertex_normal", "--mesh_format", "dae"],
+             "dae", read_dae)):
+        out, secs = run_cli(base + ["--scene_name", name, *extra],
+                            f"mesh CLI {name}", work)
+        said = re.search(r"^Mesh has .*$", out, re.M)
+        print(f"[mesh] CLI {' '.join(extra) or '(fusion)'}, {secs:.1f} s: "
+              f"{said.group(0) if said else out[-500:]}")
+        check_mesh_file(os.path.join(work, "mesh", f"{name}.{ext}"), reader)
+    vol = os.path.getsize(os.path.join(work, "mesh", "fused.vol"))
+    print(f"[mesh] fused.vol: {vol} bytes ({vol // 8} voxels)")
+    if vol == 0:
+        raise AssertionError("mesh CLI --export_vol wrote an empty .vol")
+
+
+def vertex_rays(vertices, pose, near):
+    """fuse_colors_by_projection's camera -> vertex rays of one view (far
+    at the vertex's camera depth)."""
+    homo = np.concatenate([vertices, np.ones((len(vertices), 1))], 1)
+    w2c = np.linalg.inv(np.concatenate([pose, [[0, 0, 0, 1.0]]], 0))[:3]
+    depth = -(w2c[2] @ homo.T)[:, None] + 1e-5
+    o = np.broadcast_to(pose[:, -1], vertices.shape).astype(np.float32)
+    d = vertices - o
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return np.concatenate([o, d, np.full((len(o), 1), near, np.float32),
+                           depth.astype(np.float32)], 1)
+
+
+def mesh_path(dev, work, ckpt, smi):
+    """The mesh pipeline's phases in-process on the card, each timed from
+    a sync to a sync: the sigma grid at MESH_N (make_grid on the host,
+    then query_grid), marching cubes + keep_largest_cluster, the fusion
+    over the scene's 12 views (and one view's occlusion render alone),
+    and the vertex-normal render (coarse + fine at test time). No kernel
+    of the eight launches (the path is the plain f32 MLP, as in the JAX
+    package). Then card against CPU: query_grid on the card and on a CPU
+    copy of the weights at MESH_CPU_N (sigma within MESH_SIGMA_TOL of
+    max(1, max |sigma|)), marching cubes on both grids (the same triangles,
+    vertices within MESH_VERTEX_TOL cells) and occlusion_opacity on
+    MESH_CPU_RAYS vertex rays of view 0 (within MESH_OPACITY_TOL; the
+    vertices whose opacity < MESH_OCC flips printed)."""
+    cpu = load_params(ckpt)
+    params = {k: params_from_numpy(v, dev) for k, v in cpu.items()}
+    fine = params["nerf_fine"]
+    mcfg = ModelConfig()
+    rng = tuple(map(float, MESH_RANGE))
+    dataset = dataset_dict["blender"](root_dir=os.path.join(work, "scene"),
+                                      img_wh=(40, 40), split="train")
+    n_views = len(dataset.image_paths)
+
+    reset_counts()
+    xyz, t_grid = sync_secs(lambda: make_grid(MESH_N, rng, rng, rng))
+    sigma, t_query = sync_secs(lambda: query_grid(fine, xyz, mcfg, CHUNK))
+    sigma = np.maximum(sigma, 0).reshape(MESH_N, MESH_N, MESH_N)
+    print(f"[mesh] sigma over the grid: 99th percentile "
+          f"{np.percentile(sigma, 99):.3f}, max {sigma.max():.3f}; "
+          f"{100 * (sigma > MESH_SIGMA).mean():.2f}% of points above "
+          f"{MESH_SIGMA}")
+    (v, t), t_mc = sync_secs(lambda: keep_largest_cluster(
+        *marching_cubes(sigma, MESH_SIGMA)))
+    if not len(t):
+        raise AssertionError(f"[mesh] no surface at sigma {MESH_SIGMA} "
+                             f"(max sigma {sigma.max()})")
+    g = np.linspace(rng[0], rng[1], MESH_N, dtype=np.float32)
+    ball = 1.0 - np.sqrt(sum(np.square(a) for a in np.meshgrid(
+        g, g, g, indexing="ij", sparse=True)))
+    print(f"[mesh] an analytic unit sphere on the same grid: "
+          f"{len(marching_cubes(ball, 0.0)[0])} vertices")
+    vw = grid_to_world(v, MESH_N, rng, rng, rng)
+    colors, t_fuse = sync_secs(lambda: fuse_colors_by_projection(
+        fine, vw, dataset, (40, 40), N_SAMPLES, CHUNK, MESH_OCC, mcfg,
+        progress=False))
+    rays0 = vertex_rays(vw, dataset.poses[0], dataset.bounds.min())
+    _, t_occ = sync_secs(lambda: occlusion_opacity(fine, rays0, N_SAMPLES,
+                                                   CHUNK, mcfg))
+    normals = compute_vertex_normals(vw, t)
+    near = np.full((len(vw), 1), dataset.bounds.min(), np.float32)
+    nrays = np.concatenate([vw - normals * near, normals, near,
+                            np.full_like(near, dataset.bounds.max())],
+                           1).astype(np.float32)
+    rcfg = RenderConfig(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+                        white_back=True, test_time=True)
+
+    def normal_render():
+        with torch.no_grad():
+            return render_rays_chunked(params, torch.from_numpy(nrays).to(
+                dev), rcfg, mcfg, chunk=CHUNK)["rgb_fine"]
+    rgb, t_normal = sync_secs(normal_render)
+    counts = read_counts()
+    print(f"[mesh] N_grid {MESH_N} ({MESH_N ** 3} points), {len(v)} "
+          f"vertices, {len(t)} triangles; make_grid {t_grid:.3f} s, "
+          f"query_grid {t_query:.3f} s, marching cubes + largest cluster "
+          f"{t_mc:.3f} s, fusion over {n_views} views {t_fuse:.3f} s "
+          f"({t_fuse / n_views:.3f} s a view; one view's occlusion render "
+          f"alone {t_occ:.3f} s), vertex-normal render at {N_SAMPLES}+"
+          f"{N_IMPORTANCE} {t_normal:.3f} s; {smi}")
+    if not (colors.shape == vw.shape and torch.isfinite(rgb).all()):
+        raise AssertionError(f"[mesh] colours {colors.shape} of {vw.shape} "
+                             f"vertices, finite normal-render rgb "
+                             f"{bool(torch.isfinite(rgb).all())}")
+    if any(counts.values()):
+        raise AssertionError(f"[mesh] the plain f32 path launched kernels: "
+                             f"{counts}")
+
+    xyz = make_grid(MESH_CPU_N, rng, rng, rng)
+    fine_cpu = params_from_numpy(cpu["nerf_fine"], "cpu")
+    s_card = query_grid(fine, xyz, mcfg, CHUNK)
+    s_cpu = query_grid(fine_cpu, xyz, mcfg, CHUNK)
+    err = float(np.abs(s_card - s_cpu).max())
+    scale = max(1.0, float(np.abs(s_cpu).max()))
+    (vc, tc), (vh, th) = (marching_cubes(np.maximum(s, 0).reshape(
+        (MESH_CPU_N,) * 3), MESH_SIGMA) for s in (s_card, s_cpu))
+    same = len(vc) == len(vh) and np.array_equal(tc, th)
+    verr = float(np.abs(vc - vh).max()) if same and len(vc) else None
+    vw = grid_to_world(vh, MESH_CPU_N, rng, rng, rng)[:MESH_CPU_RAYS]
+    rays0 = vertex_rays(vw, dataset.poses[0], dataset.bounds.min())
+    op_card, op_cpu = (np.nan_to_num(occlusion_opacity(
+        p, rays0, N_SAMPLES, CHUNK, mcfg), nan=1.0)
+        for p in (fine, fine_cpu))
+    operr = float(np.abs(op_card - op_cpu).max())
+    flips = int(((op_card < MESH_OCC) != (op_cpu < MESH_OCC)).sum())
+    print(f"[mesh] card against CPU at N_grid {MESH_CPU_N}: sigma max abs "
+          f"diff {err:.3e} (max |sigma| {scale:.2f}, bar "
+          f"{MESH_SIGMA_TOL} x that); triangles {len(tc)} and {len(th)}, "
+          f"identical {same}, vertex max diff {verr} cells (bar "
+          f"{MESH_VERTEX_TOL}); opacity on {len(rays0)} vertex rays of view "
+          f"0: max abs diff {operr:.3e} (bar {MESH_OPACITY_TOL}), "
+          f"{flips} flips at opacity < {MESH_OCC}")
+    if not err <= MESH_SIGMA_TOL * scale:
+        raise AssertionError(f"[mesh] sigma card against CPU: {err}")
+    if not (same and len(tc) and verr <= MESH_VERTEX_TOL):
+        raise AssertionError(f"[mesh] marching cubes card against CPU: "
+                             f"{len(tc)} and {len(th)} triangles, vertex "
+                             f"diff {verr}")
+    if not operr <= MESH_OPACITY_TOL:
+        raise AssertionError(f"[mesh] occlusion opacity card against CPU: "
+                             f"{operr}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1812,6 +2021,8 @@ def main():
         ckpt = train_cli_path(work)
         culled_launches = culled_path(dev, ckpt)
         eval_cli_path(work, ckpt)
+        mesh_cli_path(work, ckpt)
+        mesh_path(dev, work, ckpt, smi)
     for k, n in culled_launches.items():
         launches[k] += n
     culled_cli_path()

@@ -28,7 +28,13 @@ two-kernel fused training render (`RenderConfig(fused_train=True)`):
                sgd/adam, PSNR / SSIM, NeRFSystem
   datasets   — blender and llff scenes (numpy), camera rays and sphere
                poses in torch
-  utils      — synthetic scenes, depth visualisation, a phase timer
+  mesh       — the σ grid and occlusion renders (plain f32 MLP), marching
+               tetrahedra and clustering (native C++, built with g++),
+               colour fusion, PLY / COLLADA / .vol export
+  utils      — synthetic scenes (the sphere and the hard scene), depth
+               visualisation, a phase timer
   config     — the train CLI's flags (Hparams, validate_hparams, get_opts)
-  eval, train — the CLIs (python -m nerf_pl_tpu_torch.eval / .train)
+  eval, train, render_image, bench_render, extract_color_mesh,
+  preview_bounds, save_weights_only, make_hard_datasets, northstar
+             — the CLIs (python -m nerf_pl_tpu_torch.<name>)
 """

@@ -1,5 +1,6 @@
-"""Checkpoints: full train-state save and resume, top-k retention, and
-partial (prefix-filtered) loads of one model's params.
+"""Checkpoints: full train-state save and resume, top-k retention,
+partial (prefix-filtered) loads of one model's params, and the
+weights-only export.
 
 Port of nerf_pl_tpu/training/checkpoints.py, with its file format: one .npz
 with every leaf under a '/'-joined key path ("params/{model}/{layer}/{w|b}",
@@ -178,6 +179,21 @@ def load_ckpt(params: Dict[str, Any], ckpt_path: str,
     out[model_name] = target
     return out
 
+
+
+def save_weights_only(src_ckpt: str, dst_path: str):
+    """Strip a full checkpoint to bare model weights (~5 MB portable scene):
+    its "params/{model}/..." leaves as "{model}/..." (the JAX package's
+    weights-only format, which load_ckpt reads in both packages)."""
+    with np.load(src_ckpt) as z:
+        flat = {}
+        for k in z.files:
+            if k.startswith("params/"):
+                flat[k[len("params/"):]] = z[k]
+    if not flat:
+        raise ValueError(f"{src_ckpt!r} contains no params/ leaves")
+    with open(dst_path, "wb") as f:
+        np.savez(f, **flat)
 
 class TopKCheckpoints:
     """Keep the k best checkpoints by a monitored value (lower is better).

@@ -7,9 +7,17 @@
   * BlenderDataset and LLFFDataset on those scenes: all_rays and all_rgbs
     of the train split, and every val item's rays and rgbs, bit-identical;
   * the ray, pose and depth utilities, visualize_depth and PhaseTimer on
-    seeded inputs.
+    seeded inputs;
+  * the parsers of the mesh CLI and of the script modules
+    (extract_color_mesh.get_opts, scripts/preview_bounds.py's get_opts,
+    and the parsers that scripts/save_weights_only.py,
+    make_hard_datasets.py and northstar.py build in main): every option
+    string, dest and default equal;
+  * the mesh pipeline's numpy helpers (make_grid, grid_to_world,
+    bilinear_sample, compute_vertex_normals) bit for bit on seeded inputs.
 """
 import argparse
+import importlib
 import os
 import warnings
 
@@ -23,30 +31,38 @@ from nerf_pl_tpu.datasets import pose_utils as jpose
 from nerf_pl_tpu.datasets import ray_utils as jray
 from nerf_pl_tpu.utils import synthetic as jsyn
 from nerf_pl_tpu.utils.profiling import PhaseTimer as JPhaseTimer
+from nerf_pl_tpu.mesh import extract as jext
 from nerf_pl_tpu.utils.visualization import visualize_depth as jvis
 from nerf_pl_tpu_torch import config as tconfig
 from nerf_pl_tpu_torch.datasets import dataset_dict as tdatasets
 from nerf_pl_tpu_torch.datasets import depth_utils as tdepth
 from nerf_pl_tpu_torch.datasets import pose_utils as tpose
 from nerf_pl_tpu_torch.datasets import ray_utils as tray
+from nerf_pl_tpu_torch.mesh import extract as text
 from nerf_pl_tpu_torch.utils import synthetic as tsyn
 from nerf_pl_tpu_torch.utils.profiling import PhaseTimer as TPhaseTimer
 from nerf_pl_tpu_torch.utils.visualization import visualize_depth as tvis
+from test_torch_mesh_cli import _script, jmesh_cli
 
 
 class _Parsed(Exception):
     pass
 
 
-def _parser_of(get_opts, monkeypatch):
-    """The ArgumentParser that get_opts builds, caught at parse_args."""
+def _parser_built_by(call, monkeypatch):
+    """The ArgumentParser that call() builds, caught at parse_args."""
     def catch(self, *a, **k):
         raise _Parsed(self)
     with monkeypatch.context() as m:
         m.setattr(argparse.ArgumentParser, "parse_args", catch)
         with pytest.raises(_Parsed) as e:
-            get_opts([])
+            call()
     return e.value.args[0]
+
+
+def _parser_of(get_opts, monkeypatch):
+    """The ArgumentParser that get_opts builds."""
+    return _parser_built_by(lambda: get_opts([]), monkeypatch)
 
 
 def test_parser_flags_and_defaults_match(monkeypatch):
@@ -192,3 +208,67 @@ def test_depth_io_visualization_and_timer_match(rng, tmp_path):
         with t.phase("a"):
             pass
     assert [dict(t.counts) for t in timers] == [{"a": 1}, {"a": 1}]
+
+
+def _jax_get_opts(name):
+    """A call that builds the JAX side's parser: get_opts where there is
+    one, else the script's main (save_weights_only, make_hard_datasets and
+    northstar build their parsers there)."""
+    if name == "extract_color_mesh":
+        return lambda: jmesh_cli.get_opts([])
+    mod = _script(name)
+    if hasattr(mod, "get_opts"):
+        return lambda: mod.get_opts([])
+    return mod.main
+
+
+def _port_get_opts(name):
+    mod = importlib.import_module(f"nerf_pl_tpu_torch.{name}")
+    if hasattr(mod, "get_opts"):
+        return lambda: mod.get_opts([])
+    return lambda: mod.main([])
+
+
+SCRIPTS = ["extract_color_mesh", "preview_bounds", "save_weights_only",
+           "make_hard_datasets", "northstar"]
+
+
+@pytest.mark.parametrize("name", SCRIPTS)
+def test_script_parsers_match(name, monkeypatch):
+    ours = _parser_built_by(_port_get_opts(name), monkeypatch)._actions
+    ref = _parser_built_by(_jax_get_opts(name), monkeypatch)._actions
+    assert len(ours) == len(ref) > 2
+    for a, b in zip(ours, ref):
+        da, db = a.default, b.default
+        if a.dest == "out" and name == "make_hard_datasets":
+            # <module dir>/../data, from scripts/ and the package alike
+            da, db = os.path.abspath(da), os.path.abspath(db)
+        assert (a.option_strings, a.dest, da, a.nargs, a.type, a.choices,
+                a.required) == (b.option_strings, b.dest, db, b.nargs,
+                                b.type, b.choices, b.required), b.dest
+
+
+def _helper_cases(rng):
+    verts = rng.uniform(0, 12, (50, 3)).astype(np.float32)
+    tris = rng.integers(0, 50, (80, 3)).astype(np.int32)
+    image = rng.integers(0, 256, (9, 11, 3)).astype(np.uint8)
+    uv = rng.uniform(-2, 13, (200, 2))
+    return {
+        "make_grid": ("make_grid", (7, (-1.0, 1.0), (-2.0, 0.5),
+                                    (0.0, 3.0))),
+        "grid_to_world": ("grid_to_world", (verts, 12, (-1.0, 1.0),
+                                            (-2.0, 0.5), (0.0, 3.0))),
+        "bilinear_sample": ("bilinear_sample", (image, uv)),
+        "compute_vertex_normals": ("compute_vertex_normals",
+                                   (verts, tris)),
+    }
+
+
+@pytest.mark.parametrize("case", ["make_grid", "grid_to_world",
+                                  "bilinear_sample",
+                                  "compute_vertex_normals"])
+def test_mesh_numpy_helpers_match(case, rng):
+    fn, args = _helper_cases(rng)[case]
+    ours, ref = getattr(text, fn)(*args), getattr(jext, fn)(*args)
+    assert ours.dtype == ref.dtype and ours.shape == ref.shape
+    assert np.array_equal(ours, ref)

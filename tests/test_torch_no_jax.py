@@ -39,7 +39,10 @@ def test_port_imports_no_jax_and_no_pil():
                  "datasets.synthetic", "datasets.blender", "datasets.llff",
                  "parallel.spmd", "training.system", "training.optimizers",
                  "training.lr_schedule", "training.losses", "device",
-                 "config", "utils.synthetic", "eval", "train"):
+                 "config", "utils.synthetic", "eval", "train", "mesh",
+                 "mesh.native", "mesh.extract", "extract_color_mesh",
+                 "preview_bounds", "save_weights_only",
+                 "make_hard_datasets", "northstar"):
         assert f"nerf_pl_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
