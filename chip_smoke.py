@@ -179,6 +179,25 @@
    loss-fused steps each, must descend (masters still bf16), and in a
    process of its own a step that reads a value back to the host under
    capture must make run_steps raise, not fall back to eager steps.
+   Data parallel ([dp], after the descent runs): two ranks share cuda:0
+   over gloo (the kernels built once, before they start): the dry run's
+   five phases (python -m nerf_pl_tpu_torch.dryrun_multichip 2 --device
+   cuda); 20 eager loss-fused steps at the dense bench config (global
+   batch 1024, 512 a rank), each step's all-reduced gradients held
+   against the sum of the two shards' one-process kernel gradients (bit
+   for bit expected; else each leaf within GRAD_TOL of its largest sum
+   of |terms|, the gap printed), 2 mse_render launches a step a rank, the
+   params and losses of both ranks bit for bit at the end; a 400x400
+   frame at 64 + 64 rendered sharded, dense (chunk 32768) and culled
+   (tighten, budgets, 32 segments, base tile 8192, the box of bench's
+   culled recipes), one sigma_render and one render_eval launch a tile a
+   rank, against one process's render (bit for bit expected, else within
+   the kernel bars; the culled on the rays that hit the box, with the
+   same survivors). Then one rank in an NCCL group: its replayed graph,
+   the all-reduce captured in it, bit for bit the no-group graph's over
+   an epoch, its reshuffle and 12 steps more, one capture each, and 100
+   replayed steps of each timed in turns. Two ranks on one card say
+   nothing of scaling; the wall times printed are labelled so.
 10. Prints one JSON line about the kernels (each with its launches on its
    paths, sigma_render's and render_eval's on the eval path and the
    [culled] ladder together, its error, its ms and its plain version's at
@@ -195,6 +214,7 @@ import contextlib
 import dataclasses
 import glob
 import json
+import math
 import os
 import re
 import statistics
@@ -227,10 +247,13 @@ from nerf_pl_tpu_torch.ops import (add_launches, by_symbol,  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_mlp as fm  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_render as fr  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_train as ft  # noqa: E402
+from nerf_pl_tpu_torch import dist as pdist  # noqa: E402
+from nerf_pl_tpu_torch import dryrun_multichip  # noqa: E402
 from nerf_pl_tpu_torch.parallel import Trainer, make_render_fn  # noqa: E402
 from nerf_pl_tpu_torch.parallel.spmd import _StepGraph, seed_for  # noqa: E402
 from nerf_pl_tpu_torch.rendering import (CulledRenderer,  # noqa: E402
-                                         ModelConfig, RenderConfig,
+                                         ModelConfig, OccupancyGrid,
+                                         RenderConfig,
                                          TrainDraws, load_or_build_grid,
                                          render_rays, render_rays_chunked)
 from nerf_pl_tpu_torch.rendering import render as rr  # noqa: E402
@@ -241,6 +264,7 @@ from nerf_pl_tpu_torch.training import (get_lr_schedule,  # noqa: E402
                                         get_optimizer, loss_dict)
 from nerf_pl_tpu_torch.training.checkpoints import load_ckpt  # noqa: E402
 from nerf_pl_tpu_torch.training.optimizers import tree_leaves  # noqa: E402
+from nerf_pl_tpu_torch.utils.profiling import cuda_event_ms  # noqa: E402
 
 TOL = {"weights": 5e-3, "rgb": 1e-2, "opacity": 1e-2, "depth": 5e-2}
 MAIN_PATH_TOL = 2e-2
@@ -323,19 +347,7 @@ def rays_z(R, S, device, seed):
 
 
 def median_ms(fn, reps=10, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(cuda_event_ms(fn, reps, warmup))
 
 
 def max_err(a, b):
@@ -934,6 +946,254 @@ def descent_path(dev, store):
             raise AssertionError(f"{name}: master dtypes {dtypes}")
         del tr, state
         torch.cuda.empty_cache()
+
+
+DP_WORLD = 2             # ranks of the [dp] phase, both on cuda:0 (gloo)
+DP_STEPS = 20            # eager loss-fused steps, each held against 1 rank
+DP_CULLED = dict(tighten=True, budgets=True, segments=32)
+
+
+def flat_leaves(tree):
+    return torch.cat([t.reshape(-1).float() for t in tree_leaves(tree)])
+
+
+def dp_trainer(dev, group):
+    """A loss-fused Trainer at the dense bench config over `group`."""
+    sched = get_lr_schedule("steplr", 5e-4, 16, 1000, decay_step=[2, 4, 8],
+                            decay_gamma=0.5)
+    rcfg = RenderConfig(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+                        perturb=1.0, noise_std=1.0, white_back=True,
+                        fused_train=True, fused_loss=True)
+    return Trainer(ModelConfig(), rcfg, get_optimizer("adam", sched), sched,
+                   loss_dict["mse"], TRAIN_BATCH, dev, group=group)
+
+
+def dp_frame_rays(dev):
+    focal = 0.5 * 800 / np.tan(0.5 * CAMERA_ANGLE_X) * IMG / 800
+    return frame_rays(sphere_pose(0.3, np.pi / 5, 4.0), IMG, IMG, focal, 2.0,
+                      6.0, dev)
+
+
+def dp_renders(dev, group):
+    """One 400x400 frame of the teacher at 64 + 64 (fused, test time)
+    through make_render_fn and the culled renderer (tighten, budgets, 32
+    segments, base tile 8192; the box of bench's culled recipes as its
+    grid), over `group`: (dense outputs, culled outputs, culled stats,
+    tiles this rank renders of each)."""
+    teacher = {"nerf_coarse": dense_params(TEACHER_SEEDS[0], dev),
+               "nerf_fine": dense_params(TEACHER_SEEDS[1], dev)}
+    rays = dp_frame_rays(dev)
+    rcfg = RenderConfig(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+                        test_time=True, white_back=True, fused=True)
+    world = pdist.world_of(group)
+    dense = make_render_fn(rcfg, CHUNK, dev, device_out=True,
+                           group=group)(teacher, rays)
+    box = np.asarray(CULLED_TIGHTEN["boxes"], np.float32)
+    occ = OccupancyGrid(boxes=box, block_map=np.ones((1, 1, 1), np.uint8),
+                        lo=box[0, :3], hi=box[0, 3:])
+    cr = CulledRenderer(occ, rcfg, ModelConfig(), chunk=CULLED_TILE,
+                        device=dev, group=group, **DP_CULLED)
+    culled, stats = cr(teacher, rays, return_stats=True)
+    plan = cr._tile_plan(len(rays), stats["bucket_counts"])
+    tiles = {"dense": -(-len(rays) // (world * CHUNK)),
+             "culled": sum(p[2] for p in plan) // world}
+    return dense, culled, stats, tiles
+
+
+def dp_rank(group, dev, rays, rgbs):
+    """One rank of the [dp] phase (spawned by dist.launch). DP_STEPS
+    eager loss-fused steps of the global batch; before each, the step's
+    all-reduced gradients against the sum of the ranks' own kernel
+    gradients on their shards, with no collective (gathered to every
+    rank), each leaf's gap relative to its largest sum of |terms| (the
+    two shards' gradients). Then the sharded renders of dp_renders."""
+    tr = dp_trainer(dev, group)
+    tr.set_data(rays, rgbs)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    checks, launches, losses = [], 0, []
+    t_steps = 0.0
+    for s in range(DP_STEPS):
+        batch = tr._sample_batch(s)
+        draws = tr.step_draws(TRAIN_SEED, s)
+        g_dp = tree_leaves(tr._loss_and_grads(state.params, *batch, None,
+                                              draws)[2])
+        g_one = tree_leaves(rr.fused_mse_train_step(
+            state.params, *batch, tr.rcfg_train, TRAIN_BATCH,
+            draws=draws)[2])
+        ones = pdist.gather_rows({i: g[None] for i, g in enumerate(g_one)},
+                                 group)
+        gaps, rels = [], []
+        for i, g in enumerate(g_dp):
+            gap = (g.float() - ones[i].sum(0).float()).abs().max().item()
+            terms = ones[i].float().abs().sum(0).max().item()
+            gaps.append(gap)
+            rel = gap / terms if terms > 0 else (0.0 if gap == 0 else
+                                                 math.inf)
+            rels.append(rel if rel == rel else math.inf)    # NaN: off
+        checks.append((max(rels) == 0.0, max(gaps), max(rels)))
+        before = ft.mse_render_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = tr.run_steps(state, TRAIN_SEED, 1, eager=True)
+        losses.append(float(m["loss"][0]))
+        t_steps += time.perf_counter() - t0
+        launches += ft.mse_render_launches - before
+    reset_counts()
+    dense, culled, stats, tiles = dp_renders(dev, group)
+    counts = read_counts()
+    return {"checks": checks, "mse_render": launches, "losses": losses,
+            "params": flat_leaves(state.params).cpu(), "step_s": t_steps,
+            "dense": {k: v.cpu() for k, v in dense.items()},
+            "culled": {k: v.cpu() for k, v in culled.items()},
+            "stats": stats, "tiles": tiles,
+            "render_launches": {k: counts[k] for k in ("sigma_render",
+                                                       "render_eval")}}
+
+
+def dp_check_render(what, got, ref, rows=None):
+    """got against ref on rows (all by default): bit for bit expected,
+    else within the kernels' bars, the max difference printed."""
+    errs = {}
+    for k, v in ref.items():
+        a, b = got[k], v.cpu()
+        if rows is not None:
+            a, b = a[rows], b[rows]
+        errs[k] = (torch.equal(a, b), max_err(a, b))
+    print(f"[dp] {what}, 2 ranks against one process: " + ", ".join(
+        f"{k} {'bit for bit' if same else f'max diff {e:.3e}'}"
+        for k, (same, e) in errs.items()))
+    for k, (same, e) in errs.items():
+        bar = TOL[k.split("_")[0]]
+        if not same and not e <= bar:
+            raise AssertionError(f"[dp] {what} {k}: {e} > {bar}")
+
+
+def dp_path(dev, store, smi):
+    """Data parallel on the card ([dp]). Two ranks share cuda:0 over gloo
+    (NCCL takes one rank a card), built once here: the dry run's phases
+    (dryrun_multichip 2 --device cuda); DP_STEPS eager loss-fused steps at
+    the dense bench config (global batch 1024, 512 a rank), each step's
+    gradients held against the sum of the two shards' one-process kernel
+    gradients (bit for bit expected; else each leaf within GRAD_TOL of
+    its largest sum of |terms|, the gap printed) and the params equal on both ranks at
+    the end; a 400x400 frame rendered sharded, dense and culled, against
+    one process's render of it (dp_check_render; the culled on the rays
+    that hit its box). Then one rank in an NCCL group on cuda:0: its
+    replayed graph, the all-reduce captured in it, bit for bit the
+    no-group graph's over GRAPH_SEGMENTS steps, one capture each. Two
+    ranks on one card say nothing of scaling: the wall times printed are
+    of this arrangement only."""
+    t0 = time.perf_counter()
+    dryrun_multichip.main([str(DP_WORLD), "--device", "cuda"])
+    t_dry = time.perf_counter() - t0
+    rays, rgbs = (t[:GRAPH_EPOCH * TRAIN_BATCH].cpu().numpy() for t in store)
+    t0 = time.perf_counter()
+    res = pdist.launch(dp_rank, DP_WORLD, rays, rgbs, device="cuda",
+                       timeout=600)
+    t_launch = time.perf_counter() - t0
+    for r, out in enumerate(res):
+        same = sum(c[0] for c in out["checks"])
+        worst = max(c[2] for c in out["checks"])
+        print(f"[dp] rank {r}: {DP_STEPS} eager loss-fused steps, "
+              f"all-reduced gradients bit for bit the sum of the shards' "
+              f"one-process kernel gradients on {same}/{DP_STEPS} steps "
+              f"(largest gap {max(c[1] for c in out['checks']):.3e}, "
+              f"{worst:.3e} of its leaf's largest sum of |terms|); launches "
+              f"mse_render {out['mse_render']} ({out['mse_render'] / DP_STEPS}"
+              f" a step), sigma_render "
+              f"{out['render_launches']['sigma_render']} and render_eval "
+              f"{out['render_launches']['render_eval']} for "
+              f"{out['tiles']['dense']} dense + {out['tiles']['culled']} "
+              f"culled tiles; loss {out['losses'][0]:.5f} -> "
+              f"{out['losses'][-1]:.5f}")
+        if not worst <= GRAD_TOL:
+            raise AssertionError(f"[dp] rank {r}: gradients {worst} off")
+        if out["mse_render"] != 2 * DP_STEPS:
+            raise AssertionError(f"[dp] rank {r}: {out['mse_render']} "
+                                 f"mse_render launches")
+        n_tiles = out["tiles"]["dense"] + out["tiles"]["culled"]
+        if out["render_launches"] != {"sigma_render": n_tiles,
+                                      "render_eval": n_tiles}:
+            raise AssertionError(f"[dp] rank {r}: render launches "
+                                 f"{out['render_launches']}, {n_tiles} tiles")
+        if not np.isfinite(out["losses"]).all():
+            raise AssertionError(f"[dp] rank {r}: losses {out['losses']}")
+    a, b = res
+    if not (torch.equal(a["params"], b["params"])
+            and a["losses"] == b["losses"]):
+        raise AssertionError("[dp] the ranks' params or losses differ: "
+                             f"{max_err(a['params'], b['params'])}")
+    print(f"[dp] params and losses of the two ranks bit-identical after "
+          f"{DP_STEPS} steps")
+    dense, culled, stats, _ = dp_renders(dev, None)
+    dp_check_render("dense 400x400 frame", a["dense"], dense)
+    hit = ray_box_hits(torch.as_tensor(CULLED_TIGHTEN["boxes"], device=dev),
+                       dp_frame_rays(dev))[0].cpu()
+    dp_check_render(f"culled frame ({int(hit.sum())} rays hit the box)",
+                    a["culled"], culled, hit)
+    if a["stats"]["n_survivors"] != stats["n_survivors"]:
+        raise AssertionError(f"[dp] survivors {a['stats']} vs {stats}")
+    print(f"[dp] culled stats 2 ranks {a['stats']}, one process {stats}")
+    dp_nccl_path(dev, rays, rgbs, smi)
+    print(f"[dp] wall: dry run {t_dry:.1f} s; the 2-rank launch "
+          f"{t_launch:.1f} s (spawn, steps, renders), steps "
+          f"{a['step_s'] / DP_STEPS * 1e3:.2f} ms each eager with the gloo "
+          f"all-reduce through the host; 2 ranks sharing one card, not a "
+          f"scaling figure ({smi})")
+
+
+def dp_nccl_path(dev, rays, rgbs, smi):
+    """One rank in an NCCL group on cuda:0 against no group: the epoch of
+    GRAPH_SEGMENTS, its reshuffle and 12 steps more, replayed from each
+    trainer's captured graph; params, Adam state and metrics bit for bit,
+    one capture each. Then GRAPH_TIMED replayed steps of each, in turns
+    (group, none, none, group), timed between syncs on a parameter: what
+    the captured one-rank all-reduce adds to a step."""
+    finals, trainers = {}, {}
+    wall = {"nccl": [], "none": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        group = pdist.init_group(0, 1, "file://" + os.path.join(tmp, "rdv"),
+                                 "nccl", dev)
+        try:
+            for tag, g in (("nccl", group), ("none", None)):
+                tr = dp_trainer(dev, g)
+                tr.set_data(rays, rgbs)
+                state = tr.init_state(torch.Generator().manual_seed(0))
+                reset_counts()
+                for n in GRAPH_SEGMENTS:
+                    state, m = tr.run_steps(state, TRAIN_SEED, n)
+                    if state.step % tr.steps_per_epoch == 0:
+                        tr.reshuffle(seed_for(TRAIN_SEED, state.step))
+                finals[tag] = (state, m, tr.captures,
+                               read_counts()["mse_render"])
+                trainers[tag] = [tr, state]
+            for tag in ("nccl", "none", "none", "nccl"):
+                tr, state = trainers[tag]
+                float(tree_leaves(state.params)[0][0, 0])
+                t0 = time.perf_counter()
+                state, _ = tr.run_steps(state, TRAIN_SEED + 1, GRAPH_TIMED)
+                float(tree_leaves(state.params)[0][0, 0])
+                wall[tag].append((time.perf_counter() - t0) / GRAPH_TIMED
+                                 * 1e3)
+                trainers[tag][1] = state
+        finally:
+            torch.distributed.destroy_process_group()
+    print(f"[dp] {GRAPH_TIMED} replayed loss-fused steps a turn: one rank "
+          f"in an NCCL group {', '.join(f'{w:.3f}' for w in wall['nccl'])}"
+          f" ms/step, no group {', '.join(f'{w:.3f}' for w in wall['none'])}"
+          f" ms/step ({smi})")
+    (sn, mn, cn, ln), (s0, m0, c0, l0) = finals["nccl"], finals["none"]
+    leaves_n = tree_leaves(sn.params) + tree_leaves(sn.opt_state[0])
+    leaves_0 = tree_leaves(s0.params) + tree_leaves(s0.opt_state[0])
+    same = all(torch.equal(x, y) for x, y in zip(leaves_n, leaves_0))
+    same_m = all(torch.equal(mn[k], m0[k]) for k in m0)
+    print(f"[dp] one rank in an NCCL group, {sum(GRAPH_SEGMENTS)} replayed "
+          f"steps over an epoch boundary: params and Adam state bit for bit "
+          f"the no-group graph's: {same}; metrics: {same_m}; captures "
+          f"{cn} and {c0}; mse_render launches {ln} and {l0}")
+    if not (same and same_m and cn == c0 == 1 and ln == l0):
+        raise AssertionError("[dp] the NCCL group's graph differs from the "
+                             "no-group graph's")
 
 
 CAPTURE_FAILURE = """
@@ -2013,6 +2273,7 @@ def main():
                                                     counts["train_bwd"])
     graph_path(dev, store, smi)
     descent_path(dev, store)
+    dp_path(dev, store, smi)
     del store
     torch.cuda.empty_cache()
     params, rays, _ = validation_path(dev)

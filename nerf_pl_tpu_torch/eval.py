@@ -14,10 +14,17 @@ the CPU. `--fused_mlp` takes the fused render kernels.
 the occupancy-culled renderer (`rendering.CulledRenderer`), its grid
 cached beside the checkpoint, as eval.py does; like eval.py it pads the
 last group of --frames_per_dispatch frames with copies of its last frame,
-since the cull sorts and tiles the rays of a whole dispatch. More than one
-device (--num_chips > 1, ROADMAP item A10) is rejected. --compile_cache is
-accepted and does nothing: PyTorch runs eagerly and the kernels are cached
-under build/.
+since the cull sorts and tiles the rays of a whole dispatch.
+
+`--num_chips N` renders data parallel, one process a rank
+(`dist.py`): on the card over min(N, the cards there are) ranks,
+one card each, over NCCL, as eval.py takes min(--num_chips,
+len(jax.devices())); with main(device="cpu") over N gloo ranks on the
+CPU. Each rank renders its share of every dispatch's tiles, dense
+(`make_render_fn`) or culled (`CulledRenderer`, the grid built or loaded
+on rank 0 and broadcast), and rank 0 writes the images, depth maps, GIF
+and metrics and prints the PSNR. --compile_cache is accepted and does
+nothing: PyTorch runs eagerly and the kernels are cached under build/.
 
 The dataset classes are the port's copies of the JAX package's (numpy;
 PIL where an image is read).
@@ -73,7 +80,7 @@ def build_parser() -> ArgumentParser:
                         choices=['pfm', 'bytes'],
                         help='depth export format')
     parser.add_argument('--num_chips', type=int, default=1,
-                        help='devices to render on (only 1 is ported)')
+                        help='devices to render on, one process each')
     parser.add_argument('--precision', type=str, default='float32',
                         choices=['float32', 'bfloat16'],
                         help='operand precision of the unfused MLP')
@@ -131,13 +138,6 @@ def get_opts(argv=None):
     return build_parser().parse_args(argv)
 
 
-def check_ported(args, parser):
-    """Reject the flags of slices that are not ported yet."""
-    if args.num_chips != 1:
-        parser.error("--num_chips: rendering on more than one device is not "
-                     "ported yet (ROADMAP item A10)")
-
-
 def save_gif(path, frames, fps=30):
     try:
         import imageio
@@ -165,11 +165,11 @@ def load_params(ckpt_path, with_fine=True):
     return params
 
 
-def culled_renderer(args, occ, rcfg, mcfg, device):
-    """The CLIs' CulledRenderer from their --occ_* flags. The base tile is
-    min(--chunk, DEFAULT_CHUNK) unless --culled_chunk gives it (0 raises
-    there); tightening is on with any of --occ_tighten, --occ_budgets and
-    --occ_segments."""
+def culled_renderer(args, occ, rcfg, mcfg, device, group=None):
+    """The CLIs' CulledRenderer from their --occ_* flags, over `group`'s
+    ranks when given. The base tile is min(--chunk, DEFAULT_CHUNK) unless
+    --culled_chunk gives it (0 raises there); tightening is on with any of
+    --occ_tighten, --occ_budgets and --occ_segments."""
     from .rendering import CulledRenderer
 
     return CulledRenderer(
@@ -181,14 +181,29 @@ def culled_renderer(args, occ, rcfg, mcfg, device):
         budgets=args.occ_budgets, segments=args.occ_segments,
         bucket_fracs=(tuple(args.occ_bucket_fracs)
                       if args.occ_bucket_fracs else None),
-        device=device)
+        device=device, group=group)
 
 
-def culled_render_fn(args, dataset, params, rcfg, mcfg, device):
+def culled_render_fn(args, dataset, params, rcfg, mcfg, device, group=None):
     """The --occ_grid renderer of eval.py: the grid built (or loaded from
     its cache) on the fine MLP, the aabb from every len//8-th pose and, in
     weight mode, the visibility rays from every len//32-th; returns
-    render(params, rays) -> numpy outputs."""
+    render(params, rays) -> numpy outputs. In a group rank 0 builds or
+    loads the grid and broadcasts it, and the ranks render together."""
+    from . import dist as pdist
+
+    occ = None
+    if pdist.is_main(group):
+        occ = _culled_grid(args, dataset, params, mcfg, device)
+    occ = pdist.broadcast_object(occ, group)
+    cr = culled_renderer(args, occ, rcfg, mcfg, device, group)
+
+    def render(params, rays):
+        return {k: v.cpu().numpy() for k, v in cr(params, rays).items()}
+    return render
+
+
+def _culled_grid(args, dataset, params, mcfg, device):
     from .models import params_from_numpy
     from .rendering import load_or_build_grid, rays_aabb
 
@@ -209,32 +224,46 @@ def culled_render_fn(args, dataset, params, rcfg, mcfg, device):
         mode=args.occ_mode, vis_rays=vis_rays)
     print(f"[occ] {occ.n_boxes} boxes, "
           f"{occ.occupied_fraction * 100:.1f}% blocks occupied")
-    cr = culled_renderer(args, occ, rcfg, mcfg, device)
-
-    def render(params, rays):
-        return {k: v.cpu().numpy() for k, v in cr(params, rays).items()}
-    return render
+    return occ
 
 
 def main(argv=None, device=None):
+    """Parse eval.py's flags and render; returns the mean PSNR (None
+    without ground truth). --num_chips > 1 spawns the ranks."""
+    from . import dist as pdist
+
+    args = build_parser().parse_args(argv)
+    kind, world = pdist.plan_world(args.num_chips, device)
+    if world == 1:
+        return _eval(args, device)
+    return pdist.launch(_eval_rank, world, args, device=kind)[0]
+
+
+def _eval_rank(group, device, args):
+    """One rank of a data parallel render (spawned by `dist.launch`)."""
+    return _eval(args, device, group)
+
+
+def _eval(args, device, group=None):
     from PIL import Image
 
     from .datasets import dataset_dict
     from .datasets.depth_utils import save_pfm
     from .device import resolve_device
+    from . import dist as pdist
     from .parallel import make_render_fn
     from .rendering import ModelConfig, RenderConfig
     from .training.metrics import psnr as psnr_fn
     from .training.metrics import ssim as ssim_fn
 
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    check_ported(args, parser)
     w, h = args.img_wh
     device = resolve_device(device)
-    print(f"[eval] device {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+    main_rank = pdist.is_main(group)
+    if main_rank:
+        print(f"[eval] device {device}"
+              + (f" ({torch.cuda.get_device_name(device)})"
+                 if device.type == "cuda" else "")
+              + f"; world {pdist.world_of(group)}")
 
     kwargs = {'root_dir': args.root_dir, 'split': args.split,
               'img_wh': tuple(args.img_wh)}
@@ -254,13 +283,15 @@ def main(argv=None, device=None):
                        else torch.float32),
         fused=args.fused_mlp)
     if args.occ_grid:
-        render = culled_render_fn(args, dataset, params, rcfg, mcfg, device)
+        render = culled_render_fn(args, dataset, params, rcfg, mcfg, device,
+                                  group)
     else:
-        render = make_render_fn(rcfg, args.chunk, device, mcfg)
+        render = make_render_fn(rcfg, args.chunk, device, mcfg, group=group)
 
     typ = "fine" if args.N_importance > 0 else "coarse"
     dir_name = os.path.join(args.out_dir, args.dataset_name, args.scene_name)
-    os.makedirs(dir_name, exist_ok=True)
+    if main_rank:
+        os.makedirs(dir_name, exist_ok=True)
 
     imgs, psnrs, ssims, view_ids = [], [], [], []
     px = h * w
@@ -279,6 +310,8 @@ def main(argv=None, device=None):
         t0 = time.perf_counter()
         results = render(params, rays_all)
         dispatch_times.append((time.perf_counter() - t0, len(idxs)))
+        if not main_rank:
+            continue
 
         for j, (i, sample) in enumerate(zip(idxs, samples)):
             img_pred = results[f'rgb_{typ}'][j * px:(j + 1) * px] \
@@ -314,6 +347,8 @@ def main(argv=None, device=None):
                         os.path.join(dir_name, f'gt_{i:03d}.png'))
         print(f"[eval] frame {idxs[-1] + 1}/{len(dataset)}", flush=True)
 
+    if not main_rank:
+        return None
     save_gif(os.path.join(dir_name, f'{args.scene_name}.gif'), imgs, fps=30)
 
     n_f = len(dataset)

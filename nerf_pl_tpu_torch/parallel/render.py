@@ -1,9 +1,12 @@
-"""Full-image renderer: pad, chunk, render, slice.
+"""Full-image renderer: pad, tile, render, gather, slice.
 
-Port of `Trainer.render_fn` (nerf_pl_tpu/parallel/spmd.py) for one device.
-The JAX version maps `render_rays` over fixed tiles sharded across a mesh;
-here the tiles run in a Python loop on one device. Sharding across GPUs
-is ROADMAP item A10.
+Port of `Trainer.render_fn` (nerf_pl_tpu/parallel/spmd.py:598-654). The
+JAX version pads the rays to whole groups of `n_data * chunk`, shards the
+tiles over the mesh's `data` axis and maps `render_rays` over each
+device's tiles. Here each rank of a torch.distributed group renders its
+contiguous block of tiles in a Python loop, and the blocks are gathered on
+every rank (`dist.gather_rows`); without a group one device renders them
+all.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ from typing import Any, Callable, Dict, Mapping
 
 import torch
 
+from .. import dist as pdist
 from ..rendering.render import (ModelConfig, RenderConfig, prepare_params,
                                 render_rays)
 
@@ -18,34 +22,41 @@ from ..rendering.render import (ModelConfig, RenderConfig, prepare_params,
 def make_render_fn(rcfg: RenderConfig, chunk: int,
                    device: torch.device | str,
                    mcfg: ModelConfig = ModelConfig(),
-                   device_out: bool = False) -> Callable:
+                   device_out: bool = False, group=None) -> Callable:
     """Returns render(params, rays) -> dict of per-ray outputs.
 
-    `rays` (R, 8), numpy or tensor, is padded to whole chunks with zero
-    rays whose far is 1 (near < far keeps their depths sane; their
-    direction is 0, so their weights are 0), rendered chunk by chunk, and
-    the padding is sliced off. With rcfg.fused both MLPs are packed to the
-    kernels' bf16 device buffers once per call, not once per chunk: the
-    render kernels take them at test time, the point-MLP forward kernel
-    otherwise (the validation config).
-    With device_out the outputs stay tensors on `device`; otherwise they
-    are numpy arrays.
+    `rays` (R, 8), numpy or tensor, is padded to whole groups of
+    world * chunk rays with zero rays whose far is 1 (near < far keeps
+    their depths sane; their direction is 0, so their weights are 0),
+    rendered chunk by chunk, each rank of `group` its contiguous block of
+    chunks, and the padding is sliced off. Every rank of the group must
+    call it with the same rays; each gets the whole output. With
+    rcfg.fused both MLPs are packed to the kernels' bf16 device buffers
+    once per call, not once per chunk: the render kernels take them at
+    test time, the point-MLP forward kernel otherwise (the validation
+    config). With device_out the outputs stay tensors on `device`;
+    otherwise they are numpy arrays.
     """
     device = torch.device(device)
+    world, rank = pdist.world_of(group), pdist.rank_of(group)
 
     @torch.no_grad()
     def render(params: Mapping[str, Any], rays) -> Dict[str, Any]:
         rays_t = torch.as_tensor(rays, dtype=torch.float32, device=device)
         R = rays_t.shape[0]
-        pad = (-R) % chunk
+        pad = (-R) % (world * chunk)
         if pad:
             pad_rows = torch.zeros((pad, 8), dtype=rays_t.dtype, device=device)
             pad_rows[:, 7] = 1.0
             rays_t = torch.cat([rays_t, pad_rows])
         model = prepare_params(params, rcfg, device)
+        tiles = rays_t.split(chunk)
+        per = len(tiles) // world
         outs = [render_rays(model, tile, rcfg, mcfg)
-                for tile in rays_t.split(chunk)]
-        out = {k: torch.cat([o[k] for o in outs])[:R] for k in outs[0]}
+                for tile in tiles[rank * per:(rank + 1) * per]]
+        out = pdist.gather_rows(
+            {k: torch.cat([o[k] for o in outs]) for k in outs[0]}, group)
+        out = {k: v[:R] for k, v in out.items()}
         if device_out:
             return out
         return {k: v.cpu().numpy() for k, v in out.items()}

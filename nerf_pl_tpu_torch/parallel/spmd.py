@@ -1,9 +1,18 @@
-"""The trainer on one device: the ray store on the device, contiguous batch
-reads, the loss-fused or autograd step, K steps at a time, and the
-occupancy tightening of the store.
+"""The trainer: the ray store on the device, contiguous batch reads, the
+loss-fused or autograd step, K steps at a time, and the occupancy
+tightening of the store; on one device, or data parallel over a
+torch.distributed group (`dist.py`), one process a rank.
 
-Port of `Trainer` in nerf_pl_tpu/parallel/spmd.py for one device (the
-data-parallel mesh is ROADMAP item A10, tensor parallelism A12).
+Port of `Trainer` in nerf_pl_tpu/parallel/spmd.py. The JAX Trainer shards
+the store and the batch over the mesh's `data` axis; here each rank holds
+its shard of the store, the contiguous block P("data") gives it, and the
+psums of the JAX Trainer are all-reduces over the group: the loss-fused
+step's gradients, loss and squared error (`spmd.py:521-533`), the
+autograd step's gradients of the local mean scaled by batch_local /
+batch_size (what GSPMD computes for the global mean), and the counts of
+`tighten_store` and `_partition_store` (`spmd.py:299-302, 370-374`).
+Without a group nothing is reduced and the code is the one-device
+trainer's. Tensor parallelism is not ported.
 
 `run_steps` runs K steps of one function, `_step`, whose inputs are all on
 the device: the params and optimizer state, a 0-dim step counter (the
@@ -32,6 +41,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from .. import dist as pdist
 from ..models.nerf import init_nerf_params
 from ..ops import add_launches, launch_counts
 from ..rendering.occupancy import (dilate_segment_bits, ray_box_hits,
@@ -81,25 +91,35 @@ def hash32(idx: torch.Tensor, seed: int) -> torch.Tensor:
 
 
 class Trainer:
-    """Args as the JAX Trainer's, without the mesh:
+    """Args as the JAX Trainer's, with a process group for the mesh:
       mcfg, rcfg_train: model and training render config.
       optimizer: from training.optimizers.get_optimizer.
       lr_schedule: step -> lr (logged beside the metrics).
       loss_fn: results dict, rgbs -> scalar (the autograd branch).
-      batch_size: rays per step.
-      device: where the store, the params and the step live.
+      batch_size: the GLOBAL rays per step; each rank takes
+        batch_size // world of them.
+      device: where this rank's store, the params and the step live.
+      group: a torch.distributed process group (data parallel), or None
+        (one device, no collective).
     """
 
     def __init__(self, mcfg: ModelConfig, rcfg_train: RenderConfig,
                  optimizer: Optimizer, lr_schedule: Callable,
                  loss_fn: Callable, batch_size: int,
-                 device: torch.device | str):
+                 device: torch.device | str, group=None):
         self.mcfg = mcfg
         self.rcfg_train = rcfg_train
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
         self.loss_fn = loss_fn
+        self.group = group
+        self.world = pdist.world_of(group)
+        self.rank = pdist.rank_of(group)
+        if batch_size % self.world:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"the world of {self.world} ranks")
         self.batch_size = batch_size
+        self.batch_local = batch_size // self.world
         self.device = torch.device(device)
         self.all_rays = None
         self.all_rgbs = None
@@ -109,10 +129,11 @@ class Trainer:
     # ---------------------------------------------------------------- data
     def set_data(self, all_rays: np.ndarray, all_rgbs: np.ndarray,
                  shuffle_seed: int = 0):
-        """Shuffle the store once on the host (the JAX Trainer's numpy
-        permutation), pad it to whole batches by repeating head rays
-        modulo n, and move it to the device. Step i of an epoch then reads
-        the contiguous block i."""
+        """Shuffle the whole store once on the host (the JAX Trainer's
+        numpy permutation, the same on every rank), pad it to whole global
+        batches by repeating head rays modulo n, and move this rank's
+        contiguous shard (P("data")'s block) to the device. Step i of an
+        epoch then reads the shard's contiguous block i."""
         n = all_rays.shape[0]
         perm = np.random.default_rng(shuffle_seed).permutation(n)
         all_rays = all_rays[perm]
@@ -122,12 +143,15 @@ class Trainer:
             idx = np.arange(pad) % n
             all_rays = np.concatenate([all_rays, all_rays[idx]], 0)
             all_rgbs = np.concatenate([all_rgbs, all_rgbs[idx]], 0)
-        self.all_rays = torch.as_tensor(all_rays, dtype=torch.float32,
+        self.n_rays_local = all_rays.shape[0] // self.world
+        lo = self.rank * self.n_rays_local
+        shard = slice(lo, lo + self.n_rays_local)
+        self.all_rays = torch.as_tensor(all_rays[shard], dtype=torch.float32,
                                         device=self.device)
-        self.all_rgbs = torch.as_tensor(all_rgbs, dtype=torch.float32,
+        self.all_rgbs = torch.as_tensor(all_rgbs[shard], dtype=torch.float32,
                                         device=self.device)
-        self.n_rays_local = all_rays.shape[0]
-        self.steps_per_epoch = max(1, self.n_rays_local // self.batch_size)
+        # steps of one pass over a shard (the JAX steps_per_epoch_local)
+        self.steps_per_epoch = max(1, self.n_rays_local // self.batch_local)
         # Occupancy state, set by tighten_store: the original [near, far]
         # (re-tightening always starts from it), the (R,) int64 segment
         # masks and their count, and with packing the hit flags, the
@@ -142,7 +166,18 @@ class Trainer:
         self.all_idx = self._make_idx()
 
     def _make_idx(self) -> torch.Tensor:
-        return torch.arange(self.n_rays_local, device=self.device)
+        """Global labels: rank r's shard holds r * n_local + arange."""
+        return self.rank * self.n_rays_local + torch.arange(
+            self.n_rays_local, device=self.device)
+
+    def _rank_seed(self, *counters: int) -> int:
+        """A generator seed of (counters) that folds in the rank, as JAX's
+        fold_in(key, axis_index): each rank's stream differs, and rank 0's
+        is the one-device trainer's, seed_for(*counters) (a reshuffle's
+        seed when given alone)."""
+        if self.rank == 0:
+            return counters[0] if len(counters) == 1 else seed_for(*counters)
+        return seed_for(*counters, self.rank)
 
     def _store_named(self):
         """(name, array) of the store's row-aligned arrays."""
@@ -167,7 +202,8 @@ class Trainer:
         if self.all_hit is not None:
             self._reshuffle_canonical(seed)
             return
-        g = torch.Generator(device=self.device).manual_seed(seed)
+        g = torch.Generator(device=self.device).manual_seed(
+            self._rank_seed(seed))
         self._permute(torch.randperm(self.all_rays.shape[0], generator=g,
                                      device=self.device))
 
@@ -198,7 +234,7 @@ class Trainer:
         result.
 
         Returns {"hit_frac", "shrink"} and, with pack, {"miss_mse",
-        "expand"}."""
+        "expand"}: over the whole store, summed across the ranks."""
         if self.all_nf0 is None:
             self.all_nf0 = self.all_rays[:, 6:8].clone()
         boxes = torch.as_tensor(np.asarray(boxes, np.float32),
@@ -210,10 +246,12 @@ class Trainer:
         near, far = tighten_intervals(near0, far0, hit, t_lo, t_hi, margin)
         self.all_rays = torch.cat([rays[:, :6], near[:, None], far[:, None]],
                                   dim=1)
-        n = self.n_rays_local
+        n = self.n_rays_local * self.world
         shrink = (1.0 - (far - near) / (far0 - near0)).double().sum()
-        stats = {"hit_frac": hit.sum().item() / n,
-                 "shrink": shrink.item() / n}
+        n_hit, shrink = pdist.all_reduce_sum(
+            [torch.stack([hit.sum().double(), shrink])],
+            self.group)[0].tolist()
+        stats = {"hit_frac": n_hit / n, "shrink": shrink / n}
         if n_seg > 0:
             occm = ray_box_segment_bits(boxes, self.all_rays, n_seg)
             if dilate > 0:
@@ -225,31 +263,39 @@ class Trainer:
         return stats
 
     def _partition_store(self):
-        """Stable survivors-first order of the store (the current order
-        kept within each class), the survivor count, and the loss the
-        packed-out rays leave as they are: the mean (background - gt)^2."""
+        """Stable survivors-first order of the shard (the current order
+        kept within each class), its survivor count, and the loss the
+        packed-out rays of the whole store leave as they are: the mean
+        (background - gt)^2. `expand` is the whole store's total over its
+        survivors."""
         miss = ~self.all_hit
         bg = 1.0 if self.rcfg_train.white_back else 0.0
         sse = (((self.all_rgbs - bg) ** 2) * miss[:, None]).double().sum()
-        n_miss = miss.sum().item()
+        n_miss_local = miss.sum()
         self._permute(torch.argsort(miss.to(torch.uint8), stable=True))
-        self.all_nsurv = self.n_rays_local - n_miss
-        self.pack_expand = self.n_rays_local / max(self.all_nsurv, 1)
-        return {"miss_mse": sse.item() / max(n_miss * 3.0, 1e-9),
+        sse, n_miss = pdist.all_reduce_sum(
+            [torch.stack([sse, n_miss_local.double()])],
+            self.group)[0].tolist()
+        self.all_nsurv = self.n_rays_local - int(n_miss_local)
+        n_total = self.n_rays_local * self.world
+        self.pack_expand = n_total / max(n_total - int(n_miss), 1)
+        return {"miss_mse": sse / max(n_miss * 3.0, 1e-9),
                 "expand": self.pack_expand}
 
     # --------------------------------------------------------------- state
     def init_state(self, generator: torch.Generator,
                    master_dtype: Optional[torch.dtype] = None) -> TrainState:
         """Params drawn from `generator` (torch.nn.Linear's init), on the
-        device, and the optimizer's state at step 0. master_dtype (e.g.
-        torch.bfloat16) casts the stored (master) weights, and the
-        optimizer's moments follow them; the kernels run bf16 products
-        either way, so it moves only where the update rounds."""
+        device, and the optimizer's state at step 0. In a group every rank
+        takes rank 0's params. master_dtype (e.g. torch.bfloat16) casts the
+        stored (master) weights, and the optimizer's moments follow them;
+        the kernels run bf16 products either way, so it moves only where
+        the update rounds."""
         names = ["nerf_coarse"] + (["nerf_fine"]
                                    if self.rcfg_train.N_importance > 0 else [])
         params = {name: init_nerf_params(generator, self.mcfg.nerf,
                                          self.device) for name in names}
+        params = pdist.broadcast_tree(params, self.group)
         if master_dtype is not None:
             params = tree_unflatten(params, [p.to(master_dtype) for p in
                                              tree_leaves(params)])
@@ -264,7 +310,7 @@ class Trainer:
         survivor packing the offset wraps over the survivor region [0, K),
         K = max(nsurv // batch, 1) * batch, so an epoch keeps its step
         count and cycles through the survivors."""
-        b = self.batch_size
+        b = self.batch_local
         off = (step % self.steps_per_epoch) * b
         if self.all_nsurv is not None:
             off = off % (max(self.all_nsurv // b, 1) * b)
@@ -279,9 +325,14 @@ class Trainer:
                         generator: Optional[torch.Generator],
                         draws: Optional[TrainDraws] = None,
                         occm: Optional[torch.Tensor] = None):
-        """(loss, mse, grads): autograd over render_rays, or the loss-fused
-        step with the cotangent scale 1 / (batch * 3). `occm`: the batch's
-        segment masks (coarse placement in occupied segments)."""
+        """(loss, mse, grads) of the global batch: autograd over
+        render_rays, or the loss-fused step with the cotangent scale
+        1 / (global batch * 3). `rays`, `rgbs` and `occm` (the segment
+        masks, for the coarse placement in occupied segments) are this
+        rank's part of the batch. In a group the autograd route
+        differentiates the local mean times batch_local / batch_size, and
+        both routes sum their loss, squared error and gradients across the
+        ranks (one all-reduce)."""
         n_seg = self.occ_n_seg if occm is not None else 0
         if not self.rcfg_train.fused_loss:
             leaves = [p.detach().requires_grad_() for p in
@@ -292,18 +343,25 @@ class Trainer:
                                   generator=generator, draws=draws,
                                   occm=occm, n_seg=n_seg)
                 loss = self.loss_fn(out, rgbs)
+                if self.group is not None:
+                    loss = loss * (self.batch_local / self.batch_size)
                 grads = torch.autograd.grad(loss, leaves)
             typ = "fine" if "rgb_fine" in out else "coarse"
             mse = torch.mean((out[f"rgb_{typ}"].detach() - rgbs) ** 2)
-            return loss.detach(), mse, tree_unflatten(params, list(grads))
+            loss, grads = loss.detach(), tree_unflatten(params, list(grads))
+            if self.group is None:
+                return loss, mse, grads
+            mse = mse * (self.batch_local / self.batch_size)
+            return pdist.all_reduce_tree((loss, mse, grads), self.group)
 
         loss_sum, out, grads = fused_mse_train_step(
             params, rays, rgbs, self.rcfg_train, self.batch_size, self.mcfg,
             generator=generator, draws=draws, occm=occm, n_seg=n_seg)
         typ = "fine" if "rgb_fine" in out else "coarse"
-        mse = torch.sum((out[f"rgb_{typ}"] - rgbs) ** 2) / (
-            self.batch_size * 3)
-        return loss_sum / self.batch_size, mse, grads
+        sq = torch.sum((out[f"rgb_{typ}"] - rgbs) ** 2)
+        loss_sum, sq, grads = pdist.all_reduce_tree((loss_sum, sq, grads),
+                                                    self.group)
+        return loss_sum / self.batch_size, sq / (self.batch_size * 3), grads
 
     def _step(self, params, opt_state, step: torch.Tensor,
               draws: TrainDraws):
@@ -327,16 +385,18 @@ class Trainer:
                                    "lr": self.lr_schedule(step)}
 
     def step_generator(self, seed: int, step: int) -> torch.Generator:
-        """The draws of global step `step`: a function of (seed, step)."""
+        """The draws of global step `step` on this rank: a function of
+        (seed, step, rank), rank 0's of (seed, step) alone."""
         return torch.Generator(device=self.device).manual_seed(
-            seed_for(seed, step))
+            self._rank_seed(seed, step))
 
     def _draw_specs(self) -> List[Tuple[str, Tuple[int, int], bool]]:
         """(name, shape, uniform) of the draws a step takes, in the order
         the render takes them from its generator: the perturb uniforms and
-        the coarse noise, then the importance u and the fine noise. These
-        are all the random numbers of a step on every path."""
-        cfg, R = self.rcfg_train, self.batch_size
+        the coarse noise, then the importance u and the fine noise, for
+        this rank's rays. These are all the random numbers of a step on
+        every path."""
+        cfg, R = self.rcfg_train, self.batch_local
         S, S_imp = cfg.N_samples, cfg.N_importance
         specs = []
         if cfg.perturb > 0:
@@ -373,8 +433,16 @@ class Trainer:
         """n_steps optimizer steps; returns the new state and (n_steps,)
         metric tensors loss, psnr and lr on the device. On CUDA the steps
         replay a captured graph, unless `eager` (a comparison's switch);
-        on the CPU they run eagerly. The caller's state is never written."""
+        on the CPU they run eagerly. A gloo group's collectives cannot be
+        captured, so on CUDA such a group needs `eager`; NCCL's are
+        captured with the step. The caller's state is never written."""
         if self.device.type == "cuda" and not eager:
+            if self.group is not None and \
+                    pdist.backend_of(self.group) != "nccl":
+                raise RuntimeError(
+                    f"run_steps: a {pdist.backend_of(self.group)} group's "
+                    "collectives cannot be captured in a CUDA graph; pass "
+                    "eager=True to run the steps eagerly")
             return self._run_graph(state, seed, n_steps)
         params, opt_state = state.params, state.opt_state
         metrics: Dict[str, List[torch.Tensor]] = {"loss": [], "psnr": [],
@@ -393,12 +461,14 @@ class Trainer:
     # --------------------------------------------------------- CUDA graph
     def _graph_key(self, state: TrainState):
         """What a captured step has baked in: the store's addresses and
-        layout, and the state's structure, shapes and dtypes."""
+        layout, the state's structure, shapes and dtypes, and the group
+        whose collective it launches."""
         store = tuple((n, a.data_ptr(), tuple(a.shape))
                       for n, a in self._store_named())
         leaves, spec = pytree.tree_flatten((state.params, state.opt_state))
         return (store, self.occ_n_seg, self.all_nsurv, self.steps_per_epoch,
-                str(spec), tuple((tuple(t.shape), t.dtype) for t in leaves))
+                str(spec), tuple((tuple(t.shape), t.dtype) for t in leaves),
+                id(self.group))
 
     def _run_graph(self, state: TrainState, seed: int, n_steps: int):
         key = self._graph_key(state)

@@ -43,6 +43,7 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import dist as pdist
 from ..device import resolve_device
 from ..models.embedding import embed
 from ..models.nerf import nerf_apply
@@ -714,9 +715,14 @@ class CulledRenderer:
       becomes the occupied length.
     device: where the boxes live and the tiles render (cuda:0 unless
       given; the rays and params are moved there).
-
-    The JAX package's `mesh=` (tiles sharded over a device mesh) is not
-    ported: one device renders (ROADMAP item A10).
+    group: a torch.distributed process group, the JAX package's `mesh=`:
+      every rank culls the same rays, each renders its contiguous share
+      of each run's tiles, and the tile outputs are gathered on every
+      rank before the scatter. The world plays the part of the mesh's
+      `data` size in the tile sizing (`_chunk_for`, `_round_tiles` and
+      the worst-case padding), so `n_rendered` and `bucket_counts` are
+      the JAX renderer's with a mesh of that size. Every rank must call
+      it with the same rays, and each gets the whole image.
 
     NERF_OCC_TIMING=1 in the environment prints the cull pass's time and
     each bucket's, each after a sync of the device.
@@ -740,7 +746,7 @@ class CulledRenderer:
                  tighten_margin: float = 0.05, budgets: bool = False,
                  segments: int = 0, segment_dilate: int = 1,
                  bucket_fracs: Optional[Tuple[float, ...]] = None,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None, group=None):
         if occ.n_boxes == 0:
             raise ValueError("occupancy grid is empty — threshold too high?")
         if budgets and not tighten:
@@ -778,6 +784,8 @@ class CulledRenderer:
         self.budgets = budgets
         self.segments = segments
         self.segment_dilate = segment_dilate
+        self.group = group
+        self.n_data = pdist.world_of(group)
 
     def _cull(self, rays: torch.Tensor, pad_rows: int) -> Cull:
         return cull_rays(self.boxes, rays, tighten=self.tighten,
@@ -787,9 +795,10 @@ class CulledRenderer:
                          pad_rows=pad_rows)
 
     def _chunk_for(self, R: int) -> int:
-        """Effective tile: never larger than the image needs, a multiple
-        of 8."""
-        return min(self.chunk, -(-R // 8) * 8)
+        """Effective tile: never larger than a rank's share of the image
+        needs, a multiple of 8."""
+        per = -(-R // self.n_data)
+        return min(self.chunk, -(-per // 8) * 8)
 
     def _bucket_cost(self, frac: float) -> int:
         """Per-ray point evaluations of a span bucket."""
@@ -816,10 +825,12 @@ class CulledRenderer:
         return dataclasses.replace(self.rcfg, N_samples=N_s,
                                    N_importance=N_i)
 
-    @staticmethod
-    def _round_tiles(n: int, cap_tiles: int, chunk: int) -> int:
-        """Tiles for n rows, at least 1, at most cap_tiles."""
-        return min(max(1, -(-n // chunk)), cap_tiles)
+    def _round_tiles(self, n: int, cap_tiles: int, chunk: int) -> int:
+        """Tiles for n rows, at least 1, at most cap_tiles, both rounded
+        up to a whole number of tiles a rank."""
+        gran = self.n_data
+        n_tiles = max(1, -(-n // chunk))
+        return min(-(-n_tiles // gran) * gran, -(-cap_tiles // gran) * gran)
 
     def _background(self, rows: int) -> Dict[str, torch.Tensor]:
         """All-background outputs of the last pass, `rows` rows."""
@@ -858,28 +869,36 @@ class CulledRenderer:
     def _render_tiles(self, model, cull: Cull, start: int, n_tiles: int,
                       chunk: int, rcfg: RenderConfig, n_valid: int,
                       img: Dict[str, torch.Tensor], written: torch.Tensor):
-        """Render n_tiles tiles of `chunk` sorted rows from `start` and
+        """Render n_tiles tiles of `chunk` sorted rows from `start`, this
+        rank its contiguous share of them, gather the tiles' outputs and
         scatter them into img, whose last row R is the dump row: a tile
         row at or past n_valid, or a padded row (order R), goes there.
         `written` counts the writes into each row."""
         R = written.shape[0] - 1
         n_seg = self.segments
-        rows = torch.arange(chunk, device=self.device)
-        for t in range(n_tiles):
+        per = n_tiles // self.n_data
+        rank = pdist.rank_of(self.group)
+        outs = []
+        for t in range(rank * per, (rank + 1) * per):
             lo = start + t * chunk
             tile = cull.rays[lo:lo + chunk]
             if tile.shape[0] != chunk:
                 raise AssertionError(f"tile at row {lo} has {tile.shape[0]} "
                                      f"rows, not {chunk}: pad_rows too small")
-            out = render_rays(model, tile, rcfg, self.mcfg,
-                              occm=cull.occm[lo:lo + chunk] if n_seg else None,
-                              n_seg=n_seg)
+            outs.append(render_rays(
+                model, tile, rcfg, self.mcfg,
+                occm=cull.occm[lo:lo + chunk] if n_seg else None,
+                n_seg=n_seg))
+        out = pdist.gather_rows({k: torch.cat([o[k] for o in outs])
+                                 for k in img if k in outs[0]}, self.group)
+        rows = torch.arange(chunk, device=self.device)
+        for t in range(n_tiles):
+            lo = start + t * chunk
             idx = torch.where(rows < n_valid - t * chunk,
                               cull.order[lo:lo + chunk], R)
             written.index_add_(0, idx, torch.ones_like(idx))
-            for k in img:
-                if k in out:
-                    img[k][idx] = out[k]
+            for k, v in out.items():
+                img[k][idx] = v[t * chunk:(t + 1) * chunk]
 
     @torch.no_grad()
     def __call__(self, params: Mapping[str, Any], rays,
@@ -896,9 +915,9 @@ class CulledRenderer:
         R = rays.shape[0]
         chunk = self._chunk_for(R)
         cap_tiles = -(-R // chunk)                      # all rays survive
-        # worst case: every ray survives, and with budgets a bucket's
-        # tiles round past the image
-        gran = 2 if self.budgets else 1
+        # worst case: every ray survives, and its tiles round up to whole
+        # tiles a rank (with budgets a bucket's tiles round past the image)
+        gran = max(2, self.n_data) if self.budgets else self.n_data
         pad_rows = (-(-cap_tiles // gran) * gran) * chunk
         cull = self._cull(rays, pad_rows)
         counts = cull.counts.tolist()                   # the one readback

@@ -1,4 +1,4 @@
-"""NeRFSystem: end-to-end training on one device.
+"""NeRFSystem: end-to-end training on one device or data parallel.
 
 Port of nerf_pl_tpu/training/system.py: dataset preparation, the trainer,
 the epoch loop (segments of --scan_steps steps), full-image validation
@@ -9,6 +9,14 @@ the host utilities are the port's copies of the JAX package's
 --occ_warmup_epochs and then every --occ_refresh_epochs, an occupancy grid
 of the current fine model tightens the ray store (`_occ_tighten`), on the
 training device.
+
+Data parallel (--num_gpus > 1, `train.py`) runs one NeRFSystem a rank of a
+torch.distributed group, the JAX system's mesh: every rank holds its shard
+of the store and steps together; validation renders sharded
+(`make_render_fn` over the group) and rank 0 scores it; rank 0 alone
+writes TensorBoard, the checkpoints and `topk.json` while the others wait
+at a barrier; the occupancy grid is built on rank 0 and its boxes
+broadcast; on resume every rank loads the same checkpoint.
 
 Validation renders clean (no jitter or noise) full images through
 `make_render_fn` with the training passes (test_time off), as the JAX
@@ -24,6 +32,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import dist as pdist
 from ..config import validate_hparams
 from ..datasets import dataset_dict
 from ..device import resolve_device
@@ -43,20 +52,17 @@ from .metrics import ssim as ssim_fn
 from .optimizers import get_optimizer
 
 
-def unported(hp) -> Optional[str]:
-    """Why a flag set cannot train with the port yet, naming the ROADMAP
-    item; None when it can."""
-    if hp.num_gpus > 1:
-        return "--num_gpus > 1: data parallel training (ROADMAP A10)"
-    return None
-
-
 class NeRFSystem:
+    """group: this rank's torch.distributed group (data parallel), or None
+    (one device)."""
+
     def __init__(self, hparams, log_dir: str = "logs",
                  ckpt_root: str = "ckpts", enable_tb: bool = True,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None, group=None):
         self.hparams = hparams
         self.device = resolve_device(device)
+        self.group = group
+        self.is_main = pdist.is_main(group)
         self.log_dir = os.path.join(log_dir, hparams.exp_name)
         self.ckpt_dir = os.path.join(ckpt_root, hparams.exp_name)
         self.enable_tb = enable_tb
@@ -77,9 +83,6 @@ class NeRFSystem:
     # ---------------------------------------------------------------- setup
     def setup(self):
         hp = validate_hparams(self.hparams)
-        why = unported(hp)
-        if why:
-            raise NotImplementedError(f"not ported yet: {why}")
         compute_dtype = (torch.bfloat16 if hp.precision == "bfloat16"
                          else torch.float32)
         white_back = self.train_dataset.white_back
@@ -111,7 +114,7 @@ class NeRFSystem:
                                   weight_decay=hp.weight_decay)
         self.trainer = Trainer(self.mcfg, self.rcfg_train, optimizer,
                                self.lr_schedule, loss_dict[hp.loss_type],
-                               hp.batch_size, self.device)
+                               hp.batch_size, self.device, group=self.group)
         self.trainer.set_data(self.train_dataset.all_rays,
                               self.train_dataset.all_rgbs)
         # --precision bfloat16 with the fused kernels (which run bf16
@@ -124,57 +127,49 @@ class NeRFSystem:
         if hp.ckpt_path:
             self._restore(hp.ckpt_path)
 
-        if self.enable_tb and self.writer is None:
+        if self.enable_tb and self.writer is None and self.is_main:
             from tensorboardX import SummaryWriter
             os.makedirs(self.log_dir, exist_ok=True)
             self.writer = SummaryWriter(self.log_dir)
-        self.topk = TopKCheckpoints(self.ckpt_dir, k=5)
+        self.topk = (TopKCheckpoints(self.ckpt_dir, k=5) if self.is_main
+                     else None)
 
     def _restore(self, ckpt_path: str):
         """Full resume when the checkpoint holds a complete train state
-        (of either package); otherwise a non-strict params-only load."""
+        (of either package); otherwise a non-strict params-only load.
+        Every rank loads the same file."""
         try:
             self.state, _ = load_checkpoint(ckpt_path, self.state)
-            print(f"[resume] full train state from {ckpt_path} "
-                  f"(step {self.state.step})")
+            self._say(f"[resume] full train state from {ckpt_path} "
+                      f"(step {self.state.step})")
             return
         except (KeyError, ValueError) as e:
-            print(f"[resume] partial load ({e})")
+            self._say(f"[resume] partial load ({e})")
         params = self.state.params
         for model_name in params:
             params = load_ckpt(params, ckpt_path, model_name,
                                tuple(self.hparams.prefixes_to_ignore))
         self.state = self.state._replace(params=params)
-        print(f"[resume] params from {ckpt_path}")
+        self._say(f"[resume] params from {ckpt_path}")
+
+    def _say(self, msg: str):
+        """print, on rank 0 only."""
+        if self.is_main:
+            print(msg, flush=True)
 
     # ----------------------------------------------------------- occupancy
     def _occ_tighten(self):
         """Build an occupancy grid from the current fine (else coarse)
-        params and tighten every stored ray's interval to its boxes."""
+        params and tighten every stored ray's interval to its boxes. In a
+        group rank 0 builds it and broadcasts its boxes, so that every
+        rank tightens with the same ones."""
         hp = self.hparams
-        params = self.state.params.get("nerf_fine",
-                                       self.state.params["nerf_coarse"])
-        # the dataset rays never change: their hull is computed once
-        if getattr(self, "_rays_aabb", None) is None:
-            self._rays_aabb = rays_aabb(self.train_dataset.all_rays)
-        aabb = self._rays_aabb
         self._occ_refresh_i = getattr(self, "_occ_refresh_i", -1) + 1
-        auto = hp.occ_range is None
-        ranges = resolve_ranges(hp.occ_range, params, self.mcfg, aabb=aabb,
-                                sigma_threshold=hp.occ_threshold)
-        occ = build_occupancy_grid(
-            params, self.mcfg, N=hp.occ_N, block=pick_block(hp.occ_N),
-            ranges=ranges, sigma_threshold=hp.occ_threshold,
-            max_ranges=aabb if auto else None, mode=hp.occ_mode,
-            # visibility rays: the dataset's, with their untightened
-            # intervals (the store's are tightened in place)
-            vis_rays=(self.train_dataset.all_rays
-                      if hp.occ_mode == "weight" else None),
-            # a new stride phase each refresh, so a thin structure missed
-            # by one subsample is recovered by the next rebuild
-            vis_offset=self._occ_refresh_i)
+        occ = pdist.broadcast_object(
+            self._occ_grid() if self.is_main else None, self.group)
         if occ.n_boxes == 0:
-            print("[occ] grid empty (model not yet dense) — store unchanged")
+            self._say("[occ] grid empty (model not yet dense) — store "
+                      "unchanged")
             return
         st = self.trainer.tighten_store(
             occ.boxes, margin=hp.occ_margin, n_seg=hp.occ_segments,
@@ -189,15 +184,43 @@ class NeRFSystem:
         if hp.occ_pack:
             msg += (f"; packed: x{st['expand']:.2f} effective batch, "
                     f"culled-ray residual mse {st['miss_mse']:.2e}")
-        print(msg, flush=True)
+        self._say(msg)
+
+    def _occ_grid(self):
+        """The occupancy grid of the current fine (else coarse) params."""
+        hp = self.hparams
+        params = self.state.params.get("nerf_fine",
+                                       self.state.params["nerf_coarse"])
+        # the dataset rays never change: their hull is computed once
+        if getattr(self, "_rays_aabb", None) is None:
+            self._rays_aabb = rays_aabb(self.train_dataset.all_rays)
+        aabb = self._rays_aabb
+        auto = hp.occ_range is None
+        ranges = resolve_ranges(hp.occ_range, params, self.mcfg, aabb=aabb,
+                                sigma_threshold=hp.occ_threshold)
+        occ = build_occupancy_grid(
+            params, self.mcfg, N=hp.occ_N, block=pick_block(hp.occ_N),
+            ranges=ranges, sigma_threshold=hp.occ_threshold,
+            max_ranges=aabb if auto else None, mode=hp.occ_mode,
+            # visibility rays: the dataset's, with their untightened
+            # intervals (the store's are tightened in place)
+            vis_rays=(self.train_dataset.all_rays
+                      if hp.occ_mode == "weight" else None),
+            # a new stride phase each refresh, so a thin structure missed
+            # by one subsample is recovered by the next rebuild
+            vis_offset=self._occ_refresh_i)
+        return occ
 
     # ------------------------------------------------------------- validate
     def validate(self, global_step: int, max_items: Optional[int] = None
                  ) -> Dict[str, float]:
+        """Validation metrics of the first max_items val images (all by
+        default). In a group every rank renders its share of each image
+        and rank 0 scores it; the other ranks return {}."""
         hp = self.hparams
         W, H = hp.img_wh
         render = make_render_fn(self.rcfg_val, min(hp.val_chunk, hp.chunk),
-                                self.device, self.mcfg)
+                                self.device, self.mcfg, group=self.group)
         typ = "fine" if hp.N_importance > 0 else "coarse"
         losses, psnrs, ssims = [], [], []
         n_items = len(self.val_dataset) if max_items is None else min(
@@ -205,6 +228,8 @@ class NeRFSystem:
         for i in range(n_items):
             sample = self.val_dataset[i]
             out = render(self.state.params, sample["rays"])
+            if not self.is_main:
+                continue
             rgbs = np.asarray(sample["rgbs"])
             losses.append(float(sum(np.mean((out[f"rgb_{t}"] - rgbs) ** 2)
                                     for t in ("coarse", "fine")
@@ -221,6 +246,8 @@ class NeRFSystem:
                 stack = np.stack([img_gt, img_pred, depth])  # (3, 3, H, W)
                 self.writer.add_images("val/GT_pred_depth", stack,
                                        global_step)
+        if not self.is_main:
+            return {}
         metrics = {"val/loss": float(np.mean(losses)),
                    "val/psnr": float(np.mean(psnrs)),
                    "val/ssim": float(np.mean(ssims))}
@@ -256,12 +283,16 @@ class NeRFSystem:
             for e in range(1, start_epoch + 1):
                 self.trainer.reshuffle(seed_for(hp.seed + 2, e))
         total_steps = hp.num_epochs * spe
-        print(f"[fit] {hp.num_epochs} epochs x {spe} steps/epoch = "
-              f"{total_steps} steps (resuming at {start_step}) on "
-              f"{self.device}", flush=True)
+        main = self.is_main
+        self._say(f"[fit] {hp.num_epochs} epochs x {spe} steps/epoch = "
+                  f"{total_steps} steps (resuming at {start_step}) on "
+                  f"{self.device}; world {pdist.world_of(self.group)}"
+                  + (f" ({pdist.backend_of(self.group)})" if self.group
+                     else ""))
         if start_step == 0:
             sanity = self.validate(0, max_items=1)
-            print(f"[sanity] val/psnr={sanity['val/psnr']:.2f}")
+            if main:
+                self._say(f"[sanity] val/psnr={sanity['val/psnr']:.2f}")
         # past warmup, the store is tightened before any step runs
         if hp.occ_train and not packed_resume and \
                 start_epoch >= hp.occ_warmup_epochs and \
@@ -277,7 +308,8 @@ class NeRFSystem:
             # segments stop at epoch boundaries, where the store reshuffles
             seg = min(hp.scan_steps, total_steps - step, spe - step % spe)
             epoch_before = step // spe
-            do_trace = bool(hp.profile_dir) and not profiled and step > 0
+            do_trace = (bool(hp.profile_dir) and not profiled and step > 0
+                        and main)
             with timer.phase("train_segment"):
                 if do_trace:
                     m = self._profiled_segment(step_seed, seg)
@@ -303,9 +335,9 @@ class NeRFSystem:
                 # covered analytically
                 eff = (f", x{self.trainer.pack_expand:.2f} packed = "
                        f"{rate * self.trainer.pack_expand:,.0f} effective")
-            print(f"[train] step {step}/{total_steps} "
-                  f"loss={m['loss'][-1]:.4f} psnr={m['psnr'][-1]:.2f} "
-                  f"({rate:,.0f} rays/s{eff})", flush=True)
+            self._say(f"[train] step {step}/{total_steps} "
+                      f"loss={m['loss'][-1]:.4f} psnr={m['psnr'][-1]:.2f} "
+                      f"({rate:,.0f} rays/s{eff})")
 
             epoch = step // spe
             if epoch > epoch_before and step < total_steps:
@@ -322,22 +354,25 @@ class NeRFSystem:
             if epoch_val or mid_val:
                 with timer.phase("validate"):
                     val = self.validate(step)
-                metrics = {**val, "epoch": epoch, "step": step}
-                tag = (f"epoch {epoch}" if epoch_val
-                       else f"step {step} epoch {epoch}")
-                print(f"[val] {tag} loss={val['val/loss']:.4f} "
-                      f"psnr={val['val/psnr']:.2f} "
-                      f"ssim={val['val/ssim']:.3f}", flush=True)
+                if main:
+                    metrics = {**val, "epoch": epoch, "step": step}
+                    tag = (f"epoch {epoch}" if epoch_val
+                           else f"step {step} epoch {epoch}")
+                    self._say(f"[val] {tag} loss={val['val/loss']:.4f} "
+                              f"psnr={val['val/psnr']:.2f} "
+                              f"ssim={val['val/ssim']:.3f}")
             if epoch_val:
                 with timer.phase("checkpoint"):
-                    self.topk.maybe_save(self.state, val["val/loss"], epoch,
-                                         meta={"step": step})
-                    save_checkpoint(os.path.join(self.ckpt_dir, "last.ckpt"),
-                                    self.state, {"step": step,
-                                                 "epoch": epoch})
+                    if main:
+                        self.topk.maybe_save(self.state, val["val/loss"],
+                                             epoch, meta={"step": step})
+                        save_checkpoint(
+                            os.path.join(self.ckpt_dir, "last.ckpt"),
+                            self.state, {"step": step, "epoch": epoch})
+                    pdist.barrier(self.group)
         if self.writer is not None:
             self.writer.flush()
-        print(f"[profiler]\n{timer.summary()}", flush=True)
+        self._say(f"[profiler]\n{timer.summary()}")
         return metrics
 
     def _profiled_segment(self, step_seed: int, seg: int):

@@ -1,15 +1,41 @@
-"""Wall time per named phase of a training run.
+"""Wall time per named phase of a training run, and the port's one
+device timer.
 
-The port's own copy of `PhaseTimer` from nerf_pl_tpu/utils/profiling.py,
-unchanged. (Its `trace()` wraps jax.profiler; the port traces with
-torch.profiler, `NeRFSystem._profiled_segment`.)
+`PhaseTimer` is the port's own copy of the one in
+nerf_pl_tpu/utils/profiling.py, unchanged. (Its `trace()` wraps
+jax.profiler; the port traces with torch.profiler,
+`NeRFSystem._profiled_segment`.) `cuda_event_ms` times a call on the card
+with CUDA events; chip_smoke.py and `bench_kernels` both time with it.
 """
 from __future__ import annotations
 
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Callable, Dict, List
+
+
+def cuda_event_ms(fn: Callable[[], object], reps: int = 10,
+                  warmup: int = 2) -> List[float]:
+    """The device time of each of `reps` calls of fn(), in ms, between two
+    CUDA events on the current stream, after `warmup` calls and a sync.
+    fn takes no argument: a caller that wants fresh inputs a call draws
+    them from its own iterator."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
 
 
 class PhaseTimer:

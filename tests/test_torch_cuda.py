@@ -866,3 +866,61 @@ def test_run_steps_graph_captures_the_plain_path(dev):
     assert tr.captures == 1
     for a, b in zip(tree_leaves(se.params), tree_leaves(sg.params)):
         assert max_err(a, b) <= 1e-5 * a.abs().max().item()
+
+
+# ------------------------------------------------------- data parallel
+
+def test_cuda_event_ms_and_bench_kernels(dev, capsys):
+    """The port's one device timer, and bench_kernels at a small size:
+    every tile prints its ms and Mpts/s, for both kernels."""
+    from nerf_pl_tpu_torch import bench_kernels
+    from nerf_pl_tpu_torch.utils.profiling import cuda_event_ms
+    x = torch.randn((1024, 1024), device=dev)
+    times = cuda_event_ms(lambda: x @ x, reps=3, warmup=1)
+    assert len(times) == 3 and all(t > 0 for t in times)
+    bench_kernels.main(["--n_rays", "4096", "--s", "64", "--tiles", "1000",
+                        "4096", "--reps", "2"])
+    out = capsys.readouterr().out
+    assert len([ln for ln in out.splitlines() if "Mpts/s" in ln]) == 4
+
+
+def test_gloo_ranks_sharing_the_card_need_eager_steps(dev):
+    """Two gloo ranks on one card: run_steps raises without eager=True (a
+    gloo collective cannot be captured), and eager steps agree across the
+    ranks."""
+    import torch_dp_ranks as ranks
+
+    from nerf_pl_tpu_torch import dist as pdist
+    losses = pdist.launch(ranks.gloo_on_cuda, 2, device="cuda", timeout=300)
+    assert torch.equal(losses[0], losses[1])
+    assert torch.isfinite(losses[0]).all()
+
+
+def test_nccl_one_rank_graph_equals_no_group(dev):
+    """One rank in an NCCL group (the all-reduce captured in the step's
+    graph) replays bit for bit as the trainer with no group, one capture
+    each, across an epoch boundary."""
+    import torch_dp_ranks as ranks
+
+    from nerf_pl_tpu_torch import dist as pdist
+    (grp, c_grp), (none, c_none) = pdist.launch(ranks.graph_with_group, 1,
+                                                device="cuda",
+                                                timeout=300)[0]
+    assert c_grp == c_none == 1
+    for k in none:
+        assert (grp[k] == none[k]).all(), k
+
+
+def test_dryrun_multichip_on_cuda(dev):
+    """dryrun_multichip 2 --device cuda: two gloo ranks on the card, every
+    phase's ok line."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-m",
+                           "nerf_pl_tpu_torch.dryrun_multichip", "2",
+                           "--device", "cuda"], capture_output=True,
+                          text=True, timeout=600, cwd=repo)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.count(" ok\n") == 5, proc.stdout

@@ -205,13 +205,6 @@ def test_culled_eval_cli_matches_jax_cli(scene3, occ_ckpt, tmp_path, capsys,
         assert np.abs(a - b).max() <= 3, name
 
 
-def test_unported_flags_rejected(capsys):
-    with pytest.raises(SystemExit):
-        teval.main(["--root_dir", "r", "--ckpt_path", "c", "--num_chips",
-                    "2"])
-    assert "ROADMAP" in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("seed,noise", [(0, 0.0), (1, 0.02), (2, 0.1),
                                         (3, 0.5), (4, 1.0)])
 def test_ssim_matches_golden(seed, noise):

@@ -230,7 +230,7 @@ def _port_get_opts(name):
 
 
 SCRIPTS = ["extract_color_mesh", "preview_bounds", "save_weights_only",
-           "make_hard_datasets", "northstar"]
+           "make_hard_datasets", "northstar", "bench_kernels"]
 
 
 @pytest.mark.parametrize("name", SCRIPTS)

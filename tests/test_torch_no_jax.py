@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_no_pil():
                  "config", "utils.synthetic", "eval", "train", "mesh",
                  "mesh.native", "mesh.extract", "extract_color_mesh",
                  "preview_bounds", "save_weights_only",
-                 "make_hard_datasets", "northstar"):
+                 "make_hard_datasets", "northstar", "dist",
+                 "dryrun_multichip", "bench_kernels"):
         assert f"nerf_pl_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -67,8 +68,10 @@ def test_train_cli_parses_without_jax():
     proc = _run("import sys\n"
                 "import nerf_pl_tpu_torch.train\n"
                 "from nerf_pl_tpu_torch.config import get_opts\n"
-                "from nerf_pl_tpu_torch.training.system import unported\n"
-                "assert unported(get_opts(['--fused_train'])) is None\n"
+                "from nerf_pl_tpu_torch.config import validate_hparams\n"
+                "import nerf_pl_tpu_torch.training.system\n"
+                "validate_hparams(get_opts(['--fused_train', '--num_gpus', "
+                "'2']))\n"
                 + CHECK)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

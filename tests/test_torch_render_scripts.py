@@ -20,7 +20,7 @@ from nerf_pl_tpu.models import init_nerf_params as jinit
 from nerf_pl_tpu.parallel.spmd import TrainState
 from nerf_pl_tpu.training.checkpoints import save_checkpoint
 from nerf_pl_tpu.utils.synthetic import make_blender_scene
-from nerf_pl_tpu_torch import bench_render, render_image
+from nerf_pl_tpu_torch import bench_kernels, bench_render, render_image
 
 GRID = ["--occ_threshold=0.3", "--occ_range", "-1.5", "1.5", "--occ_N",
         "32"]
@@ -82,3 +82,13 @@ def test_render_image_culled(scene, ckpt, tmp_path, capsys):
     assert "PSNR: " in printed
     for name in ("render_000.png", "depth_000.png"):
         assert (tmp_path / name).exists()
+
+
+def test_bench_kernels_needs_cuda(monkeypatch):
+    """bench_kernels times the CUDA kernels on cuda:0 and raises without
+    CUDA, rather than timing the plain versions on the CPU."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_kernels.main(["--n_rays", "64", "--s", "8"])
+

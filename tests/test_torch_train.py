@@ -288,13 +288,6 @@ def test_fit_writes_checkpoints_jax_reads_and_resumes(scene, tmp_path):
     assert int(resumed.state.opt_state[1]["count"]) == 3 * spe
 
 
-@pytest.mark.parametrize("extra", [["--num_gpus", "2"]])
-def test_train_cli_rejects_unported_flags(scene, extra, capsys):
-    argv = _flags(scene, 1, extra)
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        ttrain.main(argv, device="cpu")
-
-
 def test_train_cli_fused_mlp_needs_fused_train(scene, tmp_path,
                                                monkeypatch):
     """--fused_mlp needs no --fused_train (the test keeps the name of the
