@@ -198,6 +198,28 @@
    an epoch, its reshuffle and 12 steps more, one capture each, and 100
    replayed steps of each timed in turns. Two ranks on one card say
    nothing of scaling; the wall times printed are labelled so.
+   Tensor parallel ([tp]): two gloo ranks share cuda:0 as a dp x tp =
+   (1, 2) mesh (Trainer(num_model=2, tensor_parallel=True), eager steps,
+   TF32 off): 5 plain (unfused) steps at the dense bench config held
+   against the one-process trainer with no model axis (losses within
+   rtol 2e-4, the final xyz_0.w within atol 2e-5: the bars of
+   tests/test_spmd.py::test_tp_matches_dp_numerics); one step each on the
+   `fused` (mlp_fwd, mlp_bwd) and `fused_train` (train_fwd, train_bwd)
+   routes, 2 launches of each kernel a rank, the gathered gradients held
+   to GRAD_TOL per leaf against the one-process step on the same batch
+   and draws (bit for bit expected: every rank runs the kernels on the
+   gathered whole weights); each rank's blocks equal the slices of the
+   gathered params, after init and after the steps. Then the dry run over
+   4 gloo ranks sharing the card (python -m
+   nerf_pl_tpu_torch.dryrun_multichip 4 --device cuda): five ok lines,
+   phases 1 and 4 on the (2, 2) mesh with tp=True.
+   The bench ([bench]): python -m nerf_pl_tpu_torch.bench's main, at its
+   full size (the 16,000,000-ray store, a 400-step warm-up segment and
+   three timed ones, best of 3), for --config dense, culled48 and
+   culled32, and culled32 with --precision bfloat16: each one's JSON
+   line, its spread and the card's name and power limit printed, finite
+   losses, and exactly 2 mse_render launches a step (the capture's 3
+   warm-up steps among them).
 10. Prints one JSON line about the kernels (each with its launches on its
    paths, sigma_render's and render_eval's on the eval path and the
    [culled] ladder together, its error, its ms and its plain version's at
@@ -213,6 +235,7 @@ Any failure raises, and the script exits non-zero without those lines.
 import contextlib
 import dataclasses
 import glob
+import io
 import json
 import math
 import os
@@ -247,6 +270,7 @@ from nerf_pl_tpu_torch.ops import (add_launches, by_symbol,  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_mlp as fm  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_render as fr  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_train as ft  # noqa: E402
+from nerf_pl_tpu_torch import bench  # noqa: E402
 from nerf_pl_tpu_torch import dist as pdist  # noqa: E402
 from nerf_pl_tpu_torch import dryrun_multichip  # noqa: E402
 from nerf_pl_tpu_torch.parallel import Trainer, make_render_fn  # noqa: E402
@@ -262,7 +286,8 @@ from nerf_pl_tpu_torch.rendering.occupancy import (  # noqa: E402
     resolve_ranges)
 from nerf_pl_tpu_torch.training import (get_lr_schedule,  # noqa: E402
                                         get_optimizer, loss_dict)
-from nerf_pl_tpu_torch.training.checkpoints import load_ckpt  # noqa: E402
+from nerf_pl_tpu_torch.training.checkpoints import (  # noqa: E402
+    gather_state, load_ckpt, map_with_paths)
 from nerf_pl_tpu_torch.training.optimizers import tree_leaves  # noqa: E402
 from nerf_pl_tpu_torch.utils.profiling import cuda_event_ms  # noqa: E402
 
@@ -1194,6 +1219,181 @@ def dp_nccl_path(dev, rays, rgbs, smi):
     if not (same and same_m and cn == c0 == 1 and ln == l0):
         raise AssertionError("[dp] the NCCL group's graph differs from the "
                              "no-group graph's")
+
+
+TP_WORLD = 2             # ranks of the [tp] phase's (1, 2) mesh, on cuda:0
+TP_STEPS = 5             # plain steps held against one process
+TP_LOSS_RTOL, TP_W_ATOL = 2e-4, 2e-5   # tests/test_spmd.py's TP bars
+TP_ROUTES = (("fused", dict(fused=True), ("mlp_fwd", "mlp_bwd")),
+             ("fused_train", dict(fused_train=True),
+              ("train_fwd", "train_bwd")))
+
+
+def tp_trainer(dev, group, route=None, num_model=TP_WORLD):
+    """A Trainer at the dense bench config, unfused or on a kernel route,
+    over `group` with a model axis of num_model (tensor parallel when it
+    is more than 1)."""
+    sched = get_lr_schedule("steplr", 5e-4, 16, 1000, decay_step=[2, 4, 8],
+                            decay_gamma=0.5)
+    rcfg = RenderConfig(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+                        perturb=1.0, noise_std=1.0, white_back=True,
+                        **(route or {}))
+    return Trainer(ModelConfig(), rcfg, get_optimizer("adam", sched), sched,
+                   loss_dict["mse"], TRAIN_BATCH, dev, group=group,
+                   num_model=num_model, tensor_parallel=num_model > 1)
+
+
+def blocks_are_slices(tr, params):
+    """Whether this rank's blocks equal the slices of the gathered whole
+    params, bit for bit (collective over the model group)."""
+    whole = gather_state(params, tr.tp)
+    again = map_with_paths(tr.tp.shard_leaf, whole)
+    return all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                 tree_leaves(again)))
+
+
+def tp_rank(group, dev, rays, rgbs):
+    """One rank of the [tp] phase (spawned by dist.launch): TP_STEPS eager
+    plain steps on the (1, 2) mesh, then one step's gradients on each
+    kernel route with the launches it made."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tr = tp_trainer(dev, group)
+    tr.set_data(rays, rgbs)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    sliced = [blocks_are_slices(tr, state.params)]
+    w0_block = tuple(state.params["nerf_coarse"]["xyz_0"]["w"].shape)
+    t0 = time.perf_counter()
+    state, m = tr.run_steps(state, TRAIN_SEED, TP_STEPS, eager=True)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TP_STEPS
+    sliced.append(blocks_are_slices(tr, state.params))
+    whole = gather_state(state.params, tr.tp)
+    out = {"losses": m["loss"].cpu(), "sliced": sliced, "step_s": step_s,
+           "w0": whole["nerf_coarse"]["xyz_0"]["w"].cpu(),
+           "w0_block": w0_block, "mesh": tr.mesh.shape}
+    for route, kw, _ in TP_ROUTES:
+        tr = tp_trainer(dev, group, kw)
+        tr.set_data(rays, rgbs)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        batch = tr._sample_batch(0)
+        draws = tr.step_draws(TRAIN_SEED, 0)
+        reset_counts()
+        loss, _, grads = tr._loss_and_grads(state.params, *batch, None,
+                                            draws)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        out[route] = {"loss": float(loss), "counts": counts,
+                      "grads": [g.cpu() for g in
+                                tree_leaves(gather_state(grads, tr.tp))]}
+    return out
+
+
+def tp_path(dev, store, smi):
+    """Tensor parallel on the card ([tp]), two gloo ranks sharing cuda:0
+    as a (1, 2) mesh; see the module docstring. Returns the kernels'
+    launches of both ranks' route steps."""
+    rays, rgbs = (t[:GRAPH_EPOCH * TRAIN_BATCH].cpu().numpy() for t in store)
+    t0 = time.perf_counter()
+    res = pdist.launch(tp_rank, TP_WORLD, rays, rgbs, device="cuda",
+                       timeout=600)
+    t_launch = time.perf_counter() - t0
+    tr = tp_trainer(dev, None, num_model=1)
+    tr.set_data(rays, rgbs)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    state, m = tr.run_steps(state, TRAIN_SEED, TP_STEPS, eager=True)
+    losses = m["loss"].cpu()
+    w0 = state.params["nerf_coarse"]["xyz_0"]["w"].cpu()
+    refs = {}
+    for route, kw, _ in TP_ROUTES:
+        t1 = tp_trainer(dev, None, kw, num_model=1)
+        t1.set_data(rays, rgbs)
+        st1 = t1.init_state(torch.Generator().manual_seed(0))
+        loss1, _, g1 = t1._loss_and_grads(st1.params, *t1._sample_batch(0),
+                                          None, t1.step_draws(TRAIN_SEED, 0))
+        refs[route] = (float(loss1), [g.cpu() for g in tree_leaves(g1)])
+    launches = {}
+    for r, out in enumerate(res):
+        loss_err = ((out["losses"] - losses).abs() / losses.abs()).max()
+        w_err = max_err(out["w0"], w0)
+        print(f"[tp] rank {r} of a {out['mesh']} mesh (xyz_0.w block "
+              f"{out['w0_block']}): {TP_STEPS} eager plain steps, losses "
+              f"{[round(float(v), 5) for v in out['losses']]} against one "
+              f"process's {[round(float(v), 5) for v in losses]} (largest "
+              f"relative gap {float(loss_err):.3e}), final xyz_0.w within "
+              f"{w_err:.3e}; blocks the slices of the gathered params after "
+              f"init and the steps: {out['sliced']}; "
+              f"{out['step_s'] * 1e3:.1f} ms a step, 2 ranks sharing one "
+              f"card over gloo ({smi})")
+        if not (loss_err <= TP_LOSS_RTOL and w_err <= TP_W_ATOL
+                and all(out["sliced"]) and out["w0_block"] == (63, 128)):
+            raise AssertionError(f"[tp] rank {r}: plain steps off")
+        for route, _, kernels in TP_ROUTES:
+            got = out[route]
+            loss1, ref = refs[route]
+            rels = rel_errs(got["grads"], ref)
+            same = all(torch.equal(a, b) for a, b in zip(got["grads"], ref))
+            counts = {k: got["counts"][k] for k in kernels}
+            others = {k: n for k, n in got["counts"].items()
+                      if n and k not in kernels}
+            print(f"[tp] rank {r} {route} step on the gathered weights: "
+                  f"launches {counts}, loss {got['loss']:.6f} against "
+                  f"{loss1:.6f}, gradients bit for bit one "
+                  f"process's: {same} (largest relative gap "
+                  f"{max(rels):.3e})")
+            if counts != {k: 2 for k in kernels} or others:
+                raise AssertionError(f"[tp] {route}: launches "
+                                     f"{got['counts']}")
+            if not max(rels) <= GRAD_TOL:
+                raise AssertionError(f"[tp] {route}: gradients {rels}")
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+    out, secs = run_cli(["-m", "nerf_pl_tpu_torch.dryrun_multichip", "4",
+                         "--device", "cuda"], "dryrun_multichip 4",
+                        os.path.dirname(os.path.abspath(__file__)))
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith("[dryrun_multichip]")]
+    for ln in lines:
+        print(f"[tp] {ln}")
+    mesh = "mesh={'data': 2, 'model': 2} tp=True"
+    if not (len(lines) == 5 and all(ln.endswith(" ok") for ln in lines)
+            and mesh in lines[0] and mesh in lines[3]):
+        raise AssertionError(f"[tp] dryrun_multichip 4:\n{out}")
+    print(f"[tp] wall: the 2-rank launch {t_launch:.1f} s, dryrun_multichip "
+          f"4 (4 gloo ranks on one card) {secs:.1f} s")
+    return launches
+
+
+BENCH_RUNS = (["--config", "dense"], ["--config", "culled48"],
+              ["--config", "culled32"],
+              ["--config", "culled32", "--precision", "bfloat16"])
+
+
+def bench_path(smi):
+    """The bench at full size ([bench]), each config in turn with the
+    counts set to 0 before it; returns its mse_render launches."""
+    total = 0
+    for argv in BENCH_RUNS:
+        reset_counts()
+        line = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(line):
+            out = bench.main(argv)
+        secs = time.perf_counter() - t0
+        n = read_counts()["mse_render"]
+        per_step = out["steps"] + _StepGraph.WARMUP_STEPS * out["captures"]
+        print(f"[bench] {' '.join(argv)}: {line.getvalue().strip()}; "
+              f"segments {[round(v, 1) for v in out['spread']]} rays/s; "
+              f"mse_render {n} launches over {per_step} steps; "
+              f"{out['captures']} capture; {secs:.1f} s in all "
+              f"({bench.N_RAYS} rays, {bench.STEPS}-step segments; {smi})")
+        if n != 2 * per_step or out["captures"] != 1:
+            raise AssertionError(f"[bench] {argv}: {n} launches")
+        if not np.isfinite(out["losses"]).all():
+            raise AssertionError(f"[bench] {argv}: non-finite losses")
+        total += n
+        torch.cuda.empty_cache()
+    return total
 
 
 CAPTURE_FAILURE = """
@@ -2274,6 +2474,7 @@ def main():
     graph_path(dev, store, smi)
     descent_path(dev, store)
     dp_path(dev, store, smi)
+    tp_launches = tp_path(dev, store, smi)
     del store
     torch.cuda.empty_cache()
     params, rays, _ = validation_path(dev)
@@ -2288,6 +2489,9 @@ def main():
         launches[k] += n
     culled_cli_path()
     capture_failure_path()
+    for k, n in tp_launches.items():
+        launches[k] += n
+    launches["mse_render"] += bench_path(smi)
 
     fine_S = N_SAMPLES + N_IMPORTANCE
     times[("mse_render", fine_S)] = mse_times[fine_S]

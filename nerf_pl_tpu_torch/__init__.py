@@ -8,8 +8,8 @@ use and bound with ctypes (`ops/_build.py`). This package imports neither
 jax nor the JAX package: it keeps its own copies of the host code it needs
 (`config`, `datasets`, `utils`).
 
-Ported so far, on one device or data parallel over several (`dist`),
-with every TPU kernel of the repo: the test-time render (`eval.py --fused_mlp`), the loss-fused training step
+Ported, on one device or over several (`dist`; data parallel, and tensor
+parallel on a mesh's model axis), with every TPU kernel of the repo: the test-time render (`eval.py --fused_mlp`), the loss-fused training step
 (`train.py --fused_train`), training and validation through the fused
 point MLP (`train.py --fused_mlp`), and training by autograd through the
 two-kernel fused training render (`RenderConfig(fused_train=True)`):
@@ -23,7 +23,9 @@ two-kernel fused training render (`RenderConfig(fused_train=True)`):
   rendering  — volume quadrature, render_rays (test and train time, fused
                or not), fused_mse_train_step
   parallel   — make_render_fn (padded, chunked full-image renderer) and
-               the Trainer, each on one device or over a process group
+               the Trainer, each on one device or over a process group;
+               the (data, model) mesh and the MLP's tensor parallel
+               layout on its model axis (mesh)
   dist       — data parallel over torch.distributed: the world, the
                launcher of one process a rank, the collectives over trees
   training   — checkpoints (both packages' format), losses, lr schedules,
@@ -38,6 +40,6 @@ two-kernel fused training render (`RenderConfig(fused_train=True)`):
   config     — the train CLI's flags (Hparams, validate_hparams, get_opts)
   eval, train, render_image, bench_render, extract_color_mesh,
   preview_bounds, save_weights_only, make_hard_datasets, northstar,
-  dryrun_multichip, bench_kernels
+  dryrun_multichip, bench_kernels, bench
              — the CLIs (python -m nerf_pl_tpu_torch.<name>)
 """

@@ -4,8 +4,8 @@ The port's counterpart of the JAX package's `make_mesh`
 (nerf_pl_tpu/parallel/mesh.py) for its `data` axis. Where the JAX package
 runs one process over a mesh and lets `shard_map` and `psum` move the data,
 the port runs one process per rank, and a process group carries the
-reductions. The port is data parallel only: the mesh's `model` axis
-(tensor parallelism) has no counterpart.
+reductions. The mesh's `model` axis (tensor parallelism) is laid over
+the same world by `parallel/mesh.py`.
 
   * `plan_world`: the world a CLI asks for. On the card it is
     min(requested, torch.cuda.device_count()), one card per rank over

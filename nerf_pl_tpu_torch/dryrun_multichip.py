@@ -1,21 +1,26 @@
-"""A dry run of data parallel training and rendering over N ranks.
+"""A dry run of multi-device training and rendering over N ranks.
 
     python -m nerf_pl_tpu_torch.dryrun_multichip N [--device cpu|cuda]
 
-Port of `dryrun_multichip` (__graft_entry__.py:52-264), data parallel
-only (the port has no tensor parallelism). It starts N ranks
-(`dist.launch`): gloo ranks on the CPU; on the card one card a
-rank over NCCL, or, with more ranks than cards, ranks sharing the cards
-over gloo, whose steps then run eagerly (a gloo collective cannot be
-captured in a CUDA graph). The phases are the JAX dry run's, at its tiny
-shapes (8 coarse samples, 16 rays a rank a step), on the flagship model:
+Port of `dryrun_multichip` (__graft_entry__.py:52-264). It starts N ranks
+(`dist.launch`) on the card (cuda, the default; without a CUDA device it
+raises) or, with --device cpu, as gloo ranks on the CPU. On the card a
+rank takes a card over NCCL, or, with more ranks than cards, ranks share
+the cards over gloo, whose steps then run eagerly (a gloo collective
+cannot be captured in a CUDA graph). The phases are the JAX dry run's, at
+its tiny shapes (8 coarse samples, 16 rays a data index a step), on the
+flagship model. As in JAX, phases 1 and 4 run on a dp x tp = (N/2, 2)
+mesh with the MLPs split over its model axis when N >= 4 and N is even,
+and data parallel over N otherwise; phases 2, 3 and 5 are data parallel
+over N:
 
   1. one plain step (autograd over the unfused render);
   2. one loss-fused step at 8 + 8 samples with occ_keepalive 0.1;
   3. the store tightened to one box (pack, 32 segments, dilate 1), a
      reshuffle and a loss-fused step;
-  4. a resume: 2 steps, a checkpoint rank 0 writes, a fresh trainer that
-     loads it and 2 more steps give the loss stream of 4 uninterrupted
+  4. a resume: 2 steps, a checkpoint rank 0 writes (the state gathered
+     over the model axis), a fresh trainer that loads it (each rank its
+     blocks) and 2 more steps give the loss stream of 4 uninterrupted
      steps;
   5. the sharded full-image render against one process's render of the
      same rays, and the culled renderer sharded against one process's, on
@@ -55,9 +60,12 @@ def _dryrun_rank(group, device):
                             RenderConfig, render_rays_chunked)
     from .rendering.occupancy import ray_box_hits
     from .training import get_lr_schedule, get_optimizer, loss_dict
-    from .training.checkpoints import load_checkpoint, save_checkpoint
+    from .training.checkpoints import (gather_state, load_checkpoint,
+                                       save_checkpoint)
 
     world = pdist.world_of(group)
+    num_model = 2 if world >= 4 and world % 2 == 0 else 1
+    tp = num_model > 1
     main = pdist.is_main(group)
     backend = pdist.backend_of(group)
     eager = device.type == "cuda" and backend != "nccl"
@@ -74,12 +82,14 @@ def _dryrun_rank(group, device):
     mcfg = ModelConfig()
     sched = get_lr_schedule("steplr", 5e-4, 2, 4, decay_step=[2])
     opt = get_optimizer("adam", sched)
-    batch = 16 * world
-    rays, rgbs = _store(64 * world)
+    rays, rgbs = _store(64 * (world // num_model))   # JAX's 64 * n_data
 
-    def trainer(rcfg):
-        tr = Trainer(mcfg, rcfg, opt, sched, loss_dict["mse"], batch, device,
-                     group=group)
+    def trainer(rcfg, mesh_model=1):
+        """Over the world: dp, or dp x tp with a model axis of 2; 16 rays
+        a data index a step."""
+        tr = Trainer(mcfg, rcfg, opt, sched, loss_dict["mse"],
+                     16 * (world // mesh_model), device, group=group,
+                     num_model=mesh_model, tensor_parallel=mesh_model > 1)
         tr.set_data(rays, rgbs)
         return tr
 
@@ -90,11 +100,11 @@ def _dryrun_rank(group, device):
     # 1: a plain step
     rcfg = RenderConfig(N_samples=8, N_importance=4, perturb=1.0,
                         noise_std=1.0, white_back=True)
-    tr = trainer(rcfg)
+    tr = trainer(rcfg, num_model)
     state = tr.init_state(torch.Generator().manual_seed(0))
     _, losses = run(tr, state, 1, 1)
-    say(f"n={world} {backend} on {device} (steps "
-        f"{'eager' if eager or device.type == 'cpu' else 'graph'}) "
+    say(f"n={world} mesh={tr.mesh.shape} tp={tp} {backend} on {device} "
+        f"(steps {'eager' if eager or device.type == 'cpu' else 'graph'}) "
         f"loss={finite(losses[-1], 'loss'):.4f} ok")
 
     # 2: the loss-fused step
@@ -123,17 +133,18 @@ def _dryrun_rank(group, device):
     ckpt = os.path.join(ckpt_dir, "mid.ckpt")
 
     def segments(splits, save=False, restore=False):
-        tr_r = trainer(rcfg)
+        tr_r = trainer(rcfg, num_model)
         state_r = tr_r.init_state(torch.Generator().manual_seed(7))
         if restore:
-            state_r, _ = load_checkpoint(ckpt, state_r)
+            state_r, _ = load_checkpoint(ckpt, state_r, tp=tr_r.tp)
         out = []
         for k in splits:
             state_r, losses = run(tr_r, state_r, 8, k)
             out.extend(losses.tolist())
         if save:
+            whole = gather_state(state_r, tr_r.tp)
             if main:
-                save_checkpoint(ckpt, state_r, {"step": state_r.step})
+                save_checkpoint(ckpt, whole, {"step": state_r.step})
             pdist.barrier(group)
         return out, state_r
 
@@ -147,8 +158,9 @@ def _dryrun_rank(group, device):
     np.testing.assert_allclose(head + tail, full, rtol=1e-5)
     if resumed.step != 4:
         raise AssertionError(f"resumed at step {resumed.step}, not 4")
-    say(f"resume dp={world} continued-stream == uninterrupted "
-        f"({[round(v, 4) for v in full]}) ok")
+    say(f"resume dp={tr.mesh.num_data} mesh={tr.mesh.shape} tp={tp} "
+        f"continued-stream == uninterrupted ({[round(v, 4) for v in full]}) "
+        "ok")
 
     # 5: sharded renders against one process's
     rcfg_eval = RenderConfig(N_samples=8, N_importance=4, test_time=True,
@@ -187,12 +199,11 @@ def _dryrun_rank(group, device):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n", type=int, help="ranks")
-    ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    ap.add_argument("--device", choices=("cpu", "cuda"),
+                    help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("dryrun_multichip: --device cuda, but "
-                         "torch.cuda.is_available() is false")
-    pdist.launch(_dryrun_rank, args.n, device=args.device, timeout=TIMEOUT)
+    kind, _ = pdist.plan_world(args.n, args.device)    # raises without CUDA
+    pdist.launch(_dryrun_rank, args.n, device=kind, timeout=TIMEOUT)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,10 @@ Port of nerf_pl_tpu/models/nerf.py. Weights are stored (fan_in, fan_out),
 the JAX layout, so a checkpoint's arrays load with no transposes and the
 fused kernels' packing (ops/fused_mlp.py) reads them as they are.
 `nerf_apply` is a plain function of a nested dict of tensors; `NeRF` is an
-nn.Module holding the same dict as parameters.
+nn.Module holding the same dict as parameters. Given a tensor parallel
+layout (`parallel/mesh.py::TensorParallel`), `nerf_apply` runs the
+Megatron MLP on this rank's blocks of the weights, as GSPMD partitions
+the JAX MLP from its PartitionSpecs.
 """
 from __future__ import annotations
 
@@ -83,11 +86,34 @@ def params_from_numpy(arrays: Mapping[str, Mapping[str, np.ndarray]],
             for layer, leaves in arrays.items()}
 
 
+def _matmul(w, x, compute_dtype):
+    """x @ w with operands rounded to compute_dtype and f32 sums (the JAX
+    package's preferred_element_type=float32)."""
+    return x.to(compute_dtype).float() @ w.to(compute_dtype).float()
+
+
 def _linear(p, x, compute_dtype):
-    """x @ w + b with operands rounded to compute_dtype and f32 sums (the
-    JAX package's preferred_element_type=float32)."""
-    w = p["w"].to(compute_dtype).float()
-    return x.to(compute_dtype).float() @ w + p["b"]
+    return _matmul(p["w"], x, compute_dtype) + p["b"]
+
+
+def _layer(params, name, x, split, compute_dtype, tp):
+    """One linear layer on x, whose last dim is split over the model axis
+    iff `split`: (y, whether y's is). Without tp, x @ w + b. With tp, by
+    the layer's spec: a column layer copies a whole x to the model axis
+    and gives its block of y; a row layer takes its block of x, reduces
+    x @ w over the axis and adds b once; a whole layer takes a whole x.
+    A split x is gathered, a whole one sliced, where the layer needs it."""
+    p = params[name]
+    kind = None if tp is None else tp.kind(name)
+    if kind == "row":
+        if not split:
+            x = tp.scatter(x)
+        return tp.reduce(_matmul(p["w"], x, compute_dtype)) + p["b"], False
+    if split:
+        x = tp.gather(x)
+    if kind == "column":
+        return _linear(p, tp.copy(x), compute_dtype), True
+    return _linear(p, x, compute_dtype), False
 
 
 def nerf_apply(params: Params,
@@ -95,28 +121,36 @@ def nerf_apply(params: Params,
                dir_emb: Optional[torch.Tensor] = None,
                cfg: NeRFConfig = NeRFConfig(),
                sigma_only: bool = False,
-               compute_dtype: torch.dtype = torch.float32):
+               compute_dtype: torch.dtype = torch.float32,
+               tp=None):
     """Apply the NeRF MLP to embedded points.
 
     Returns sigma (..., 1) if sigma_only else (rgb (..., 3), sigma (..., 1));
     sigma is the raw (pre-ReLU) density, rgb is post-sigmoid. dir_emb
-    broadcasts against the points' batch shape.
+    broadcasts against the points' batch shape. tp: None, or the
+    TensorParallel layout whose blocks `params` holds; the skip concat and
+    the view branch then see whole activations, and so do the outputs.
     """
-    h = xyz_emb
+    h, split = xyz_emb, False
     for i in range(cfg.D):
         if i in cfg.skips:
-            h = torch.cat([xyz_emb, h], dim=-1)
-        h = torch.relu(_linear(params[f"xyz_{i}"], h, compute_dtype))
-    sigma = _linear(params["sigma"], h, compute_dtype)
+            h = torch.cat([xyz_emb, tp.gather(h) if split else h], dim=-1)
+            split = False
+        h, split = _layer(params, f"xyz_{i}", h, split, compute_dtype, tp)
+        h = torch.relu(h)
+    sigma, _ = _layer(params, "sigma", h, split, compute_dtype, tp)
     if sigma_only:
         return sigma
 
-    feat = _linear(params["xyz_final"], h, compute_dtype)
+    feat, split = _layer(params, "xyz_final", h, split, compute_dtype, tp)
+    if split:
+        feat = tp.gather(feat)
     d = dir_emb.expand(*feat.shape[:-1], dir_emb.shape[-1])
-    hdir = torch.relu(_linear(params["dir"], torch.cat([feat, d], dim=-1),
-                              compute_dtype))
-    rgb = torch.sigmoid(_linear(params["rgb"], hdir, compute_dtype))
-    return rgb, sigma
+    hdir, _ = _layer(params, "dir", torch.cat([feat, d], dim=-1), False,
+                     compute_dtype, tp)
+    rgb, _ = _layer(params, "rgb", torch.relu(hdir), False, compute_dtype,
+                    tp)
+    return torch.sigmoid(rgb), sigma
 
 
 class NeRF(nn.Module):

@@ -1,18 +1,27 @@
 """The trainer: the ray store on the device, contiguous batch reads, the
 loss-fused or autograd step, K steps at a time, and the occupancy
-tightening of the store; on one device, or data parallel over a
-torch.distributed group (`dist.py`), one process a rank.
+tightening of the store; on one device, or over a torch.distributed group
+(`dist.py`), one process a rank, laid out as a (data, model) mesh
+(`mesh.py`).
 
 Port of `Trainer` in nerf_pl_tpu/parallel/spmd.py. The JAX Trainer shards
 the store and the batch over the mesh's `data` axis; here each rank holds
-its shard of the store, the contiguous block P("data") gives it, and the
-psums of the JAX Trainer are all-reduces over the group: the loss-fused
-step's gradients, loss and squared error (`spmd.py:521-533`), the
-autograd step's gradients of the local mean scaled by batch_local /
-batch_size (what GSPMD computes for the global mean), and the counts of
-`tighten_store` and `_partition_store` (`spmd.py:299-302, 370-374`).
-Without a group nothing is reduced and the code is the one-device
-trainer's. Tensor parallelism is not ported.
+its data index's shard of the store, the contiguous block P("data") gives
+it, and the psums of the JAX Trainer are all-reduces over the data group:
+the loss-fused step's gradients, loss and squared error
+(`spmd.py:521-533`), the autograd step's gradients of the local mean
+scaled by batch_local / batch_size (what GSPMD computes for the global
+mean), and the counts of `tighten_store` and `_partition_store`
+(`spmd.py:299-302, 370-374`). Without a group nothing is reduced and the
+code is the one-device trainer's.
+
+With `tensor_parallel` and a model axis of more than one rank, each rank
+holds its blocks of the MLPs (`mesh.model_pspecs`, the JAX rules) and of
+their optimizer moments, and the step runs the Megatron MLP
+(`models/nerf.py`) or, on the fused routes, gathers the whole weights for
+the kernels. The ranks of a model group hold the same store shard and
+draw the same numbers. The loss-fused step shards rays only and rejects a
+model axis, as in JAX (`spmd.py:512-520`).
 
 `run_steps` runs K steps of one function, `_step`, whose inputs are all on
 the device: the params and optimizer state, a 0-dim step counter (the
@@ -48,8 +57,10 @@ from ..rendering.occupancy import (dilate_segment_bits, ray_box_hits,
                                    ray_box_segment_bits, tighten_intervals)
 from ..rendering.render import (ModelConfig, RenderConfig, TrainDraws,
                                 fused_mse_train_step, render_rays)
+from ..training.checkpoints import map_with_paths
 from ..training.optimizers import Optimizer, apply_updates, tree_leaves, \
     tree_unflatten
+from .mesh import TensorParallel, make_mesh, model_pspecs
 
 
 class TrainState(NamedTuple):
@@ -91,35 +102,47 @@ def hash32(idx: torch.Tensor, seed: int) -> torch.Tensor:
 
 
 class Trainer:
-    """Args as the JAX Trainer's, with a process group for the mesh:
+    """Args as the JAX Trainer's, with a process group and the model
+    axis's size for the mesh:
       mcfg, rcfg_train: model and training render config.
       optimizer: from training.optimizers.get_optimizer.
       lr_schedule: step -> lr (logged beside the metrics).
       loss_fn: results dict, rgbs -> scalar (the autograd branch).
-      batch_size: the GLOBAL rays per step; each rank takes
-        batch_size // world of them.
+      batch_size: the GLOBAL rays per step; each data index takes
+        batch_size // num_data of them.
       device: where this rank's store, the params and the step live.
-      group: a torch.distributed process group (data parallel), or None
-        (one device, no collective).
+      group: a torch.distributed process group, or None (one device, no
+        collective).
+      num_model: ranks of the mesh's model axis (`mesh.make_mesh`); the
+        data axis takes the rest of the group.
+      tensor_parallel: split the MLPs over the model axis.
     """
 
     def __init__(self, mcfg: ModelConfig, rcfg_train: RenderConfig,
                  optimizer: Optimizer, lr_schedule: Callable,
                  loss_fn: Callable, batch_size: int,
-                 device: torch.device | str, group=None):
+                 device: torch.device | str, group=None, num_model: int = 1,
+                 tensor_parallel: bool = False):
         self.mcfg = mcfg
         self.rcfg_train = rcfg_train
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
         self.loss_fn = loss_fn
         self.group = group
-        self.world = pdist.world_of(group)
-        self.rank = pdist.rank_of(group)
-        if batch_size % self.world:
+        self.mesh = make_mesh(group, num_model)
+        self.num_data = self.mesh.num_data
+        self.data_index = self.mesh.data_index
+        if batch_size % self.num_data:
             raise ValueError(f"global batch {batch_size} not divisible by "
-                             f"the world of {self.world} ranks")
+                             f"the data axis of {self.num_data} ranks")
         self.batch_size = batch_size
-        self.batch_local = batch_size // self.world
+        self.batch_local = batch_size // self.num_data
+        self.tensor_parallel = tensor_parallel
+        self.tp = None
+        if tensor_parallel and num_model > 1:
+            self.tp = TensorParallel(self.mesh, model_pspecs(
+                {name: self._layer_shapes() for name in self._mlp_names()},
+                num_model, True))
         self.device = torch.device(device)
         self.all_rays = None
         self.all_rgbs = None
@@ -143,8 +166,8 @@ class Trainer:
             idx = np.arange(pad) % n
             all_rays = np.concatenate([all_rays, all_rays[idx]], 0)
             all_rgbs = np.concatenate([all_rgbs, all_rgbs[idx]], 0)
-        self.n_rays_local = all_rays.shape[0] // self.world
-        lo = self.rank * self.n_rays_local
+        self.n_rays_local = all_rays.shape[0] // self.num_data
+        lo = self.data_index * self.n_rays_local
         shard = slice(lo, lo + self.n_rays_local)
         self.all_rays = torch.as_tensor(all_rays[shard], dtype=torch.float32,
                                         device=self.device)
@@ -166,18 +189,20 @@ class Trainer:
         self.all_idx = self._make_idx()
 
     def _make_idx(self) -> torch.Tensor:
-        """Global labels: rank r's shard holds r * n_local + arange."""
-        return self.rank * self.n_rays_local + torch.arange(
+        """Global labels: data index d's shard holds d * n_local +
+        arange."""
+        return self.data_index * self.n_rays_local + torch.arange(
             self.n_rays_local, device=self.device)
 
     def _rank_seed(self, *counters: int) -> int:
-        """A generator seed of (counters) that folds in the rank, as JAX's
-        fold_in(key, axis_index): each rank's stream differs, and rank 0's
-        is the one-device trainer's, seed_for(*counters) (a reshuffle's
-        seed when given alone)."""
-        if self.rank == 0:
+        """A generator seed of (counters) that folds in the data index, as
+        JAX's fold_in(key, axis_index("data")): each data index's stream
+        differs, a model group's ranks share theirs, and data index 0's is
+        the one-device trainer's, seed_for(*counters) (a reshuffle's seed
+        when given alone)."""
+        if self.data_index == 0:
             return counters[0] if len(counters) == 1 else seed_for(*counters)
-        return seed_for(*counters, self.rank)
+        return seed_for(*counters, self.data_index)
 
     def _store_named(self):
         """(name, array) of the store's row-aligned arrays."""
@@ -234,7 +259,7 @@ class Trainer:
         result.
 
         Returns {"hit_frac", "shrink"} and, with pack, {"miss_mse",
-        "expand"}: over the whole store, summed across the ranks."""
+        "expand"}: over the whole store, summed across the data axis."""
         if self.all_nf0 is None:
             self.all_nf0 = self.all_rays[:, 6:8].clone()
         boxes = torch.as_tensor(np.asarray(boxes, np.float32),
@@ -246,11 +271,11 @@ class Trainer:
         near, far = tighten_intervals(near0, far0, hit, t_lo, t_hi, margin)
         self.all_rays = torch.cat([rays[:, :6], near[:, None], far[:, None]],
                                   dim=1)
-        n = self.n_rays_local * self.world
+        n = self.n_rays_local * self.num_data
         shrink = (1.0 - (far - near) / (far0 - near0)).double().sum()
         n_hit, shrink = pdist.all_reduce_sum(
             [torch.stack([hit.sum().double(), shrink])],
-            self.group)[0].tolist()
+            self.mesh.data_group)[0].tolist()
         stats = {"hit_frac": n_hit / n, "shrink": shrink / n}
         if n_seg > 0:
             occm = ray_box_segment_bits(boxes, self.all_rays, n_seg)
@@ -275,27 +300,39 @@ class Trainer:
         self._permute(torch.argsort(miss.to(torch.uint8), stable=True))
         sse, n_miss = pdist.all_reduce_sum(
             [torch.stack([sse, n_miss_local.double()])],
-            self.group)[0].tolist()
+            self.mesh.data_group)[0].tolist()
         self.all_nsurv = self.n_rays_local - int(n_miss_local)
-        n_total = self.n_rays_local * self.world
+        n_total = self.n_rays_local * self.num_data
         self.pack_expand = n_total / max(n_total - int(n_miss), 1)
         return {"miss_mse": sse / max(n_miss * 3.0, 1e-9),
                 "expand": self.pack_expand}
 
     # --------------------------------------------------------------- state
+    def _mlp_names(self) -> List[str]:
+        return ["nerf_coarse"] + (["nerf_fine"]
+                                  if self.rcfg_train.N_importance > 0 else [])
+
+    def _layer_shapes(self):
+        """One MLP's {layer: {"w"}} on the meta device (shapes only)."""
+        return {name: {"w": torch.empty(dims, device="meta")}
+                for name, dims in self.mcfg.nerf.all_layer_dims().items()}
+
     def init_state(self, generator: torch.Generator,
                    master_dtype: Optional[torch.dtype] = None) -> TrainState:
         """Params drawn from `generator` (torch.nn.Linear's init), on the
         device, and the optimizer's state at step 0. In a group every rank
-        takes rank 0's params. master_dtype (e.g. torch.bfloat16) casts the
-        stored (master) weights, and the optimizer's moments follow them;
-        the kernels run bf16 products either way, so it moves only where
-        the update rounds."""
-        names = ["nerf_coarse"] + (["nerf_fine"]
-                                   if self.rcfg_train.N_importance > 0 else [])
+        takes rank 0's params, and under tensor parallelism keeps its
+        blocks of them; the optimizer's state is made on what the rank
+        keeps (every optimizer here is elementwise). master_dtype (e.g.
+        torch.bfloat16) casts the stored (master) weights, and the
+        optimizer's moments follow them; the kernels run bf16 products
+        either way, so it moves only where the update rounds."""
         params = {name: init_nerf_params(generator, self.mcfg.nerf,
-                                         self.device) for name in names}
+                                         self.device)
+                  for name in self._mlp_names()}
         params = pdist.broadcast_tree(params, self.group)
+        if self.tp is not None:
+            params = map_with_paths(self.tp.shard_leaf, params)
         if master_dtype is not None:
             params = tree_unflatten(params, [p.to(master_dtype) for p in
                                              tree_leaves(params)])
@@ -329,11 +366,13 @@ class Trainer:
         render_rays, or the loss-fused step with the cotangent scale
         1 / (global batch * 3). `rays`, `rgbs` and `occm` (the segment
         masks, for the coarse placement in occupied segments) are this
-        rank's part of the batch. In a group the autograd route
-        differentiates the local mean times batch_local / batch_size, and
-        both routes sum their loss, squared error and gradients across the
-        ranks (one all-reduce)."""
+        data index's part of the batch, and under tensor parallelism
+        `params` and the grads are this rank's blocks. Over a data axis
+        the autograd route differentiates the local mean times
+        batch_local / batch_size, and both routes sum their loss, squared
+        error and gradients across the data group (one all-reduce)."""
         n_seg = self.occ_n_seg if occm is not None else 0
+        data_group = self.mesh.data_group
         if not self.rcfg_train.fused_loss:
             leaves = [p.detach().requires_grad_() for p in
                       tree_leaves(params)]
@@ -341,26 +380,31 @@ class Trainer:
             with torch.enable_grad():
                 out = render_rays(p, rays, self.rcfg_train, self.mcfg,
                                   generator=generator, draws=draws,
-                                  occm=occm, n_seg=n_seg)
+                                  occm=occm, n_seg=n_seg, tp=self.tp)
                 loss = self.loss_fn(out, rgbs)
-                if self.group is not None:
+                if data_group is not None:
                     loss = loss * (self.batch_local / self.batch_size)
                 grads = torch.autograd.grad(loss, leaves)
             typ = "fine" if "rgb_fine" in out else "coarse"
             mse = torch.mean((out[f"rgb_{typ}"].detach() - rgbs) ** 2)
             loss, grads = loss.detach(), tree_unflatten(params, list(grads))
-            if self.group is None:
+            if data_group is None:
                 return loss, mse, grads
             mse = mse * (self.batch_local / self.batch_size)
-            return pdist.all_reduce_tree((loss, mse, grads), self.group)
+            return pdist.all_reduce_tree((loss, mse, grads), data_group)
 
+        if self.tensor_parallel:
+            raise ValueError(
+                "fused_loss shards rays only; run with "
+                "tensor_parallel=False (or drop fused_loss to use the "
+                "autograd path, which supports the model axis)")
         loss_sum, out, grads = fused_mse_train_step(
             params, rays, rgbs, self.rcfg_train, self.batch_size, self.mcfg,
             generator=generator, draws=draws, occm=occm, n_seg=n_seg)
         typ = "fine" if "rgb_fine" in out else "coarse"
         sq = torch.sum((out[f"rgb_{typ}"] - rgbs) ** 2)
         loss_sum, sq, grads = pdist.all_reduce_tree((loss_sum, sq, grads),
-                                                    self.group)
+                                                    data_group)
         return loss_sum / self.batch_size, sq / (self.batch_size * 3), grads
 
     def _step(self, params, opt_state, step: torch.Tensor,
@@ -386,7 +430,7 @@ class Trainer:
 
     def step_generator(self, seed: int, step: int) -> torch.Generator:
         """The draws of global step `step` on this rank: a function of
-        (seed, step, rank), rank 0's of (seed, step) alone."""
+        (seed, step, data index), data index 0's of (seed, step) alone."""
         return torch.Generator(device=self.device).manual_seed(
             self._rank_seed(seed, step))
 
@@ -394,7 +438,7 @@ class Trainer:
         """(name, shape, uniform) of the draws a step takes, in the order
         the render takes them from its generator: the perturb uniforms and
         the coarse noise, then the importance u and the fine noise, for
-        this rank's rays. These are all the random numbers of a step on
+        this data index's rays. These are all the random numbers of a step on
         every path."""
         cfg, R = self.rcfg_train, self.batch_local
         S, S_imp = cfg.N_samples, cfg.N_importance
@@ -434,8 +478,9 @@ class Trainer:
         metric tensors loss, psnr and lr on the device. On CUDA the steps
         replay a captured graph, unless `eager` (a comparison's switch);
         on the CPU they run eagerly. A gloo group's collectives cannot be
-        captured, so on CUDA such a group needs `eager`; NCCL's are
-        captured with the step. The caller's state is never written."""
+        captured, so on CUDA such a group needs `eager`; NCCL's (the data
+        and the model group's) are captured with the step. The caller's
+        state is never written."""
         if self.device.type == "cuda" and not eager:
             if self.group is not None and \
                     pdist.backend_of(self.group) != "nccl":
@@ -461,14 +506,14 @@ class Trainer:
     # --------------------------------------------------------- CUDA graph
     def _graph_key(self, state: TrainState):
         """What a captured step has baked in: the store's addresses and
-        layout, the state's structure, shapes and dtypes, and the group
-        whose collective it launches."""
+        layout, the state's structure, shapes and dtypes, and the groups
+        whose collectives it launches."""
         store = tuple((n, a.data_ptr(), tuple(a.shape))
                       for n, a in self._store_named())
         leaves, spec = pytree.tree_flatten((state.params, state.opt_state))
         return (store, self.occ_n_seg, self.all_nsurv, self.steps_per_epoch,
                 str(spec), tuple((tuple(t.shape), t.dtype) for t in leaves),
-                id(self.group))
+                id(self.mesh.data_group), id(self.mesh.model_group))
 
     def _run_graph(self, state: TrainState, seed: int, n_steps: int):
         key = self._graph_key(state)

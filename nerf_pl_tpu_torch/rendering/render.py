@@ -18,7 +18,10 @@ Port of nerf_pl_tpu/rendering/render.py:
     out of the kernel instead of autograd.
 With a per-ray segment mask (`occm`, `n_seg`: occupancy-tightened
 training) the coarse depths come from `occupied_z_vals` instead of
-stratified sampling, on every branch.
+stratified sampling, on every branch. With a tensor parallel layout
+(`tp`, parallel/mesh.py) the params are this rank's blocks: the plain MLP
+runs as the Megatron MLP, and the fused routes gather the whole weights
+first (`TensorParallel.gather_params`), as GSPMD feeds JAX's custom calls.
 
 torch cannot reproduce JAX's random streams, so where JAX splits a key
 into (perturb, coarse noise, importance u, fine noise), these functions
@@ -230,9 +233,12 @@ def _fine_z_vals(z_vals, weights, cfg: RenderConfig,
 
 
 def _evaluate_field(params, xyz, rays_d, dir_emb, z_vals, dir_norms, noise,
-                    cfg: RenderConfig, mcfg: ModelConfig, sigma_only: bool):
+                    cfg: RenderConfig, mcfg: ModelConfig, sigma_only: bool,
+                    tp=None):
     """Run the MLP on the sampled points (the fused point MLP on raw
     points, or embed + nerf_apply), then integrate."""
+    if cfg.fused and tp is not None:
+        params = tp.gather_params(params)
     if cfg.fused and not sigma_only:
         rgbs, sigma = nerf_apply_fused(params, xyz, rays_d[:, None, :])
     elif cfg.fused:
@@ -241,13 +247,13 @@ def _evaluate_field(params, xyz, rays_d, dir_emb, z_vals, dir_norms, noise,
     elif sigma_only:
         xyz_emb = embed(xyz, mcfg.emb_xyz)
         sigma = nerf_apply(params, xyz_emb, None, mcfg.nerf, sigma_only=True,
-                           compute_dtype=cfg.compute_dtype)
+                           compute_dtype=cfg.compute_dtype, tp=tp)
         rgbs = None
     else:
         xyz_emb = embed(xyz, mcfg.emb_xyz)
         rgbs, sigma = nerf_apply(params, xyz_emb, dir_emb[:, None, :],
                                  mcfg.nerf, sigma_only=False,
-                                 compute_dtype=cfg.compute_dtype)
+                                 compute_dtype=cfg.compute_dtype, tp=tp)
     return volume_quadrature(sigma[..., 0], z_vals, dir_norms, noise, rgbs,
                              cfg.white_back)
 
@@ -259,7 +265,7 @@ def render_rays(params: Mapping[str, Any],
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[TrainDraws] = None,
                 occm: Optional[torch.Tensor] = None,
-                n_seg: int = 0) -> Dict[str, torch.Tensor]:
+                n_seg: int = 0, tp=None) -> Dict[str, torch.Tensor]:
     """Render a batch of rays through the coarse (+fine) NeRF.
 
     Args:
@@ -271,6 +277,8 @@ def render_rays(params: Mapping[str, Any],
         the module docstring); unused when perturb = noise_std = 0.
       occm, n_seg: an optional (R,) int64 occupied-segment mask and its
         segment count: the coarse depths then come from occupied_z_vals.
+      tp: None, or the TensorParallel layout whose blocks the dict params
+        are (training only).
 
     Returns rgb_coarse/depth_coarse/opacity_coarse (opacity only at test
     time), and rgb_fine/depth_fine/opacity_fine when N_importance > 0,
@@ -304,7 +312,7 @@ def render_rays(params: Mapping[str, Any],
         return result
 
     if cfg.fused_train and not cfg.test_time:
-        return _render_fused_train(params, rays, z_vals, cfg, rng)
+        return _render_fused_train(params, rays, z_vals, cfg, rng, tp)
 
     def noise(name, shape):
         if cfg.noise_std > 0:
@@ -318,7 +326,7 @@ def render_rays(params: Mapping[str, Any],
     coarse = _evaluate_field(params["nerf_coarse"], xyz, rays_d, dir_emb,
                              z_vals, dir_norms,
                              noise("noise_coarse", z_vals.shape), cfg, mcfg,
-                             sigma_only=cfg.test_time)
+                             sigma_only=cfg.test_time, tp=tp)
     if cfg.test_time:
         result = {"opacity_coarse": coarse["opacity"]}
     else:
@@ -333,7 +341,7 @@ def render_rays(params: Mapping[str, Any],
         fine = _evaluate_field(params["nerf_fine"], xyz, rays_d, dir_emb,
                                z_all, dir_norms,
                                noise("noise_fine", z_all.shape), cfg, mcfg,
-                               sigma_only=False)
+                               sigma_only=False, tp=tp)
         result["rgb_fine"] = fine["rgb"]
         result["depth_fine"] = fine["depth"]
         result["opacity_fine"] = fine["opacity"]
@@ -355,16 +363,21 @@ def _kernel_noise(cfg: RenderConfig, rng, name: str, shape, device):
     return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
-def _render_fused_train(params, rays, z_vals, cfg: RenderConfig, rng):
+def _render_fused_train(params, rays, z_vals, cfg: RenderConfig, rng,
+                        tp=None):
     """Both passes through `fused_train_render` (the JAX render_rays'
     fused_train branch): one forward kernel per pass, and its backward when
     autograd differentiates the result. The fine depths follow the detached
-    coarse weights."""
+    coarse weights. Under tp each pass packs the gathered whole weights."""
     def noise(name, shape):
         return _kernel_noise(cfg, rng, name, shape, rays.device)
 
+    def packed(name):
+        mlp = params[name]
+        return pack_params(mlp if tp is None else tp.gather_params(mlp))
+
     out_c, weights_c = fused_train_render(
-        pack_params(params["nerf_coarse"]), rays, z_vals,
+        packed("nerf_coarse"), rays, z_vals,
         noise("noise_coarse", z_vals.shape), cfg.white_back)
     result = {"rgb_coarse": out_c[:, 0:3], "depth_coarse": out_c[:, 3],
               "opacity_coarse": out_c[:, 4]}
@@ -373,7 +386,7 @@ def _render_fused_train(params, rays, z_vals, cfg: RenderConfig, rng):
              if cfg.perturb > 0 else None)
         z_all = _fine_z_vals(z_vals, weights_c, cfg, u).contiguous()
         out_f, _ = fused_train_render(
-            pack_params(params["nerf_fine"]), rays, z_all,
+            packed("nerf_fine"), rays, z_all,
             noise("noise_fine", z_all.shape), cfg.white_back)
         result["rgb_fine"] = out_f[:, 0:3]
         result["depth_fine"] = out_f[:, 3]

@@ -10,6 +10,12 @@ either package resumes in the other: a NamedTuple's fields, a tuple's
 indices and a dict's keys make the same paths as JAX's tree paths, tensors
 are stored as numpy (bf16 widened to f32) and a Python int leaf (the step)
 as int32.
+
+A tensor parallel state (parallel/mesh.py) holds this rank's blocks of the
+params and moments. `gather_state` is the counterpart of JAX's
+device_fetch of sharded arrays: it gathers the blocks over the model
+group, so that one rank writes the whole arrays under the same keys; and
+`load_checkpoint(..., tp=)` takes this rank's blocks of a whole file.
 """
 from __future__ import annotations
 
@@ -49,6 +55,32 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _rebuild(tree, vals):
+    """A container like `tree` holding `vals` in `_children`' order."""
+    if _is_namedtuple(tree):
+        return type(tree)(*vals)
+    if isinstance(tree, dict):
+        return dict(zip(tree.keys(), vals))
+    return type(tree)(vals)
+
+
+def map_with_paths(fn, tree, prefix: str = ""):
+    """`tree` with each leaf replaced by fn(path, leaf), where path is the
+    leaf's '/'-joined key in a checkpoint."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(prefix, tree)
+    return _rebuild(tree, [map_with_paths(fn, v, f"{prefix}/{k}" if prefix
+                                          else k) for k, v in kids])
+
+
+def gather_state(state, tp=None):
+    """The whole state of a tensor parallel one: each leaf split over the
+    model axis gathered from its blocks (collective: every rank of the
+    model group calls it). Without tp, the state itself."""
+    return state if tp is None else map_with_paths(tp.gather_leaf, state)
+
+
 def flatten_with_paths(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     """{'/'-joined path: numpy leaf} of a state tree."""
     kids = _children(tree)
@@ -79,35 +111,32 @@ def load_meta(path: str) -> Dict[str, Any]:
         return json.loads(bytes(z["__meta__"].tobytes()).decode())
 
 
-def load_checkpoint(path: str, template) -> Tuple[Any, Dict[str, Any]]:
+def load_checkpoint(path: str, template, tp=None
+                    ) -> Tuple[Any, Dict[str, Any]]:
     """Restore a tree saved by either package into `template`'s structure:
     tensor leaves take the template's dtype and device, int leaves stay
     ints. Every leaf of the template must be in the file (full resume).
+    With a tensor parallel layout `tp` the template holds blocks, and
+    each split leaf takes this rank's block of the file's whole array.
     Returns (restored tree, meta)."""
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files if k != "__meta__"}
         meta = (json.loads(bytes(z["__meta__"].tobytes()).decode())
                 if "__meta__" in z.files else {})
 
-    def build(tree, key):
-        kids = _children(tree)
-        if kids is not None:
-            vals = [build(v, f"{key}/{k}" if key else k) for k, v in kids]
-            if _is_namedtuple(tree):
-                return type(tree)(*vals)
-            if isinstance(tree, dict):
-                return dict(zip(tree.keys(), vals))
-            return type(tree)(vals)
+    def build(key, tree):
         if key not in arrays:
             raise KeyError(f"checkpoint {path!r} missing leaf {key!r}")
         arr = arrays[key]
         if isinstance(tree, torch.Tensor):
-            if tuple(arr.shape) != tuple(tree.shape):
+            t = torch.as_tensor(np.array(arr))
+            if tp is not None:
+                t = tp.shard_leaf(key, t)
+            if tuple(t.shape) != tuple(tree.shape):
                 raise ValueError(f"shape mismatch for {key}: ckpt "
-                                 f"{arr.shape} vs template "
+                                 f"{tuple(t.shape)} vs template "
                                  f"{tuple(tree.shape)}")
-            return torch.as_tensor(np.array(arr),
-                                   device=tree.device).to(tree.dtype)
+            return t.to(device=tree.device, dtype=tree.dtype)
         if isinstance(tree, int):
             if arr.shape != ():
                 raise ValueError(f"shape mismatch for {key}: ckpt "
@@ -115,7 +144,7 @@ def load_checkpoint(path: str, template) -> Tuple[Any, Dict[str, Any]]:
             return int(arr)
         return arr
 
-    return build(template, ""), meta
+    return map_with_paths(build, template), meta
 
 
 def extract_model_state_dict(ckpt_path: str, model_name: str = "nerf_coarse",

@@ -508,11 +508,12 @@ def test_eval_cli_num_chips_2_matches_jax(scene3, occ_ckpt, tmp_path, capfd,
 # --------------------------------------------------------- dry run, faults
 
 def test_dryrun_multichip_2_on_cpu():
-    """python -m nerf_pl_tpu_torch.dryrun_multichip 2 exits 0 and prints
-    each phase's ok line once."""
+    """python -m nerf_pl_tpu_torch.dryrun_multichip 2 --device cpu exits 0
+    and prints each phase's ok line once."""
     from nerf_pl_tpu_torch import dryrun_multichip
     proc = subprocess.run(
-        [sys.executable, "-m", "nerf_pl_tpu_torch.dryrun_multichip", "2"],
+        [sys.executable, "-m", "nerf_pl_tpu_torch.dryrun_multichip", "2",
+         "--device", "cpu"],
         cwd=REPO, capture_output=True, text=True,
         timeout=dryrun_multichip.TIMEOUT + 60)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -43,7 +43,8 @@ def test_port_imports_no_jax_and_no_pil():
                  "mesh.native", "mesh.extract", "extract_color_mesh",
                  "preview_bounds", "save_weights_only",
                  "make_hard_datasets", "northstar", "dist",
-                 "dryrun_multichip", "bench_kernels"):
+                 "dryrun_multichip", "bench_kernels", "parallel.mesh",
+                 "bench"):
         assert f"nerf_pl_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
