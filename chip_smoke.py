@@ -103,8 +103,10 @@
    the port's cache file, and the ladder dense (make_render_fn, chunk
    32768), cull, +tighten, +budgets, +segments 32 (base tile 8192), each
    timed over 2 dispatches after a warm-up; prints s/frame, the survivor,
-   rendered and bucket counts, one more dispatch's cull / bucket split
-   (NERF_OCC_TIMING) and the launches, and holds: finite outputs, opacity
+   rendered and bucket counts, the split of one more dispatch (a
+   torch.profiler window read by nerfbench/metrics/_spans.py: each phase's
+   device ms, busy and idle, and the cull and bucket host spans) and the
+   launches, and holds: finite outputs, opacity
    in [0, 1 + 1e-4], one sigma_render and one render_eval launch a tile
    rendered, rows no tile renders exactly white background, 4096 rays of
    frame 1 rendered again through the same renderer with the render
@@ -2071,16 +2073,38 @@ def culled_path(dev, ckpt):
         if cr is None:
             dense = out
             continue
-        os.environ["NERF_OCC_TIMING"] = "1"
-        try:
-            print(f"[culled] {name}: the split of one more dispatch:")
-            cr(params, rays)
-        finally:
-            del os.environ["NERF_OCC_TIMING"]
+        print_dispatch_split(name, lambda: cr(params, rays))
         check_culled_rung(dev, name, cr, occ, params, rays, idx, out, stats,
                           dense)
     counts = read_counts()
     return {k: counts[k] for k in ("sigma_render", "render_eval")}
+
+
+def print_dispatch_split(name, fn):
+    """fn() (one culled dispatch) under torch.profiler, read as the
+    benchmark reads the program's phases (nerfbench/metrics/_spans.py):
+    each phase's device ms (busy, idle, count) and the host spans of the
+    cull pass and the buckets."""
+    from nerfbench import trace as T
+    from nerfbench.metrics import _spans as S
+
+    def once():
+        # the window's first device events can go unrecorded (the cull
+        # mark was): a kernel and a sync first, before the dispatch
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+        return 1
+    tr = T.traced(once, cuda=True)
+    print(f"[culled] {name}: the split of one more dispatch (device ms, "
+          f"busy + idle; host ms):")
+    for phase, d in S.split(tr).items():
+        print(f"[culled]   {phase:13s} x{d['count']:<3d} "
+              f"{d['busy_ms']:8.3f} + {d['idle_ms']:7.3f}")
+    for span in ("cull", "bucket"):
+        print(f"[culled]   host {span}: " + ", ".join(
+            f"{1e3 * (e - s):.3f}" for _, s, e in S.host_spans(tr, span)))
 
 
 @contextlib.contextmanager

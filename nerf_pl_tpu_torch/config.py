@@ -80,7 +80,7 @@ class Hparams:
     val_num: int = 1                # llff: DISTINCT nearest-center views
                                     # held out for validation (the reference
                                     # replicated one view per GPU instead)
-    profile_dir: Optional[str] = None  # jax.profiler trace output dir
+    profile_dir: Optional[str] = None  # torch.profiler trace output dir
     # Occupancy-tightened training (training-side empty-space skipping):
     # after --occ_warmup_epochs, the current model's occupancy grid clips
     # every stored ray's [near, far] to its occupied interval so all
@@ -304,8 +304,10 @@ def get_opts(argv: Optional[List[str]] = None) -> Hparams:
                              'validation needs no replication, so extra '
                              'budget buys genuinely novel held-out views)')
     parser.add_argument('--profile_dir', type=str, default=None,
-                        help='capture a jax.profiler trace of one training '
-                             'segment into this directory')
+                        help='capture a torch.profiler trace of one '
+                             'training segment, with the program\'s spans '
+                             'and the step\'s phase marks, into this '
+                             'directory')
     parser.add_argument('--occ_train', default=False, action='store_true',
                         help='occupancy-tightened training: after warmup, '
                              'clip every stored ray\'s [near,far] to its '

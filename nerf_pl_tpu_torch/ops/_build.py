@@ -124,6 +124,12 @@ SIGNATURES = {
     "nerf_mlp_workspace_bytes": (ctypes.c_longlong, [_I]),
     # p8, d8, g8, P, 13 weight buffers, workspace, grad, stream
     "nerf_mlp_bwd": (_I, [_P] * 3 + [_I] + [_P] * 13 + [_P] * 3),
+    # marks.cu, the profiler's phase marks: phase, stream, captured node
+    "nerf_mark": (_I, [_I, _P, _P]),
+    # graph, mark nodes, their count, the executable with them
+    "nerf_graph_split": (_I, [_P, _P, _I, _P]),
+    "nerf_graph_launch": (_I, [_P, _P]),        # executable, stream
+    "nerf_graph_free": (_I, [_P]),
 }
 
 # C types of the entries' arguments and results, as c_entries spells them.

@@ -17,6 +17,7 @@ import torch
 from .. import dist as pdist
 from ..rendering.render import (ModelConfig, RenderConfig, prepare_params,
                                 render_rays)
+from ..utils import profiling as P
 
 
 def make_render_fn(rcfg: RenderConfig, chunk: int,
@@ -36,29 +37,42 @@ def make_render_fn(rcfg: RenderConfig, chunk: int,
     test time, the point-MLP forward kernel otherwise (the validation
     config). With device_out the outputs stay tensors on `device`;
     otherwise they are numpy arrays.
+
+    A call's phases (utils/profiling.py: a span each, with its mark on
+    CUDA, while a profiler records) are `frame.pad`, `frame.pack`, each
+    tile's `coarse_z`, `coarse`, `fine_z` and `fine` (render_rays),
+    `frame.gather`, `frame.to_host` (the copies to the host), then the
+    mark `end`.
     """
     device = torch.device(device)
     world, rank = pdist.world_of(group), pdist.rank_of(group)
 
     @torch.no_grad()
     def render(params: Mapping[str, Any], rays) -> Dict[str, Any]:
-        rays_t = torch.as_tensor(rays, dtype=torch.float32, device=device)
-        R = rays_t.shape[0]
-        pad = (-R) % (world * chunk)
-        if pad:
-            pad_rows = torch.zeros((pad, 8), dtype=rays_t.dtype, device=device)
-            pad_rows[:, 7] = 1.0
-            rays_t = torch.cat([rays_t, pad_rows])
-        model = prepare_params(params, rcfg, device)
+        with P.phase("frame.pad", device):
+            rays_t = torch.as_tensor(rays, dtype=torch.float32,
+                                     device=device)
+            R = rays_t.shape[0]
+            pad = (-R) % (world * chunk)
+            if pad:
+                pad_rows = torch.zeros((pad, 8), dtype=rays_t.dtype,
+                                       device=device)
+                pad_rows[:, 7] = 1.0
+                rays_t = torch.cat([rays_t, pad_rows])
+        with P.phase("frame.pack", device):
+            model = prepare_params(params, rcfg, device)
         tiles = rays_t.split(chunk)
         per = len(tiles) // world
         outs = [render_rays(model, tile, rcfg, mcfg)
                 for tile in tiles[rank * per:(rank + 1) * per]]
-        out = pdist.gather_rows(
-            {k: torch.cat([o[k] for o in outs]) for k in outs[0]}, group)
-        out = {k: v[:R] for k, v in out.items()}
-        if device_out:
-            return out
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        with P.phase("frame.gather", device):
+            out = pdist.gather_rows(
+                {k: torch.cat([o[k] for o in outs]) for k in outs[0]}, group)
+            out = {k: v[:R] for k, v in out.items()}
+        if not device_out:
+            with P.phase("frame.to_host", device):
+                out = {k: v.cpu().numpy() for k, v in out.items()}
+        P.mark("end", device)
+        return out
 
     return render

@@ -44,6 +44,7 @@ host reads back only the counts it prints.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -60,6 +61,7 @@ from ..rendering.render import (ModelConfig, RenderConfig, TrainDraws,
 from ..training.checkpoints import map_with_paths
 from ..training.optimizers import Optimizer, apply_updates, tree_leaves, \
     tree_unflatten
+from ..utils import profiling as P
 from .mesh import TensorParallel, make_mesh, model_pspecs
 
 
@@ -373,6 +375,7 @@ class Trainer:
         error and gradients across the data group (one all-reduce)."""
         n_seg = self.occ_n_seg if occm is not None else 0
         data_group = self.mesh.data_group
+        dev = rays.device
         if not self.rcfg_train.fused_loss:
             leaves = [p.detach().requires_grad_() for p in
                       tree_leaves(params)]
@@ -381,17 +384,20 @@ class Trainer:
                 out = render_rays(p, rays, self.rcfg_train, self.mcfg,
                                   generator=generator, draws=draws,
                                   occm=occm, n_seg=n_seg, tp=self.tp)
-                loss = self.loss_fn(out, rgbs)
-                if data_group is not None:
-                    loss = loss * (self.batch_local / self.batch_size)
-                grads = torch.autograd.grad(loss, leaves)
-            typ = "fine" if "rgb_fine" in out else "coarse"
-            mse = torch.mean((out[f"rgb_{typ}"].detach() - rgbs) ** 2)
+                with P.phase("backward", dev):
+                    loss = self.loss_fn(out, rgbs)
+                    if data_group is not None:
+                        loss = loss * (self.batch_local / self.batch_size)
+                    grads = torch.autograd.grad(loss, leaves)
+                    typ = "fine" if "rgb_fine" in out else "coarse"
+                    mse = torch.mean((out[f"rgb_{typ}"].detach() - rgbs)
+                                     ** 2)
             loss, grads = loss.detach(), tree_unflatten(params, list(grads))
             if data_group is None:
                 return loss, mse, grads
-            mse = mse * (self.batch_local / self.batch_size)
-            return pdist.all_reduce_tree((loss, mse, grads), data_group)
+            with P.phase("allreduce", dev):
+                mse = mse * (self.batch_local / self.batch_size)
+                return pdist.all_reduce_tree((loss, mse, grads), data_group)
 
         if self.tensor_parallel:
             raise ValueError(
@@ -403,8 +409,10 @@ class Trainer:
             generator=generator, draws=draws, occm=occm, n_seg=n_seg)
         typ = "fine" if "rgb_fine" in out else "coarse"
         sq = torch.sum((out[f"rgb_{typ}"] - rgbs) ** 2)
-        loss_sum, sq, grads = pdist.all_reduce_tree((loss_sum, sq, grads),
-                                                    data_group)
+        if data_group is not None:
+            with P.phase("allreduce", dev):
+                loss_sum, sq, grads = pdist.all_reduce_tree(
+                    (loss_sum, sq, grads), data_group)
         return loss_sum / self.batch_size, sq / (self.batch_size * 3), grads
 
     def _step(self, params, opt_state, step: torch.Tensor,
@@ -413,20 +421,28 @@ class Trainer:
         device step, the given draws, the gradients cast to the master
         dtype (the kernels accumulate f32), the update, and the metrics
         loss, psnr and lr (the schedule at the device step). No host sync,
-        so a CUDA graph can capture it."""
-        rays, rgbs, *occm = self._sample_batch(step)
+        so a CUDA graph can capture it. Its phases' marks (`batch` to
+        `tail`, profiling.MARKS) launch at each phase's start; the caller
+        ends the step with `end`."""
+        dev = self.device
+        with P.phase("batch", dev):
+            rays, rgbs, *occm = self._sample_batch(step)
         loss, mse, grads = self._loss_and_grads(params, rays, rgbs, None,
                                                 draws, occm=occm[0] if occm
                                                 else None)
-        p = tree_leaves(params)
-        grads = tree_unflatten(params, [g.to(q.dtype) for g, q in
-                                        zip(tree_leaves(grads, params), p)])
-        updates, opt_state = self.optimizer.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
-        # clamp: mse == 0 would give an infinite psnr
-        psnr = -10.0 * torch.log10(torch.clamp(mse, min=1e-10))
-        return params, opt_state, {"loss": loss, "psnr": psnr,
-                                   "lr": self.lr_schedule(step)}
+        with P.phase("optimizer", dev):
+            p = tree_leaves(params)
+            grads = tree_unflatten(params, [g.to(q.dtype) for g, q in
+                                            zip(tree_leaves(grads, params),
+                                                p)])
+            updates, opt_state = self.optimizer.update(grads, opt_state,
+                                                       params)
+            params = apply_updates(params, updates)
+        with P.phase("tail", dev):
+            # clamp: mse == 0 would give an infinite psnr
+            psnr = -10.0 * torch.log10(torch.clamp(mse, min=1e-10))
+            lr = self.lr_schedule(step)
+        return params, opt_state, {"loss": loss, "psnr": psnr, "lr": lr}
 
     def step_generator(self, seed: int, step: int) -> torch.Generator:
         """The draws of global step `step` on this rank: a function of
@@ -494,10 +510,13 @@ class Trainer:
                                                   "lr": []}
         for i in range(n_steps):
             s = state.step + i
-            params, opt_state, m = self._step(
-                params, opt_state,
-                torch.full((), s, dtype=torch.int64, device=self.device),
-                self.step_draws(seed, s))
+            with P.phase("draws", self.device):
+                draws = self.step_draws(seed, s)
+                counter = torch.full((), s, dtype=torch.int64,
+                                     device=self.device)
+            params, opt_state, m = self._step(params, opt_state, counter,
+                                              draws)
+            P.mark("end", self.device)
             for k, v in m.items():
                 metrics[k].append(v)
         return (TrainState(params, opt_state, state.step + n_steps),
@@ -525,9 +544,12 @@ class Trainer:
             g = self._graph = _StepGraph(self, state, key, capacity)
             self.captures += 1
         g.load(state)
+        replay = (functools.partial(g.traced.replay, self.device)
+                  if P.tracing() else g.graph.replay)
         for i in range(n_steps):
-            self._draw_into(g.draws, seed, state.step + i)
-            g.graph.replay()
+            with P.phase("draws", self.device):
+                self._draw_into(g.draws, seed, state.step + i)
+            replay()
         add_launches(g.launches, times=n_steps)
         params, opt_state = g.state()
         return (TrainState(params, opt_state, state.step + n_steps),
@@ -542,7 +564,14 @@ class _StepGraph:
     first use, autograd's and the allocator's first passes) run on a side
     stream before capture, on these buffers, before any caller's state is
     loaded. Capture runs nothing; it records each kernel wrapper's launch
-    once, and those counts are taken back and added per replay."""
+    once, and those counts are taken back and added per replay.
+
+    The step is captured once, with its phases' marks
+    (utils/profiling.py): `traced` is its executable with them, replayed
+    while a profiler records, and `graph` the same capture with the marks
+    taken out, replayed otherwise. So an unprofiled replay runs no mark,
+    and a profiled window captures nothing. The warm-up steps launch marks
+    only while a profiler records."""
 
     WARMUP_STEPS = 3
     MIN_ROWS = 1024     # metric rows: segments up to this long share a graph
@@ -576,6 +605,7 @@ class _StepGraph:
                                             v.detach().float().view(1))
             self.step.add_(1)
             self.row.add_(1)
+            P.mark("end", dev)
 
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -585,15 +615,17 @@ class _StepGraph:
         torch.cuda.current_stream(dev).wait_stream(side)
         self.row.zero_()
         before = launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
-            with torch.cuda.graph(self.graph):
+            with P.recording_marks() as marks, torch.cuda.graph(self.graph):
                 body()
         finally:
             recorded = launch_counts()
             add_launches({k: before[k] - n for k, n in recorded.items()})
         self.launches = {k: n - before[k] for k, n in recorded.items()
                          if n != before[k]}
+        self.traced = P.MarkedGraph(self.graph, marks)
+        self.graph.instantiate()
 
     def _copy_in(self, leaves: List[torch.Tensor]):
         for idx in self.groups:

@@ -36,7 +36,6 @@ import dataclasses
 import glob
 import hashlib
 import os
-import time
 import warnings
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
@@ -47,6 +46,7 @@ from .. import dist as pdist
 from ..device import resolve_device
 from ..models.embedding import embed
 from ..models.nerf import nerf_apply
+from ..utils import profiling as P
 from .render import ModelConfig, RenderConfig, prepare_params, render_rays
 
 RAY_CHUNK = 1 << 20
@@ -724,8 +724,12 @@ class CulledRenderer:
       the JAX renderer's with a mesh of that size. Every rank must call
       it with the same rays, and each gets the whole image.
 
-    NERF_OCC_TIMING=1 in the environment prints the cull pass's time and
-    each bucket's, each after a sync of the device.
+    A call's phases (utils/profiling.py: a span each, with its mark on
+    CUDA, while a profiler records) are `cull` (the cull pass up to its
+    counts on the host, the call's one readback), `frame.pack`, one
+    `bucket` per run of tiles (each tile's render_rays phases inside it,
+    then `frame.gather`, the tiles' outputs scattered into the image),
+    then the mark `end`.
     """
 
     _BUCKET_FRACS = (0.25, 0.5, 1.0)   # sample fraction per span bucket
@@ -889,16 +893,18 @@ class CulledRenderer:
                 model, tile, rcfg, self.mcfg,
                 occm=cull.occm[lo:lo + chunk] if n_seg else None,
                 n_seg=n_seg))
-        out = pdist.gather_rows({k: torch.cat([o[k] for o in outs])
-                                 for k in img if k in outs[0]}, self.group)
-        rows = torch.arange(chunk, device=self.device)
-        for t in range(n_tiles):
-            lo = start + t * chunk
-            idx = torch.where(rows < n_valid - t * chunk,
-                              cull.order[lo:lo + chunk], R)
-            written.index_add_(0, idx, torch.ones_like(idx))
-            for k, v in out.items():
-                img[k][idx] = v[t * chunk:(t + 1) * chunk]
+        with P.phase("frame.gather", self.device):
+            out = pdist.gather_rows({k: torch.cat([o[k] for o in outs])
+                                     for k in img if k in outs[0]},
+                                    self.group)
+            rows = torch.arange(chunk, device=self.device)
+            for t in range(n_tiles):
+                lo = start + t * chunk
+                idx = torch.where(rows < n_valid - t * chunk,
+                                  cull.order[lo:lo + chunk], R)
+                written.index_add_(0, idx, torch.ones_like(idx))
+                for k, v in out.items():
+                    img[k][idx] = v[t * chunk:(t + 1) * chunk]
 
     @torch.no_grad()
     def __call__(self, params: Mapping[str, Any], rays,
@@ -907,42 +913,33 @@ class CulledRenderer:
         tensors on the renderer's device (and the stats with
         return_stats). `params` holds the MLPs as `make_render_fn` takes
         them; with rcfg.fused they are packed once per call."""
-        timing = bool(os.environ.get("NERF_OCC_TIMING"))
-        sync = (torch.cuda.synchronize if self.device.type == "cuda"
-                else (lambda: None))
-        t0 = time.perf_counter()
-        rays = torch.as_tensor(rays, dtype=torch.float32, device=self.device)
-        R = rays.shape[0]
-        chunk = self._chunk_for(R)
-        cap_tiles = -(-R // chunk)                      # all rays survive
-        # worst case: every ray survives, and its tiles round up to whole
-        # tiles a rank (with budgets a bucket's tiles round past the image)
-        gran = max(2, self.n_data) if self.budgets else self.n_data
-        pad_rows = (-(-cap_tiles // gran) * gran) * chunk
-        cull = self._cull(rays, pad_rows)
-        counts = cull.counts.tolist()                   # the one readback
-        if timing:
-            print(f"[occ-timing] cull+readback: "
-                  f"{time.perf_counter() - t0:.3f}s", flush=True)
-        model = prepare_params(params, self.rcfg, self.device)
-        written = torch.zeros(R + 1, dtype=torch.int64, device=self.device)
-        img = self._background(R + 1)           # row R: the dump row
-        plan = self._tile_plan(R, counts)
+        dev = self.device
+        with P.phase("cull", dev):
+            rays = torch.as_tensor(rays, dtype=torch.float32, device=dev)
+            R = rays.shape[0]
+            chunk = self._chunk_for(R)
+            cap_tiles = -(-R // chunk)                  # all rays survive
+            # worst case: every ray survives, and its tiles round up to
+            # whole tiles a rank (with budgets a bucket's tiles round past
+            # the image)
+            gran = max(2, self.n_data) if self.budgets else self.n_data
+            pad_rows = (-(-cap_tiles // gran) * gran) * chunk
+            cull = self._cull(rays, pad_rows)
+            counts = cull.counts.tolist()               # the one readback
+        with P.phase("frame.pack", dev):
+            model = prepare_params(params, self.rcfg, dev)
+            written = torch.zeros(R + 1, dtype=torch.int64, device=dev)
+            img = self._background(R + 1)       # row R: the dump row
+            plan = self._tile_plan(R, counts)
         for frac, start, n_tiles, chunk_b, n_valid in plan:
-            if timing:
-                sync()
-                tb = time.perf_counter()
-            self._render_tiles(model, cull, start, n_tiles, chunk_b,
-                               self._rcfg_for_frac(frac), n_valid, img,
-                               written)
-            if timing:
-                sync()
-                print(f"[occ-timing] bucket frac={frac} rows={n_valid} "
-                      f"tiles={n_tiles} ({n_tiles * chunk_b} rendered): "
-                      f"{time.perf_counter() - tb:.3f}s", flush=True)
+            with P.phase("bucket", dev):
+                self._render_tiles(model, cull, start, n_tiles, chunk_b,
+                                   self._rcfg_for_frac(frac), n_valid, img,
+                                   written)
         if int(written[:R].max()) > 1:
             raise AssertionError("a ray was written by two tiles")
         img = {k: v[:R] for k, v in img.items()}
+        P.mark("end", dev)
         if not return_stats:
             return img
         stats = {"n_rays": R, "n_survivors": sum(counts),

@@ -29,6 +29,10 @@ take a `torch.Generator` and optional explicit draws (`TrainDraws`): the
 perturb uniforms, the standard-normal sigma noise of each pass and the
 importance `u`. A draw that is not given comes from the generator, in that
 order, on the rays' device.
+
+Each stage of a render or a training step is a phase of
+utils/profiling.py (a span, and on CUDA a device mark, while a profiler
+records): `coarse_z` or `occupied_z`, `coarse`, `fine_z`, `fine`.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from ..ops.fused_mlp import (nerf_apply_fused, nerf_sigma_fused, pack_mlp,
 from ..ops.fused_render import fused_render_eval, fused_sigma_render
 from ..ops.fused_train import fused_mse_render, fused_train_render
 from ..ops.sample_pdf import sample_pdf
+from ..utils import profiling as P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,27 +290,33 @@ def render_rays(params: Mapping[str, Any],
     keyed like the JAX package. Differentiable in dict params, except
     through the test-time render kernels and the sigma-only fused pass.
     """
+    dev = rays.device
     rng = functools.partial((draws or TrainDraws()).take,
-                            generator=generator, device=rays.device)
+                            generator=generator, device=dev)
     if occm is not None:
-        z_vals = _occupied_z_vals(rays, occm, n_seg, cfg, rng)
+        with P.phase("occupied_z", dev):
+            z_vals = _occupied_z_vals(rays, occm, n_seg, cfg, rng)
     else:
-        z_vals = coarse_z_vals(rays, cfg)
-        if cfg.perturb > 0:
-            lower, upper = _bin_bounds(z_vals)
-            z_vals = lower + (upper - lower) * (
-                cfg.perturb * rng("perturb", z_vals.shape))
-        z_vals = z_vals.contiguous()
+        with P.phase("coarse_z", dev):
+            z_vals = coarse_z_vals(rays, cfg)
+            if cfg.perturb > 0:
+                lower, upper = _bin_bounds(z_vals)
+                z_vals = lower + (upper - lower) * (
+                    cfg.perturb * rng("perturb", z_vals.shape))
+            z_vals = z_vals.contiguous()
 
     if (cfg.fused and cfg.test_time and cfg.perturb == 0
             and cfg.noise_std == 0):
-        weights_c, opacity_c = fused_sigma_render(params["nerf_coarse"],
-                                                  rays, z_vals)
+        with P.phase("coarse", dev):
+            weights_c, opacity_c = fused_sigma_render(params["nerf_coarse"],
+                                                      rays, z_vals)
         result = {"opacity_coarse": opacity_c}
         if cfg.N_importance > 0:
-            z_all = _fine_z_vals(z_vals, weights_c, cfg).contiguous()
-            fine = fused_render_eval(params["nerf_fine"], rays, z_all,
-                                     white_back=cfg.white_back)
+            with P.phase("fine_z", dev):
+                z_all = _fine_z_vals(z_vals, weights_c, cfg).contiguous()
+            with P.phase("fine", dev):
+                fine = fused_render_eval(params["nerf_fine"], rays, z_all,
+                                         white_back=cfg.white_back)
             result["rgb_fine"] = fine["rgb"]
             result["depth_fine"] = fine["depth"]
             result["opacity_fine"] = fine["opacity"]
@@ -319,14 +330,15 @@ def render_rays(params: Mapping[str, Any],
             return cfg.noise_std * rng(name, shape)
         return None
 
-    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
-    dir_norms = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    dir_emb = embed(rays_d, mcfg.emb_dir)
-    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    coarse = _evaluate_field(params["nerf_coarse"], xyz, rays_d, dir_emb,
-                             z_vals, dir_norms,
-                             noise("noise_coarse", z_vals.shape), cfg, mcfg,
-                             sigma_only=cfg.test_time, tp=tp)
+    with P.phase("coarse", dev):
+        rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+        dir_norms = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        dir_emb = embed(rays_d, mcfg.emb_dir)
+        xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+        coarse = _evaluate_field(params["nerf_coarse"], xyz, rays_d, dir_emb,
+                                 z_vals, dir_norms,
+                                 noise("noise_coarse", z_vals.shape), cfg,
+                                 mcfg, sigma_only=cfg.test_time, tp=tp)
     if cfg.test_time:
         result = {"opacity_coarse": coarse["opacity"]}
     else:
@@ -334,14 +346,16 @@ def render_rays(params: Mapping[str, Any],
                   "depth_coarse": coarse["depth"],
                   "opacity_coarse": coarse["opacity"]}
     if cfg.N_importance > 0:
-        u = (rng("u", (rays.shape[0], cfg.N_importance))
-             if cfg.perturb > 0 else None)
-        z_all = _fine_z_vals(z_vals, coarse["weights"], cfg, u)
-        xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
-        fine = _evaluate_field(params["nerf_fine"], xyz, rays_d, dir_emb,
-                               z_all, dir_norms,
-                               noise("noise_fine", z_all.shape), cfg, mcfg,
-                               sigma_only=False, tp=tp)
+        with P.phase("fine_z", dev):
+            u = (rng("u", (rays.shape[0], cfg.N_importance))
+                 if cfg.perturb > 0 else None)
+            z_all = _fine_z_vals(z_vals, coarse["weights"], cfg, u)
+        with P.phase("fine", dev):
+            xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
+            fine = _evaluate_field(params["nerf_fine"], xyz, rays_d, dir_emb,
+                                   z_all, dir_norms,
+                                   noise("noise_fine", z_all.shape), cfg,
+                                   mcfg, sigma_only=False, tp=tp)
         result["rgb_fine"] = fine["rgb"]
         result["depth_fine"] = fine["depth"]
         result["opacity_fine"] = fine["opacity"]
@@ -376,18 +390,22 @@ def _render_fused_train(params, rays, z_vals, cfg: RenderConfig, rng,
         mlp = params[name]
         return pack_params(mlp if tp is None else tp.gather_params(mlp))
 
-    out_c, weights_c = fused_train_render(
-        packed("nerf_coarse"), rays, z_vals,
-        noise("noise_coarse", z_vals.shape), cfg.white_back)
+    dev = rays.device
+    with P.phase("coarse", dev):
+        out_c, weights_c = fused_train_render(
+            packed("nerf_coarse"), rays, z_vals,
+            noise("noise_coarse", z_vals.shape), cfg.white_back)
     result = {"rgb_coarse": out_c[:, 0:3], "depth_coarse": out_c[:, 3],
               "opacity_coarse": out_c[:, 4]}
     if cfg.N_importance > 0:
-        u = (rng("u", (rays.shape[0], cfg.N_importance))
-             if cfg.perturb > 0 else None)
-        z_all = _fine_z_vals(z_vals, weights_c, cfg, u).contiguous()
-        out_f, _ = fused_train_render(
-            packed("nerf_fine"), rays, z_all,
-            noise("noise_fine", z_all.shape), cfg.white_back)
+        with P.phase("fine_z", dev):
+            u = (rng("u", (rays.shape[0], cfg.N_importance))
+                 if cfg.perturb > 0 else None)
+            z_all = _fine_z_vals(z_vals, weights_c, cfg, u).contiguous()
+        with P.phase("fine", dev):
+            out_f, _ = fused_train_render(
+                packed("nerf_fine"), rays, z_all,
+                noise("noise_fine", z_all.shape), cfg.white_back)
         result["rgb_fine"] = out_f[:, 0:3]
         result["depth_fine"] = out_f[:, 3]
         result["opacity_fine"] = out_f[:, 4]
@@ -416,42 +434,50 @@ def fused_mse_train_step(params: Mapping[str, Any],
     SUM over rays of the per-ray squared-error means; divide it by
     global_batch for the loss.
     """
+    dev = rays.device
     rng = functools.partial((draws or TrainDraws()).take,
-                            generator=generator, device=rays.device)
+                            generator=generator, device=dev)
     if occm is not None:
-        z_vals = _occupied_z_vals(rays, occm, n_seg, cfg, rng)
+        with P.phase("occupied_z", dev):
+            z_vals = _occupied_z_vals(rays, occm, n_seg, cfg, rng)
     else:
-        z_vals = coarse_z_vals(rays, cfg)
-        if cfg.perturb > 0:
-            lower, upper = _bin_bounds(z_vals)
-            z_vals = lower + (upper - lower) * cfg.perturb * \
-                rng("perturb", z_vals.shape)
-        z_vals = z_vals.contiguous()
+        with P.phase("coarse_z", dev):
+            z_vals = coarse_z_vals(rays, cfg)
+            if cfg.perturb > 0:
+                lower, upper = _bin_bounds(z_vals)
+                z_vals = lower + (upper - lower) * cfg.perturb * \
+                    rng("perturb", z_vals.shape)
+            z_vals = z_vals.contiguous()
 
     def noise(name, shape):
-        return _kernel_noise(cfg, rng, name, shape, rays.device)
+        return _kernel_noise(cfg, rng, name, shape, dev)
 
     scale = 1.0 / (global_batch * 3)
-    out_c, weights_c, g_c = fused_mse_render(
-        params["nerf_coarse"], rays, z_vals,
-        noise("noise_coarse", z_vals.shape), rgbs, cfg.white_back, scale)
-    result = {"rgb_coarse": out_c[:, 0:3], "depth_coarse": out_c[:, 3],
-              "opacity_coarse": out_c[:, 4]}
-    loss_sum = torch.sum((out_c[:, 0:3] - rgbs) ** 2) / 3.0
-    grads = {"nerf_coarse": unpack_grads(g_c)}
+    with P.phase("coarse", dev):
+        out_c, weights_c, g_c = fused_mse_render(
+            params["nerf_coarse"], rays, z_vals,
+            noise("noise_coarse", z_vals.shape), rgbs, cfg.white_back,
+            scale)
+        result = {"rgb_coarse": out_c[:, 0:3], "depth_coarse": out_c[:, 3],
+                  "opacity_coarse": out_c[:, 4]}
+        loss_sum = torch.sum((out_c[:, 0:3] - rgbs) ** 2) / 3.0
+        grads = {"nerf_coarse": unpack_grads(g_c)}
 
     if cfg.N_importance > 0:
-        u = (rng("u", (rays.shape[0], cfg.N_importance))
-             if cfg.perturb > 0 else None)
-        z_all = _fine_z_vals(z_vals, weights_c, cfg, u).contiguous()
-        out_f, _, g_f = fused_mse_render(
-            params["nerf_fine"], rays, z_all,
-            noise("noise_fine", z_all.shape), rgbs, cfg.white_back, scale)
-        result["rgb_fine"] = out_f[:, 0:3]
-        result["depth_fine"] = out_f[:, 3]
-        result["opacity_fine"] = out_f[:, 4]
-        loss_sum = loss_sum + torch.sum((out_f[:, 0:3] - rgbs) ** 2) / 3.0
-        grads["nerf_fine"] = unpack_grads(g_f)
+        with P.phase("fine_z", dev):
+            u = (rng("u", (rays.shape[0], cfg.N_importance))
+                 if cfg.perturb > 0 else None)
+            z_all = _fine_z_vals(z_vals, weights_c, cfg, u).contiguous()
+        with P.phase("fine", dev):
+            out_f, _, g_f = fused_mse_render(
+                params["nerf_fine"], rays, z_all,
+                noise("noise_fine", z_all.shape), rgbs, cfg.white_back,
+                scale)
+            result["rgb_fine"] = out_f[:, 0:3]
+            result["depth_fine"] = out_f[:, 3]
+            result["opacity_fine"] = out_f[:, 4]
+            loss_sum = loss_sum + torch.sum((out_f[:, 0:3] - rgbs) ** 2) / 3.0
+            grads["nerf_fine"] = unpack_grads(g_f)
     return loss_sum, result, grads
 
 

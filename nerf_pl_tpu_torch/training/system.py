@@ -41,7 +41,7 @@ from ..parallel.spmd import Trainer, seed_for
 from ..rendering.occupancy import (build_occupancy_grid, pick_block,
                                    rays_aabb, resolve_ranges)
 from ..rendering.render import ModelConfig, RenderConfig
-from ..utils.profiling import PhaseTimer
+from ..utils import profiling as P
 from ..utils.visualization import visualize_depth
 from .checkpoints import (TopKCheckpoints, load_checkpoint, load_ckpt,
                           save_checkpoint)
@@ -259,10 +259,12 @@ class NeRFSystem:
     # ------------------------------------------------------------------ fit
     def fit(self) -> Dict[str, float]:
         hp = self.hparams
-        timer = self.timer = PhaseTimer()
-        with timer.phase("prepare_data"):
+        # host wall seconds and count of each phase's spans, for the
+        # summary printed at exit
+        totals = self.phase_totals = {}
+        with P.timed("fit.prepare_data", totals):
             self.prepare_data()
-        with timer.phase("setup"):
+        with P.timed("fit.setup", totals):
             self.setup()
 
         step_seed = hp.seed + 1
@@ -310,7 +312,7 @@ class NeRFSystem:
             epoch_before = step // spe
             do_trace = (bool(hp.profile_dir) and not profiled and step > 0
                         and main)
-            with timer.phase("train_segment"):
+            with P.timed("fit.segment", totals):
                 if do_trace:
                     m = self._profiled_segment(step_seed, seg)
                     profiled = True
@@ -345,14 +347,14 @@ class NeRFSystem:
                 if hp.occ_train and epoch >= hp.occ_warmup_epochs and \
                         (epoch - hp.occ_warmup_epochs) \
                         % max(hp.occ_refresh_epochs, 1) == 0:
-                    with timer.phase("occ_tighten"):
+                    with P.timed("fit.occ_tighten", totals):
                         self._occ_tighten()
             epoch_val = epoch > epoch_before or step >= total_steps
             mid_val = (not epoch_val and hp.val_every_steps
                        and step // hp.val_every_steps
                        > (step - seg) // hp.val_every_steps)
             if epoch_val or mid_val:
-                with timer.phase("validate"):
+                with P.timed("fit.validate", totals):
                     val = self.validate(step)
                 if main:
                     metrics = {**val, "epoch": epoch, "step": step}
@@ -362,7 +364,7 @@ class NeRFSystem:
                               f"psnr={val['val/psnr']:.2f} "
                               f"ssim={val['val/ssim']:.3f}")
             if epoch_val:
-                with timer.phase("checkpoint"):
+                with P.timed("fit.checkpoint", totals):
                     if main:
                         self.topk.maybe_save(self.state, val["val/loss"],
                                              epoch, meta={"step": step})
@@ -372,12 +374,13 @@ class NeRFSystem:
                     pdist.barrier(self.group)
         if self.writer is not None:
             self.writer.flush()
-        self._say(f"[profiler]\n{timer.summary()}")
+        self._say(f"[profiler]\n{P.summary(totals)}")
         return metrics
 
     def _profiled_segment(self, step_seed: int, seg: int):
-        """One segment under torch.profiler; the trace goes to
-        --profile_dir."""
+        """One segment under torch.profiler; its chrome trace, with the
+        program's spans and (on CUDA) the step's phase marks
+        (utils/profiling.py), goes to --profile_dir."""
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":

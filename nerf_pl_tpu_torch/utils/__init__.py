@@ -1,2 +1,3 @@
 """Host utilities: the port's own copies of the JAX package's synthetic
-scenes, depth visualisation and phase timer (numpy only)."""
+scenes and depth visualisation (numpy only), and the port's tracing
+(profiling.py)."""

@@ -924,3 +924,250 @@ def test_dryrun_multichip_on_cuda(dev):
                           text=True, timeout=600, cwd=repo)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.count(" ok\n") == 5, proc.stdout
+
+
+# ------------------------------------------------------------- tracing
+
+LOSS_FUSED = dict(N_samples=32, N_importance=64, perturb=1.0, noise_std=1.0,
+                  white_back=True, fused_train=True, fused_loss=True)
+
+
+def _traced_trainer(dev, culled):
+    """The loss-fused Trainer at batch 1024 on _culled_trainer's store,
+    tightened and packed (culled) or as set_data leaves it (dense)."""
+    if culled:
+        return _culled_trainer(RenderConfig(**LOSS_FUSED), dev)[0]
+    g = torch.Generator().manual_seed(1)
+    n = 20000
+    o = torch.randn((n, 3), generator=g)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g),
+                                      dim=-1)
+    rays = torch.cat([o, d, torch.full((n, 1), 2.0), torch.full((n, 1), 6.0)],
+                     dim=-1)
+    sched = get_lr_schedule("steplr", 5e-4, 16, 1000, decay_step=[2, 4, 8],
+                            decay_gamma=0.5)
+    tr = Trainer(ModelConfig(), RenderConfig(**dict(LOSS_FUSED, N_samples=64)),
+                 get_optimizer("adam", sched), sched, loss_dict["mse"], 1024,
+                 dev)
+    tr.set_data(rays.numpy(), torch.rand((n, 3), generator=g).numpy())
+    return tr
+
+
+def _profiled(fn):
+    """fn() under torch.profiler on the card, synchronised: (what fn
+    returned, the device spans, the host spans, the kineto events)."""
+    from nerfbench import trace as T
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the window's first device events can go unrecorded: a kernel and
+        # a sync before fn
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+    dev_spans, host = T._spans(prof)
+    return out, dev_spans, host, list(prof.profiler.kineto_results.events())
+
+
+def _step_marks(culled):
+    return (["draws", "batch", "occupied_z" if culled else "coarse_z",
+             "coarse", "fine_z", "fine", "optimizer", "tail", "end"])
+
+
+def _by_phase(dev_spans):
+    """{phase: [device op names]} of the non-mark device operations, each
+    in the phase whose interval holds its start (nerfbench's reading)."""
+    from nerfbench.metrics import _spans as S
+    ph = S.phases(type("Tr", (), {"device": dev_spans})())
+    out = {}
+    for name, s, _ in dev_spans:
+        if S.MARK.search(name):
+            continue
+        for p in ph:
+            if p.start <= s < p.end:
+                out.setdefault(p.name, []).append(name)
+                break
+    return out
+
+
+@pytest.mark.parametrize("culled", [False, True], ids=["dense", "culled"])
+def test_replayed_step_marks_in_order_and_its_kernels_phases(dev, culled):
+    """Under a profiler, 3 replayed steps show their marks in the step's
+    order (the capture having happened before the window: no capture
+    inside it); the mse_render launches fall in coarse and fine, every
+    sort in fine_z (searchsorted in fine_z or occupied_z); the optimizer
+    phase holds exactly the kernels an eager step launches inside its
+    `optimizer` host span (told apart from the tail's _foreach_copy_,
+    also multi_tensor_apply, by the runtime's correlation ids); no device
+    event is a user annotation or carries a span's name."""
+    from nerf_pl_tpu_torch.utils import profiling as P
+    tr = _traced_trainer(dev, culled)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    state, _ = tr.run_steps(state, 5, 2)
+    assert tr.captures == 1
+    (state, m), dev_spans, host, events = _profiled(
+        lambda: tr.run_steps(state, 5, 3))
+    assert tr.captures == 1 and torch.isfinite(m["loss"]).all()
+    from nerfbench.metrics import _spans as S
+    seen = [p for p, _, _ in S.marks(type("Tr", (), {"device": dev_spans})())]
+    assert seen == _step_marks(culled) * 3
+    phases = _by_phase(dev_spans)
+    for p, names in phases.items():
+        for n in names:
+            if "fwdbwd_kernel" in n or "wgrad_kernel" in n:
+                assert p in ("coarse", "fine"), (p, n)
+            if "sort" in n.lower() and "searchsorted" not in n:
+                assert p == "fine_z", (p, n)
+            if "searchsorted" in n:
+                assert p in ("fine_z", "occupied_z"), (p, n)
+    assert sum("fwdbwd_kernel" in n for n in phases["coarse"]) == 3
+    assert sum("fwdbwd_kernel" in n for n in phases["fine"]) == 3
+    span_names = set(P.MARKS) | {n.replace("_", ".", 1) for n in P.MARKS}
+    for e in events:
+        if str(e.device_type()).split(".")[-1] == "CUDA":
+            assert not e.is_user_annotation(), e.name()
+            assert e.name() not in span_names, e.name()
+    # the same step eagerly: the kernels launched inside the optimizer's
+    # host span are the optimizer phase's, there and in the replay
+    (_, _), eager_dev, eager_host, eager_events = _profiled(
+        lambda: tr.run_steps(state, 5, 1, eager=True))
+    (_, a, b), = [h for h in eager_host if h[0] == "optimizer"]
+    launched = {e.correlation_id() for e in eager_events
+                if str(e.device_type()).split(".")[-1] == "CPU"
+                and a <= e.start_ns() * 1e-9 <= b
+                and e.name().startswith("cu")}
+    opt_kernels = sorted(e.name() for e in eager_events
+                         if str(e.device_type()).split(".")[-1] == "CUDA"
+                         and e.correlation_id() in launched
+                         and not S.MARK.search(e.name()))
+    assert opt_kernels and any("multi_tensor_apply" in n
+                               for n in opt_kernels)
+    assert sorted(_by_phase(eager_dev)["optimizer"]) == opt_kernels
+    assert sorted(phases["optimizer"]) == sorted(opt_kernels * 3)
+    assert any("multi_tensor_apply" in n for n in phases["tail"])
+
+
+def test_replayed_states_equal_with_tracing_off_on_and_alternating(dev):
+    """12 replayed steps in 3 segments, with tracing off, on, and on only
+    for the middle segment, from the same state: params, Adam's state and
+    the losses bit for bit, one capture."""
+    tr = _traced_trainer(dev, True)
+    runs = []
+    for traced in ((False,) * 3, (True,) * 3, (False, True, False)):
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        losses = []
+        for on in traced:
+            if on:
+                (state, m), _, _, _ = _profiled(
+                    lambda s=state: tr.run_steps(s, 9, 4))
+            else:
+                state, m = tr.run_steps(state, 9, 4)
+            losses.append(m["loss"])
+        runs.append((state, torch.cat(losses)))
+    assert tr.captures == 1
+    (s0, l0) = runs[0]
+    for s, losses in runs[1:]:
+        assert torch.equal(l0, losses)
+        for a, b in zip(tree_leaves(s0.params) + tree_leaves(s0.opt_state[0]),
+                        tree_leaves(s.params) + tree_leaves(s.opt_state[0])):
+            assert torch.equal(a, b)
+
+
+def test_no_mark_runs_outside_a_profiler(dev):
+    """With the profiler's device tracing on but the program told that no
+    profiler records (torch's flag cleared, as outside any profiler),
+    replayed steps, eager steps and a frame launch no mark; told again
+    that it records, the replay's marks run."""
+    import torch.autograd.profiler as tap
+    from nerfbench.metrics import _spans as S
+    tr = _traced_trainer(dev, False)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    state, _ = tr.run_steps(state, 5, 2)
+    render = make_render_fn(RenderConfig(N_samples=64, N_importance=64,
+                                         white_back=True, test_time=True,
+                                         fused=True), 4096, dev)
+    rays, _ = rays_z(5000, 8, dev)
+
+    def hidden():
+        tap._set_is_profiler_enabled(False)
+        try:
+            out = tr.run_steps(state, 5, 3)
+            tr.run_steps(out[0], 5, 1, eager=True)
+            render(out[0].params, rays)
+        finally:
+            tap._set_is_profiler_enabled(True)
+        return tr.run_steps(out[0], 5, 1)
+
+    _, dev_spans, _, _ = _profiled(hidden)
+    seen = [p for p, _, _ in S.marks(type("Tr", (), {"device": dev_spans})())]
+    assert seen == _step_marks(False)
+    assert tr.captures == 1
+
+
+def test_frame_marks_in_order(dev):
+    """A frame of 3 tiles through make_render_fn under a profiler: its
+    marks in order, sort and searchsorted in fine_z, both render kernels
+    in their passes."""
+    from nerfbench.metrics import _spans as S
+    render = make_render_fn(RenderConfig(N_samples=64, N_importance=64,
+                                         white_back=True, test_time=True,
+                                         fused=True), 4096, dev)
+    params = {k: dense_params(i, dev) for i, k in
+              enumerate(("nerf_coarse", "nerf_fine"))}
+    rays, _ = rays_z(10000, 8, dev)
+    render(params, rays)
+    out, dev_spans, _, _ = _profiled(lambda: render(params, rays))
+    assert out["rgb_fine"].shape == (10000, 3)
+    seen = [p for p, _, _ in S.marks(type("Tr", (), {"device": dev_spans})())]
+    assert seen == (["frame_pad", "frame_pack"]
+                    + ["coarse_z", "coarse", "fine_z", "fine"] * 3
+                    + ["frame_gather", "frame_to_host", "end"])
+    phases = _by_phase(dev_spans)
+    for kernel, phase in (("sigma_quad_kernel", "coarse"),
+                          ("eval_quad_kernel", "fine"),
+                          ("searchsorted", "fine_z"),
+                          ("Memcpy DtoH", "frame_to_host")):
+        found = {p: sum(kernel in n for n in names)
+                 for p, names in phases.items()}
+        assert found[phase] >= (3 if "kernel" in kernel else 1), found
+        assert sum(found.values()) == found[phase], (kernel, found)
+
+
+def test_culled_dispatch_marks_in_order(dev):
+    """One culled dispatch (tighten, budgets, segments) under a profiler:
+    `cull`, `frame.pack`, then each bucket's mark, its tiles' phases
+    (occupied_z in place of coarse_z) and `frame.gather`, then `end`; the
+    cull pass's kernels in `cull`."""
+    import math
+    from nerfbench.metrics import _spans as S
+    from nerf_pl_tpu_torch.datasets.rays import frame_rays, sphere_pose
+    from nerf_pl_tpu_torch.rendering import CulledRenderer, OccupancyGrid
+
+    boxes = torch.tensor([[-0.6, -0.6, -0.6, 0.2, 0.3, 0.4],
+                          [0.5, -0.2, -1.0, 1.2, 0.6, 0.9]]).numpy()
+    occ = OccupancyGrid(boxes=boxes, block_map=torch.ones(
+        (2, 2, 2), dtype=torch.uint8).numpy(), lo=boxes[:, :3].min(0),
+        hi=boxes[:, 3:].max(0))
+    focal = 0.5 * 64 / math.tan(0.5 * 0.8575560450553894)
+    rays = frame_rays(sphere_pose(0.3, math.pi / 5, 4.0), 64, 64, focal,
+                      2.0, 6.0, dev)
+    params = {"nerf_coarse": dense_params(10, dev),
+              "nerf_fine": dense_params(11, dev)}
+    cr = CulledRenderer(occ, RenderConfig(N_samples=64, N_importance=128,
+                                          test_time=True, white_back=True,
+                                          fused=True),
+                        chunk=1024, device=dev, tighten=True, budgets=True,
+                        segments=32)
+    _, stats = cr(params, rays, return_stats=True)
+    _, dev_spans, host, _ = _profiled(lambda: cr(params, rays))
+    seen = [p for p, _, _ in S.marks(type("Tr", (), {"device": dev_spans})())]
+    want = ["cull", "frame_pack"]
+    for frac, _, n_tiles, _, _ in cr._tile_plan(4096, stats["bucket_counts"]):
+        want += (["bucket"] + ["occupied_z", "coarse", "fine_z", "fine"]
+                 * n_tiles + ["frame_gather"])
+    assert seen == want + ["end"]
+    assert any("sort" in n.lower() for n in _by_phase(dev_spans)["cull"])
+    assert [h[0] for h in sorted(host, key=lambda h: h[1])
+            if h[0] in ("cull", "bucket")] == (
+        ["cull"] + ["bucket"] * want.count("bucket"))

@@ -6,8 +6,9 @@
     make_llff_scene (40x30) write the same files, byte for byte;
   * BlenderDataset and LLFFDataset on those scenes: all_rays and all_rgbs
     of the train split, and every val item's rays and rgbs, bit-identical;
-  * the ray, pose and depth utilities, visualize_depth and PhaseTimer on
-    seeded inputs;
+  * the ray, pose and depth utilities and visualize_depth on seeded
+    inputs (the port's tracing, which replaced PhaseTimer, is
+    tests/test_torch_profiling.py's);
   * the parsers of the mesh CLI and of the script modules
     (extract_color_mesh.get_opts, scripts/preview_bounds.py's get_opts,
     and the parsers that scripts/save_weights_only.py,
@@ -30,7 +31,6 @@ from nerf_pl_tpu.datasets import depth_utils as jdepth
 from nerf_pl_tpu.datasets import pose_utils as jpose
 from nerf_pl_tpu.datasets import ray_utils as jray
 from nerf_pl_tpu.utils import synthetic as jsyn
-from nerf_pl_tpu.utils.profiling import PhaseTimer as JPhaseTimer
 from nerf_pl_tpu.mesh import extract as jext
 from nerf_pl_tpu.utils.visualization import visualize_depth as jvis
 from nerf_pl_tpu_torch import config as tconfig
@@ -40,7 +40,6 @@ from nerf_pl_tpu_torch.datasets import pose_utils as tpose
 from nerf_pl_tpu_torch.datasets import ray_utils as tray
 from nerf_pl_tpu_torch.mesh import extract as text
 from nerf_pl_tpu_torch.utils import synthetic as tsyn
-from nerf_pl_tpu_torch.utils.profiling import PhaseTimer as TPhaseTimer
 from nerf_pl_tpu_torch.utils.visualization import visualize_depth as tvis
 from test_torch_mesh_cli import _script, jmesh_cli
 
@@ -203,11 +202,6 @@ def test_depth_io_visualization_and_timer_match(rng, tmp_path):
     data, scale = tdepth.read_pfm(str(tmp_path / "j.pfm"))
     assert np.array_equal(data, depth) and scale == 1.0
     assert np.array_equal(tvis(depth), jvis(depth))
-    timers = (TPhaseTimer(), JPhaseTimer())
-    for t in timers:
-        with t.phase("a"):
-            pass
-    assert [dict(t.counts) for t in timers] == [{"a": 1}, {"a": 1}]
 
 
 def _jax_get_opts(name):

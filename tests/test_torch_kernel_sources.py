@@ -6,7 +6,10 @@ sources as text (no compiler needed, so they run on the CPU):
     gradients;
   * no environment lookups and no preprocessor switch that could select
     another build of a kernel (the redesigned backward has no old copy);
-  * every .cu names the function of nerf_pl_tpu/ops/*.py that it replaces;
+  * every .cu but marks.cu (the profiler's phase marks, which port no TPU
+    kernel) names the function of nerf_pl_tpu/ops/*.py that it replaces;
+  * marks.cu's empty kernels name exactly the phases of
+    utils/profiling.py's MARKS, in its order;
   * every kernel (the backwards' launches A and A', train_fwd, mlp_fwd
     and render_eval through mlp_wgmma.cuh's forward tile loop,
     sigma_render and sigma_fwd through its trunk alone, and launch B)
@@ -28,6 +31,8 @@ REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "nerf_pl_tpu_torch" / "csrc"
 SOURCES = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 CU = sorted(CSRC.glob("*.cu"))
+# the sources that port a TPU kernel
+PORTS = [p for p in CU if p.name != "marks.cu"]
 
 
 def code_of(path):
@@ -83,7 +88,7 @@ def _jax_functions(py):
     return {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
 
 
-@pytest.mark.parametrize("path", CU, ids=lambda p: p.name)
+@pytest.mark.parametrize("path", PORTS, ids=lambda p: p.name)
 def test_each_cu_names_the_tpu_function_it_replaces(path):
     text = path.read_text()
     named = set(re.findall(r"nerf_pl_tpu/ops/(\w+\.py)", text))
@@ -287,3 +292,17 @@ def test_every_signature_has_a_c_entry():
     for path in CU:
         found.update(_build.c_entries(path.read_text()))
     assert set(_build.SIGNATURES) == set(found)
+
+
+def test_marks_are_the_profiling_phases():
+    """marks.cu declares one tag a phase of profiling.MARKS, and its table
+    of empty kernels (whose index is the phase's C id) lists them in
+    MARKS' order; the mark kernel does nothing."""
+    from nerf_pl_tpu_torch.utils.profiling import MARKS
+    code = code_of(CSRC / "marks.cu")
+    tags = re.findall(r"^struct (\w+);", code, flags=re.M)
+    assert tags == list(MARKS)
+    table = re.search(r"MARK_FNS\[\]\s*=\s*\{(.*?)\};", code, re.S)
+    assert re.findall(r"mark<span::(\w+)>", table.group(1)) == list(MARKS)
+    assert re.search(r"__global__ void mark\(\)\s*\{\}", code)
+    assert len(set(MARKS)) == len(MARKS)
