@@ -45,7 +45,8 @@
    then three timed segments of 100 steps, each ending in a sync on a
    parameter (run_steps replays the captured step, 9). Requires finite
    metrics, a mean loss over the last 50 steps below the first 50,
-   exactly 2 mse_render launches per step launched, and on one
+   exactly 2 mse_render launches and 1 adam launch per step launched, and
+   on one
    batch gradients of the fused step pointing the way the plain autograd
    step's do with the same draws (cosine >= 0.95 per leaf, the bar of
    test_grad_direction_vs_f32_reference, the cosine taken in float64)
@@ -65,6 +66,20 @@
    (by the end its loss is ~5e-6, and its coarse gradient is what bf16
    rounding leaves of terms that cancel). Prints rays/s and the effective
    rate.
+   Adam ([adam]): the one-launch update (csrc/adam.cu) against the
+   foreach chain it replaces (update, then apply_updates) on the dense
+   recipe's 48 leaves, 1,191,688 parameters, with unpack_grads' strided
+   gradients: 5 steplr steps out of place and 5 in place, every leaf of
+   the params, moments and counts bit for bit; then the device ms a step
+   of each over 50 profiled steps (the kernel's launch alone, and with
+   the schedule's and counts' scalar ops), each step after a write of
+   256 MB that leaves none of its 33.4 MB in the 50 MB L2, as a training
+   step's kernels leave it (the write's own time not counted); beside
+   them, for the kernels line's library_ms only, torch._fused_adam_'s one
+   call over the same leaves (contiguous gradients), which the port does
+   not call: its rounding is not optax's order. The kernels line's adam
+   launches are the loss-fused train path's, its max_abs_err the largest
+   |kernel - chain| over the compared leaves.
 5. Point-MLP path (`--fused_mlp` training). Holds the three point-MLP
    kernels against their plain versions at ragged P = 300, 4099 and
    131,075 with the weights of dense_params and of plain init: rgb within
@@ -227,10 +242,11 @@
    [culled] ladder together, its error, its ms and its plain version's at
    the main shape, its
    bound: the larger of the bytes it must move over 3.35 TB/s and its
-   bf16 operations over 989 TFLOP/s (mlp_flops_per_point), and
-   library_ms, null: no single
-   PyTorch call computes a fused NeRF MLP with its quadrature or its
-   gradients), mse_render's [bound] lines at culled32's (1024, 32) and
+   bf16 operations over 989 TFLOP/s (mlp_flops_per_point); adam's is its
+   28 bytes a parameter, its plain version the foreach chain), and
+   library_ms, null: no single PyTorch call computes a fused NeRF MLP with
+   its quadrature or its gradients, and the port uses no fused optimizer
+   of PyTorch's), mse_render's [bound] lines at culled32's (1024, 32) and
    (1024, 96), the nvidia-smi line, and last {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero without those lines.
 """
@@ -250,6 +266,7 @@ import time
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -290,7 +307,8 @@ from nerf_pl_tpu_torch.training import (get_lr_schedule,  # noqa: E402
                                         get_optimizer, loss_dict)
 from nerf_pl_tpu_torch.training.checkpoints import (  # noqa: E402
     gather_state, load_ckpt, map_with_paths)
-from nerf_pl_tpu_torch.training.optimizers import tree_leaves  # noqa: E402
+from nerf_pl_tpu_torch.training.optimizers import (  # noqa: E402
+    B1, B2, apply_updates, optimizer_step, tree_leaves, tree_unflatten)
 from nerf_pl_tpu_torch.utils.profiling import cuda_event_ms  # noqa: E402
 
 TOL = {"weights": 5e-3, "rgb": 1e-2, "opacity": 1e-2, "depth": 5e-2}
@@ -319,6 +337,8 @@ KERNELS = {   # name: (TPU kernel it replaces, source of the port's)
                   "nerf_pl_tpu_torch/csrc/fused_train.cu"),
     "train_bwd": ("nerf_pl_tpu/ops/fused_train.py:250",
                   "nerf_pl_tpu_torch/csrc/fused_train.cu"),
+    "adam": ("none: optax's Adam chain, which XLA fuses",
+             "nerf_pl_tpu_torch/csrc/adam.cu"),
 }
 GRAD_TOL = 0.03
 COS_BAR = 0.95
@@ -341,6 +361,9 @@ CULLED_TIGHTEN = dict(boxes=[[-1.5, -1.5, -1.5, 1.5, 1.5, 1.5]], margin=0.1,
                       n_seg=32, dilate=1, pack=True)
 MSE_VS_TRAIN_TOL = 1e-3  # train_bwd on the MSE cotangent vs mse_render
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
+ADAM_BYTES = 28          # a parameter's p, g, mu, nu read, p, mu, nu written
+ADAM_STEPS, ADAM_PROFILED = 5, 50
+L2_FLUSH_BYTES = 256 << 20
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, same source
 
 
@@ -1819,7 +1842,11 @@ def bound(name, shape, mlp):
     (mlp_flops_per_point). The element-wise work (bias adds, ReLUs, the
     embeddings' sin/cos, the quadrature: a few thousand f32 operations a
     point) runs beside the tensor cores, at under a tenth of this time at
-    the 67 TFLOP/s f32 rate."""
+    the 67 TFLOP/s f32 rate. Adam's `shape` is its parameters, and its
+    bound their bytes."""
+    if name == "adam":
+        return 1e3 * ADAM_BYTES * shape / HBM_BYTES_PER_S, "bytes"
+
     def wbytes(names):
         return sum(mlp.kernel[n].numel() * mlp.kernel[n].element_size()
                    for n in names)
@@ -1849,6 +1876,109 @@ def bound(name, shape, mlp):
     t_ops, t_bytes = ops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def adam_path(dev):
+    """[adam], the module docstring's Adam paragraph. Returns (the largest
+    |kernel - chain| over the compared leaves, parameters, kernel ms, the
+    chain's ms, torch._fused_adam_'s ms)."""
+    from nerf_pl_tpu_torch.ops import adam as A
+    sched = get_lr_schedule("steplr", 5e-4, 16, 1000, decay_step=[2, 4, 8],
+                            decay_gamma=0.5)
+    opt = get_optimizer("adam", sched)
+    params = {m: init_nerf_params(torch.Generator().manual_seed(i),
+                                  device=dev)
+              for i, m in enumerate(("nerf_coarse", "nerf_fine"))}
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+
+    def grads():
+        return {m: fm.unpack_grads(fm._pack_layout_grads(torch.randn(
+            (fm.GRAD_FLOATS,), generator=gen, device=dev) * 1e-3))
+            for m in params}
+
+    def copy(tree):
+        return tree_unflatten(tree, [t.clone() for t in tree_leaves(tree)])
+
+    n0, err = A.adam_launches, 0.0
+    for inplace in (False, True):
+        pk, sk = copy(params), opt.init(params)
+        pc, sc = params, opt.init(params)
+        for i in range(ADAM_STEPS):
+            g = grads()
+            pk, sk = optimizer_step(opt, g, sk, pk, inplace)
+            upd, sc = opt.update(g, sc, pc)
+            pc = apply_updates(pc, upd)
+            got = pytree.tree_leaves((pk, sk))
+            want = pytree.tree_leaves((pc, sc))
+            worst = max(max_err(a.float(), b.float())
+                        for a, b in zip(got, want))
+            err = max(err, worst)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"[adam] step {i} in place {inplace}: "
+                                     f"kernel off the chain by {worst}")
+    launches = A.adam_launches - n0
+    if launches != 2 * ADAM_STEPS:
+        raise AssertionError(f"[adam] {launches} launches in "
+                             f"{2 * ADAM_STEPS} steps")
+    g = grads()
+    flush = torch.zeros((L2_FLUSH_BYTES,), dtype=torch.uint8, device=dev)
+
+    def kernel_steps():
+        nonlocal pk, sk
+        for _ in range(ADAM_PROFILED):
+            flush.bitwise_not_()
+            pk, sk = optimizer_step(opt, g, sk, pk, True)
+
+    def chain_steps():
+        nonlocal pc, sc
+        for _ in range(ADAM_PROFILED):
+            flush.bitwise_not_()
+            upd, sc = opt.update(g, sc, pc)
+            pc = apply_updates(pc, upd)
+
+    # the library's one call over the same leaves, timed beside the
+    # kernel only: its rounding is not optax's order, and the port does
+    # not call it (contiguous gradients: it reads no strided view)
+    lib = [tree_leaves(t, params) for t in (copy(params), g, opt.init(
+        params)[0]["mu"], opt.init(params)[0]["nu"])]
+    lib[1] = [t.contiguous() for t in lib[1]]
+    lib_steps_t = [torch.ones((), device=dev) for _ in lib[0]]
+
+    def library_steps():
+        for _ in range(ADAM_PROFILED):
+            flush.bitwise_not_()
+            torch._fused_adam_(*lib, [], lib_steps_t, lr=5e-4, beta1=B1,
+                               beta2=B2, weight_decay=0.0, eps=1e-8,
+                               amsgrad=False, maximize=False)
+
+    def step_ms(events):
+        return device_ms([e for e in events if "bitwise_not" not in e.key]
+                         ) / ADAM_PROFILED
+
+    kernel_steps()
+    chain_steps()
+    library_steps()
+    n1 = A.adam_launches
+    _, ev = device_events(kernel_steps)
+    if A.adam_launches - n1 != ADAM_PROFILED:
+        raise AssertionError(f"[adam] {A.adam_launches - n1} launches in "
+                             f"{ADAM_PROFILED} profiled steps")
+    k_ms = sum(e.self_device_time_total for e in ev
+               if "adam_kernel" in e.key) / 1e3 / ADAM_PROFILED
+    with_scalars = step_ms(ev)
+    _, ev = device_events(chain_steps)
+    chain_ms = step_ms(ev)
+    _, ev = device_events(library_steps)
+    lib_ms = step_ms(ev)
+    print(f"[adam] {n_params} parameters in {len(tree_leaves(params))} "
+          f"leaves: {ADAM_STEPS} steps out of place and {ADAM_STEPS} in "
+          f"place bit for bit the foreach chain's (largest |kernel - "
+          f"chain| {err}); device ms a step, L2 flushed: kernel "
+          f"{k_ms:.4f}, with the scalar ops {with_scalars:.4f}, the chain "
+          f"{chain_ms:.4f} ({chain_ms / with_scalars:.1f}x), "
+          f"torch._fused_adam_ {lib_ms:.4f} (not called by the port)")
+    return err, n_params, k_ms, chain_ms, lib_ms
 
 
 def validation_path(dev):
@@ -2468,23 +2598,27 @@ def main():
 
     errs["mse_render"], _ = compare_mse(mlp, dev)
     mse_times = time_mse(mlp, dev)
+    errs["adam"], n_params, adam_ms, chain_ms, adam_lib_ms = adam_path(dev)
+    times[("adam", n_params)] = (adam_ms, chain_ms)
     store = teacher_store(dev)
     base = dict(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE, perturb=1.0,
                 noise_std=1.0, white_back=True)
     counts, _ = train_path(dev, store, "loss-fused", RenderConfig(
-        **base, fused_train=True, fused_loss=True), {"mse_render": 2})
-    launches["mse_render"] = counts["mse_render"]
+        **base, fused_train=True, fused_loss=True),
+        {"mse_render": 2, "adam": 1})
+    launches["mse_render"], launches["adam"] = (counts["mse_render"],
+                                                counts["adam"])
     occ_path(dev, store)
     train_path(dev, store, "culled32", RenderConfig(
         **dict(base, N_samples=CULLED_SAMPLES), fused_train=True,
-        fused_loss=True), {"mse_render": 2}, tighten=CULLED_TIGHTEN,
-        compare_after_warmup=True)
+        fused_loss=True), {"mse_render": 2, "adam": 1},
+        tighten=CULLED_TIGHTEN, compare_after_warmup=True)
 
     errs.update(compare_point_mlp(dev))
     times.update(time_point_mlp(mlp, dev))
     counts, _ = train_path(dev, store, "fused_mlp",
                            RenderConfig(**base, fused=True),
-                           {"mlp_fwd": 2, "mlp_bwd": 2})
+                           {"mlp_fwd": 2, "mlp_bwd": 2, "adam": 1})
     launches["mlp_fwd"], launches["mlp_bwd"] = (counts["mlp_fwd"],
                                                 counts["mlp_bwd"])
 
@@ -2492,7 +2626,7 @@ def main():
     times.update(time_train(mlp, dev))
     counts, _ = train_path(dev, store, "fused_train",
                            RenderConfig(**base, fused_train=True),
-                           {"train_fwd": 2, "train_bwd": 2})
+                           {"train_fwd": 2, "train_bwd": 2, "adam": 1})
     launches["train_fwd"], launches["train_bwd"] = (counts["train_fwd"],
                                                     counts["train_bwd"])
     graph_path(dev, store, smi)
@@ -2533,7 +2667,8 @@ def main():
                   "mlp_bwd": TRAIN_BATCH * fine_S,
                   "sigma_fwd": CHUNK * N_SAMPLES,
                   "train_fwd": (TRAIN_BATCH, fine_S),
-                  "train_bwd": (TRAIN_BATCH, fine_S)}
+                  "train_bwd": (TRAIN_BATCH, fine_S),
+                  "adam": n_params}
     # the timings are keyed by S for a ray batch and by P for points
     time_key = {k: v[1] if isinstance(v, tuple) else v
                 for k, v in main_shape.items()}
@@ -2545,7 +2680,8 @@ def main():
                         "replaces": tpu, "launches": launches[k],
                         "max_abs_err": errs[k], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+                        "bound_by": bound_by,
+                        "library_ms": adam_lib_ms if k == "adam" else None})
         print(f"[bound] {k} at {main_shape[k]}: {ms:.3f} ms against a "
               f"bound of {bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.1f}% of the bound's rate")

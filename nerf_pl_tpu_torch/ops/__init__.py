@@ -1,12 +1,13 @@
 """Kernels of the port and their plain versions: sample_pdf, the fused
-point MLP (packing and its three kernels), the fused render kernels and
-the three training render kernels (CUDA, built on first use).
+point MLP (packing and its three kernels), the fused render kernels, the
+three training render kernels and Adam's update (CUDA, built on first
+use).
 
 Each kernel wrapper counts its launches in a plain int of its module;
-`launch_counts` reads all eight and `add_launches` adds to them (a
+`launch_counts` reads all nine and `add_launches` adds to them (a
 replayed CUDA graph launches what its capture recorded, which no wrapper
 sees). `device_events` profiles a call on the card, and `kernel_events`
-counts the eight kernels' launches in what it saw, so a count the
+counts the nine kernels' launches in what it saw, so a count the
 wrappers inferred can be held against the device's own."""
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ LAUNCH_COUNTERS = {
     "mlp_fwd": ("fused_mlp", "mlp_fwd_launches"),
     "mlp_bwd": ("fused_mlp", "mlp_bwd_launches"),
     "sigma_fwd": ("fused_mlp", "sigma_fwd_launches"),
+    "adam": ("adam", "adam_launches"),
 }
 
 # kernel: the __global__ function its wrapper launches once a call
@@ -37,6 +39,7 @@ KERNEL_SYMBOLS = {
     "mlp_fwd": "mlp_fwd_kernel",
     "mlp_bwd": "point_fwdbwd_kernel",
     "sigma_fwd": "sigma_fwd_kernel",
+    "adam": "adam_kernel",
 }
 
 
@@ -45,7 +48,7 @@ def _module(name: str):
 
 
 def launch_counts() -> Dict[str, int]:
-    """{kernel: launches so far} of the eight kernels."""
+    """{kernel: launches so far} of the nine kernels."""
     return {k: getattr(_module(mod), attr)
             for k, (mod, attr) in LAUNCH_COUNTERS.items()}
 
@@ -87,7 +90,7 @@ def device_ms(events: List) -> float:
 
 
 def kernel_events(events: List) -> Dict[str, int]:
-    """{__global__ function: launches the device ran} of the eight kernels
+    """{__global__ function: launches the device ran} of the nine kernels
     among events, by name."""
     return {sym: sum(e.count for e in events
                      if re.search(rf"\b{sym}\b", e.key))

@@ -130,6 +130,11 @@ SIGNATURES = {
     "nerf_graph_split": (_I, [_P, _P, _I, _P]),
     "nerf_graph_launch": (_I, [_P, _P]),        # executable, stream
     "nerf_graph_free": (_I, [_P]),
+    # adam.cu: the table's bytes, a block's elements; then the table (a
+    # host copy), blocks, stream
+    "nerf_adam_table_bytes": (_I, []),
+    "nerf_adam_block_elems": (_I, []),
+    "nerf_adam": (_I, [_P, _I, _P]),
 }
 
 # C types of the entries' arguments and results, as c_entries spells them.

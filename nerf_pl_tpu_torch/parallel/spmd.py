@@ -59,7 +59,7 @@ from ..rendering.occupancy import (dilate_segment_bits, ray_box_hits,
 from ..rendering.render import (ModelConfig, RenderConfig, TrainDraws,
                                 fused_mse_train_step, render_rays)
 from ..training.checkpoints import map_with_paths
-from ..training.optimizers import Optimizer, apply_updates, tree_leaves, \
+from ..training.optimizers import Optimizer, optimizer_step, tree_leaves, \
     tree_unflatten
 from ..utils import profiling as P
 from .mesh import TensorParallel, make_mesh, model_pspecs
@@ -416,14 +416,15 @@ class Trainer:
         return loss_sum / self.batch_size, sq / (self.batch_size * 3), grads
 
     def _step(self, params, opt_state, step: torch.Tensor,
-              draws: TrainDraws):
+              draws: TrainDraws, inplace: bool = False):
         """One optimizer step on device inputs only: the batch at the
         device step, the given draws, the gradients cast to the master
         dtype (the kernels accumulate f32), the update, and the metrics
         loss, psnr and lr (the schedule at the device step). No host sync,
         so a CUDA graph can capture it. Its phases' marks (`batch` to
         `tail`, profiling.MARKS) launch at each phase's start; the caller
-        ends the step with `end`."""
+        ends the step with `end`. `inplace` (the step graph's body) lets
+        the optimizer write the new state into the given tensors."""
         dev = self.device
         with P.phase("batch", dev):
             rays, rgbs, *occm = self._sample_batch(step)
@@ -435,9 +436,8 @@ class Trainer:
             grads = tree_unflatten(params, [g.to(q.dtype) for g, q in
                                             zip(tree_leaves(grads, params),
                                                 p)])
-            updates, opt_state = self.optimizer.update(grads, opt_state,
-                                                       params)
-            params = apply_updates(params, updates)
+            params, opt_state = optimizer_step(self.optimizer, grads,
+                                               opt_state, params, inplace)
         with P.phase("tail", dev):
             # clamp: mse == 0 would give an infinite psnr
             psnr = -10.0 * torch.log10(torch.clamp(mse, min=1e-10))
@@ -558,7 +558,8 @@ class Trainer:
 
 class _StepGraph:
     """`Trainer._step` captured as a CUDA graph over static buffers: the
-    params and optimizer state (the graph copies each step's new state
+    params and optimizer state (the step updates them in place where the
+    optimizer can, and the graph copies the rest of each step's new state
     back into them), the device step counter, the metric rows' index, the
     draws and the (capacity,) metric rows. Warm-up steps (the nvcc build at
     first use, autograd's and the allocator's first passes) run on a side
@@ -598,7 +599,7 @@ class _StepGraph:
 
         def body():
             p, o, m = trainer._step(params, opt_state, self.step,
-                                    self.draws)
+                                    self.draws, inplace=True)
             self._copy_in(pytree.tree_leaves((p, o)))
             for k, v in m.items():
                 self.metrics[k].index_copy_(0, self.row.view(1),
@@ -628,9 +629,12 @@ class _StepGraph:
         self.graph.instantiate()
 
     def _copy_in(self, leaves: List[torch.Tensor]):
+        """leaves into the static buffers, but for those that are them."""
         for idx in self.groups:
-            torch._foreach_copy_([self.static[i] for i in idx],
-                                 [leaves[i] for i in idx])
+            idx = [i for i in idx if leaves[i] is not self.static[i]]
+            if idx:
+                torch._foreach_copy_([self.static[i] for i in idx],
+                                     [leaves[i] for i in idx])
 
     def load(self, state: TrainState):
         """The caller's state into the static buffers, the step counter

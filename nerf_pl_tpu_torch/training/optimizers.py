@@ -21,13 +21,24 @@ lookahead syncs the same way, so no update reads a value back to the host.
 The arithmetic follows optax operation by operation, on the whole
 parameter list at once (torch._foreach_*). The moments take the params'
 dtype (bf16 master weights keep bf16 moments); the counts are int32.
+
+`optimizer_step` is update and apply_updates in one, the Trainer's call.
+On float32 CUDA leaves Adam's takes one launch of ops/adam.py's kernel,
+which gives the chain's bits; the chain is its plain version and takes
+everything else (CPU tensors, bf16 masters, sgd, radam and ranger). Asked
+to work in place (the step graph's static buffers), the kernel's route
+writes the new params, moments and counts into the given tensors and
+returns them; the chain always returns new tensors.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, \
+    Union
 
 import numpy as np
 import torch
+
+from ..ops import adam as adam_kernel
 
 ScalarOrSchedule = Union[float, Callable]
 B1, B2 = 0.9, 0.999     # Adam's decays (optax's defaults)
@@ -63,9 +74,23 @@ def apply_updates(params, updates):
 
 class Optimizer(NamedTuple):
     """init(params) -> state; update(grads, state, params) -> (updates,
-    state)."""
+    state); apply (None: update, then apply_updates) (grads, state, params,
+    inplace) -> (params, state)."""
     init: Callable[[Any], Tuple]
     update: Callable[[Any, Tuple, Any], Tuple[Any, Tuple]]
+    apply: Optional[Callable[[Any, Tuple, Any, bool], Tuple[Any, Tuple]]] \
+        = None
+
+
+def optimizer_step(optimizer: Optimizer, grads, state, params,
+                   inplace: bool = False) -> Tuple[Any, Tuple]:
+    """(params, state) after one update. `inplace` lets the optimizer
+    write them into the given params' and state's tensors (the step
+    graph's static buffers)."""
+    if optimizer.apply is not None:
+        return optimizer.apply(grads, state, params, inplace)
+    updates, state = optimizer.update(grads, state, params)
+    return apply_updates(params, updates), state
 
 
 def _count(params) -> torch.Tensor:
@@ -193,7 +218,37 @@ def _chain(name: str, learning_rate: ScalarOrSchedule, momentum: float,
         return (tree_unflatten(params, u),
                 state[:-2] + (inner, lr_stage))
 
-    return Optimizer(init, update)
+    def apply(grads, state, params, inplace):
+        """adam's update and apply_updates: one kernel launch on float32
+        CUDA leaves, else the chain."""
+        p = tree_leaves(params)
+        g = tree_leaves(grads, params)
+        inner, lr_stage = state[-2], state[-1]
+        mu = tree_leaves(inner["mu"], params)
+        nu = tree_leaves(inner["nu"], params)
+        if not adam_kernel.takes_kernel(*p, *g, *mu, *nu):
+            updates, state = update(grads, state, params)
+            return apply_updates(params, updates), state
+
+        def incremented(c):
+            return c.add_(1) if inplace else c + 1
+
+        if scheduled:   # the schedule at the count, before its increment
+            lr = learning_rate(lr_stage["count"]).to(torch.float32)
+            lr_stage = {"count": incremented(lr_stage["count"])}
+        else:           # rounded to float32 as the chain's scalar is
+            lr = torch.full((), float(learning_rate), dtype=torch.float32,
+                            device=p[0].device)
+        count = incremented(inner["count"])
+        p, mu, nu = adam_kernel.adam_step(
+            p, g, mu, nu, count, lr, b1=b1, b2=b2, eps=eps,
+            weight_decay=weight_decay if decay else 0.0, inplace=inplace)
+        inner = {"count": count, "mu": tree_unflatten(params, mu),
+                 "nu": tree_unflatten(params, nu)}
+        return (tree_unflatten(params, p),
+                state[:-2] + (inner, lr_stage))
+
+    return Optimizer(init, update, apply if name == "adam" else None)
 
 
 def get_optimizer(name: str,

@@ -998,9 +998,11 @@ def test_replayed_step_marks_in_order_and_its_kernels_phases(dev, culled):
     inside it); the mse_render launches fall in coarse and fine, every
     sort in fine_z (searchsorted in fine_z or occupied_z); the optimizer
     phase holds exactly the kernels an eager step launches inside its
-    `optimizer` host span (told apart from the tail's _foreach_copy_,
-    also multi_tensor_apply, by the runtime's correlation ids); no device
-    event is a user annotation or carries a span's name."""
+    `optimizer` host span (by the runtime's correlation ids): one
+    adam_kernel and the schedule's and counts' scalar ops, no foreach
+    pass (multi_tensor_apply), and the replayed tail copies no state
+    back (Adam wrote it in place); no device event is a user annotation
+    or carries a span's name."""
     from nerf_pl_tpu_torch.utils import profiling as P
     tr = _traced_trainer(dev, culled)
     state = tr.init_state(torch.Generator().manual_seed(0))
@@ -1041,11 +1043,11 @@ def test_replayed_step_marks_in_order_and_its_kernels_phases(dev, culled):
                          if str(e.device_type()).split(".")[-1] == "CUDA"
                          and e.correlation_id() in launched
                          and not S.MARK.search(e.name()))
-    assert opt_kernels and any("multi_tensor_apply" in n
-                               for n in opt_kernels)
+    assert sum("adam_kernel" in n for n in opt_kernels) == 1
+    assert not any("multi_tensor_apply" in n for n in opt_kernels)
     assert sorted(_by_phase(eager_dev)["optimizer"]) == opt_kernels
     assert sorted(phases["optimizer"]) == sorted(opt_kernels * 3)
-    assert any("multi_tensor_apply" in n for n in phases["tail"])
+    assert not any("multi_tensor_apply" in n for n in phases["tail"])
 
 
 def test_replayed_states_equal_with_tracing_off_on_and_alternating(dev):
@@ -1171,3 +1173,126 @@ def test_culled_dispatch_marks_in_order(dev):
     assert [h[0] for h in sorted(host, key=lambda h: h[1])
             if h[0] in ("cull", "bucket")] == (
         ["cull"] + ["bucket"] * want.count("bucket"))
+
+
+# ---------------------------------------------------------------- adam
+
+def _dense_grads(dev, seed):
+    """Both MLPs' gradients as the loss-fused step gives them: unpack_grads
+    of a random packed buffer (strided views among them)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {m: fm.unpack_grads(fm._pack_layout_grads(torch.randn(
+        (fm.GRAD_FLOATS,), generator=g, device=dev) * 1e-3))
+        for m in ("nerf_coarse", "nerf_fine")}
+
+
+def _dense_params(dev):
+    return {m: init_nerf_params(torch.Generator().manual_seed(i), device=dev)
+            for i, m in enumerate(("nerf_coarse", "nerf_fine"))}
+
+
+def _state_leaves(params, state):
+    import torch.utils._pytree as pytree
+    return pytree.tree_leaves((params, state))
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-2])
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("scheduled", [True, False])
+def test_adam_kernel_equals_the_foreach_chain(dev, weight_decay, inplace,
+                                              scheduled):
+    """5 steps of the dense recipe's 48 leaves (steplr, or a constant lr)
+    with unpack_grads' strided gradients: the kernel's params, moments and
+    counts equal the foreach chain's (update + apply_updates) bit for bit,
+    one launch a step; in place, the given tensors hold them."""
+    from nerf_pl_tpu_torch.ops import adam as A
+    from nerf_pl_tpu_torch.training.optimizers import (apply_updates,
+                                                       optimizer_step)
+    sched = get_lr_schedule("steplr", 5e-4, 16, 2, decay_step=[1, 2],
+                            decay_gamma=0.5)
+    opt = get_optimizer("adam", sched if scheduled else 5e-4,
+                        weight_decay=weight_decay)
+    params = _dense_params(dev)
+    assert any(not g.is_contiguous()
+               for g in tree_leaves(_dense_grads(dev, 0), params))
+    pk = {m: {k: {n: t.clone() for n, t in d.items()} for k, d in v.items()}
+          for m, v in params.items()}
+    sk = opt.init(params)
+    pc, sc = params, opt.init(params)
+    for i in range(5):
+        grads = _dense_grads(dev, i)
+        n0 = A.adam_launches
+        given = _state_leaves(pk, sk)
+        pk, sk = optimizer_step(opt, grads, sk, pk, inplace)
+        assert A.adam_launches == n0 + 1
+        got = _state_leaves(pk, sk)
+        assert [a is b for a, b in zip(given, got)] == [inplace] * len(got)
+        upd, sc = opt.update(grads, sc, pc)
+        pc = apply_updates(pc, upd)
+        want = _state_leaves(pc, sc)
+        assert len(got) == len(want) == 48 * 3 + 1 + scheduled
+        for j, (a, b) in enumerate(zip(got, want)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (i, j)
+    n0 = A.adam_launches
+    opt = get_optimizer("adam", sched, weight_decay=weight_decay)
+    bf = {m: {k: {n: t.bfloat16() for n, t in d.items()}
+              for k, d in v.items()} for m, v in params.items()}
+    optimizer_step(opt, _dense_grads(dev, 9), opt.init(bf), bf, inplace)
+    assert A.adam_launches == n0           # bf16 masters: the chain
+
+
+def test_adam_bias_correction_at_every_count(dev):
+    """The kernel's b1^t and b2^t (a double pow of the device count,
+    rounded to float) are _decay_pow's: one leaf stepped from count t - 1
+    for every t up to 20,000 and at larger t up to 2^31 - 1 gives the
+    chain's bits."""
+    from nerf_pl_tpu_torch.training.optimizers import (apply_updates,
+                                                       optimizer_step)
+    opt = get_optimizer("adam", 5e-4)
+    g = torch.Generator(device=dev).manual_seed(3)
+    params = {"w": torch.randn((4096,), generator=g, device=dev)}
+    grads = {"w": torch.randn((4096,), generator=g, device=dev) * 1e-3}
+    state = opt.init(params)
+    state[0]["mu"]["w"].normal_(generator=g).mul_(1e-3)
+    state[0]["nu"]["w"].uniform_(generator=g).mul_(1e-6)
+    counts = list(range(1, 20001)) + [2 ** k - 1 for k in range(15, 32)]
+    bad = []
+    for t in counts:
+        state[0]["count"].fill_(t - 1)
+        pk, sk = optimizer_step(opt, grads, state, params)
+        upd, sc = opt.update(grads, state, params)
+        pc = apply_updates(params, upd)
+        if not (torch.equal(pk["w"], pc["w"])
+                and torch.equal(sk[0]["mu"]["w"], sc[0]["mu"]["w"])
+                and torch.equal(sk[0]["nu"]["w"], sc[0]["nu"]["w"])):
+            bad.append(t)
+    assert not bad, bad[:20]
+
+
+def test_adam_replayed_steps_equal_eager_and_launch_once(dev):
+    """250 replayed graph steps of the loss-fused dense trainer (Adam in
+    place in the static buffers) leave the state that 250 eager steps
+    (Adam into new tensors) leave, bit for bit; the capture recorded one
+    adam launch and two mse_render launches a step, and the counter gains
+    one a replay."""
+    from nerf_pl_tpu_torch.ops import adam as A
+    finals = []
+    for eager in (True, False):
+        tr = _traced_trainer(dev, False)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        n0 = A.adam_launches
+        state, m = tr.run_steps(state, 5, 250, eager=eager)
+        finals.append((tr, state, m, A.adam_launches - n0))
+    (_, se, me, ne), (tr, sg, mg, ng) = finals
+    assert tr.captures == 1
+    assert tr._graph.launches == {"mse_render": 2, "adam": 1}
+    assert ne == 250 and ng == 250 + tr._graph.WARMUP_STEPS
+    for a, b in zip(_state_leaves(se.params, se.opt_state),
+                    _state_leaves(sg.params, sg.opt_state)):
+        assert torch.equal(a, b)
+    for k in ("loss", "psnr", "lr"):
+        assert torch.equal(me[k], mg[k]), k
+    n0 = A.adam_launches
+    tr.run_steps(sg, 5, 7)
+    assert A.adam_launches == n0 + 7
+

@@ -6,8 +6,12 @@ sources as text (no compiler needed, so they run on the CPU):
     gradients;
   * no environment lookups and no preprocessor switch that could select
     another build of a kernel (the redesigned backward has no old copy);
-  * every .cu but marks.cu (the profiler's phase marks, which port no TPU
-    kernel) names the function of nerf_pl_tpu/ops/*.py that it replaces;
+  * every .cu names the function of nerf_pl_tpu/ops/*.py that it
+    replaces, or says in its header that it ports no TPU kernel and why it
+    was added: the module of the port that launches it (marks.cu, the
+    profiler's phase marks; adam.cu, Adam's update, which the JAX package
+    leaves to XLA); such a source whose kernels do work also states their
+    bound there (bytes, and the time they take at the HBM rate);
   * marks.cu's empty kernels name exactly the phases of
     utils/profiling.py's MARKS, in its order;
   * every kernel (the backwards' launches A and A', train_fwd, mlp_fwd
@@ -31,8 +35,7 @@ REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "nerf_pl_tpu_torch" / "csrc"
 SOURCES = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 CU = sorted(CSRC.glob("*.cu"))
-# the sources that port a TPU kernel
-PORTS = [p for p in CU if p.name != "marks.cu"]
+NO_PORT = "ports no TPU kernel"
 
 
 def code_of(path):
@@ -88,14 +91,45 @@ def _jax_functions(py):
     return {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
 
 
-@pytest.mark.parametrize("path", PORTS, ids=lambda p: p.name)
+def header(path):
+    """The comment lines that open a source, joined into one text."""
+    lines = []
+    for line in path.read_text().splitlines():
+        if not line.startswith("//"):
+            break
+        lines.append(line[2:].strip())
+    return " ".join(lines)
+
+
+@pytest.mark.parametrize("path", CU, ids=lambda p: p.name)
 def test_each_cu_names_the_tpu_function_it_replaces(path):
+    """A source that ports a TPU kernel names the function of
+    nerf_pl_tpu/ops/*.py that it replaces. One that ports none says so in
+    its header, and why it was added: the port's module that launches its
+    C entries; where its kernels do work (a __global__ function with a
+    body), the header states their bound too: the bytes they move and the
+    time that takes at the HBM rate."""
     text = path.read_text()
-    named = set(re.findall(r"nerf_pl_tpu/ops/(\w+\.py)", text))
-    assert named, f"{path.name} names no nerf_pl_tpu/ops/*.py"
-    words = set(re.findall(r"\b\w+\b", text))
-    found = {py: _jax_functions(py) & words for py in named}
-    assert any(found.values()), (path.name, named)
+    head = header(path)
+    if NO_PORT not in head:
+        named = set(re.findall(r"nerf_pl_tpu/ops/(\w+\.py)", text))
+        assert named, f"{path.name} names no nerf_pl_tpu/ops/*.py"
+        words = set(re.findall(r"\b\w+\b", text))
+        found = {py: _jax_functions(py) & words for py in named}
+        assert any(found.values()), (path.name, named)
+        return
+    users = re.findall(r"nerf_pl_tpu_torch/[\w/]+\.py", head)
+    assert users, f"{path.name} names no module of the port that needs it"
+    entries = _build.c_entries(text)
+    assert any(re.search(rf"\blib\.{e}\(", (REPO / u).read_text())
+               for u in users for e in entries), (path.name, users)
+    code = code_of(path)
+    working = [m for m in re.finditer(r"__global__[^;{]*\{", code)
+               if balanced(code, m.end() - 1).strip("{} \n")]
+    if working:
+        assert re.search(r"\d+ bytes a \w+", head), path.name
+        assert re.search(r"[\d.]+ MB\b", head), path.name
+        assert re.search(r"[\d.]+ (us|ms) at [\d.]+ TB/s", head), path.name
 
 
 KEYWORDS = {"if", "for", "while", "switch", "return", "sizeof", "catch",
