@@ -79,7 +79,13 @@
    call over the same leaves (contiguous gradients), which the port does
    not call: its rounding is not optax's order. The kernels line's adam
    launches are the loss-fused train path's, its max_abs_err the largest
-   |kernel - chain| over the compared leaves.
+   |kernel - chain| over the compared leaves. Then the same on mip-NeRF
+   360's 34 leaves at published widths (init_mip_params, ~8.0 M
+   parameters; the 1- and 3-column heads' gradients column slices of
+   8-column ones, as its step gives them) with its global-norm clip of
+   1e-3 and eps 1e-6: the kernel reading the clip's factor from the
+   device against the clipped chain, bit for bit out of place and in
+   place, its ms and its [bound] line (28 bytes a parameter).
 5. Point-MLP path (`--fused_mlp` training). Holds the three point-MLP
    kernels against their plain versions at ragged P = 300, 4099 and
    131,075 with the weights of dense_params and of plain init: rgb within
@@ -282,6 +288,8 @@ from nerf_pl_tpu_torch.mesh.native import (keep_largest_cluster,  # noqa: E402
 from nerf_pl_tpu_torch.mesh.ply import read_ply  # noqa: E402
 from nerf_pl_tpu_torch.models import (init_nerf_params,  # noqa: E402
                                       params_from_numpy)
+from nerf_pl_tpu_torch.models.mipnerf360 import (  # noqa: E402
+    MipConfig, init_mip_params)
 from nerf_pl_tpu_torch.ops import _build  # noqa: E402
 from nerf_pl_tpu_torch.ops import (add_launches, by_symbol,  # noqa: E402
                                    device_events, device_ms,
@@ -308,7 +316,8 @@ from nerf_pl_tpu_torch.training import (get_lr_schedule,  # noqa: E402
 from nerf_pl_tpu_torch.training.checkpoints import (  # noqa: E402
     gather_state, load_ckpt, map_with_paths)
 from nerf_pl_tpu_torch.training.optimizers import (  # noqa: E402
-    B1, B2, apply_updates, optimizer_step, tree_leaves, tree_unflatten)
+    B1, B2, apply_updates, clip_scale, optimizer_step, tree_leaves,
+    tree_unflatten)
 from nerf_pl_tpu_torch.utils.profiling import cuda_event_ms  # noqa: E402
 
 TOL = {"weights": 5e-3, "rgb": 1e-2, "opacity": 1e-2, "depth": 5e-2}
@@ -363,6 +372,7 @@ MSE_VS_TRAIN_TOL = 1e-3  # train_bwd on the MSE cotangent vs mse_render
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 ADAM_BYTES = 28          # a parameter's p, g, mu, nu read, p, mu, nu written
 ADAM_STEPS, ADAM_PROFILED = 5, 50
+MIP_CLIP = 1e-3          # mip-NeRF 360's global-norm clip
 L2_FLUSH_BYTES = 256 << 20
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, same source
 
@@ -1878,11 +1888,90 @@ def bound(name, shape, mlp):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _adam_chain_step(opt, g, state, params):
+    """The foreach chain's step: update (with the clip's factor where opt
+    clips), then apply_updates."""
+    scale = ((clip_scale(tree_leaves(g, params), opt.clip_norm),)
+             if opt.clip_norm > 0 else ())
+    upd, state = opt.update(g, state, params, *scale)
+    return apply_updates(params, upd), state
+
+
+def _adam_case(opt, params, grads, label):
+    """ADAM_STEPS steps out of place and ADAM_STEPS in place through
+    optimizer_step (one kernel launch each) against the chain from the
+    same params, every leaf of params, moments and counts bit for bit;
+    then the device ms a step of each over ADAM_PROFILED profiled steps,
+    L2 flushed before each. Returns (largest |kernel - chain|, kernel ms,
+    with the scalar ops ms, the chain's ms, the chain's state)."""
+    from nerf_pl_tpu_torch.ops import adam as A
+
+    def copy(tree):
+        return tree_unflatten(tree, [t.clone() for t in tree_leaves(tree)])
+
+    n0, err = A.adam_launches, 0.0
+    for inplace in (False, True):
+        pk, sk = copy(params), opt.init(params)
+        pc, sc = params, opt.init(params)
+        for i in range(ADAM_STEPS):
+            g = grads()
+            pk, sk = optimizer_step(opt, g, sk, pk, inplace)
+            pc, sc = _adam_chain_step(opt, g, sc, pc)
+            got = pytree.tree_leaves((pk, sk))
+            want = pytree.tree_leaves((pc, sc))
+            worst = max(max_err(a.float(), b.float())
+                        for a, b in zip(got, want))
+            err = max(err, worst)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"[adam] {label} step {i} in place "
+                                     f"{inplace}: kernel off the chain by "
+                                     f"{worst}")
+    launches = A.adam_launches - n0
+    if launches != 2 * ADAM_STEPS:
+        raise AssertionError(f"[adam] {label}: {launches} launches in "
+                             f"{2 * ADAM_STEPS} steps")
+    g = grads()
+    flush = torch.zeros((L2_FLUSH_BYTES,), dtype=torch.uint8,
+                        device=tree_leaves(params)[0].device)
+
+    def kernel_steps():
+        nonlocal pk, sk
+        for _ in range(ADAM_PROFILED):
+            flush.bitwise_not_()
+            pk, sk = optimizer_step(opt, g, sk, pk, True)
+
+    def chain_steps():
+        nonlocal pc, sc
+        for _ in range(ADAM_PROFILED):
+            flush.bitwise_not_()
+            pc, sc = _adam_chain_step(opt, g, sc, pc)
+
+    kernel_steps()
+    chain_steps()
+    n1 = A.adam_launches
+    _, ev = device_events(kernel_steps)
+    if A.adam_launches - n1 != ADAM_PROFILED:
+        raise AssertionError(f"[adam] {label}: {A.adam_launches - n1} "
+                             f"launches in {ADAM_PROFILED} profiled steps")
+    k_ms = sum(e.self_device_time_total for e in ev
+               if "adam_kernel" in e.key) / 1e3 / ADAM_PROFILED
+    with_scalars = _adam_step_ms(ev)
+    _, ev = device_events(chain_steps)
+    return err, k_ms, with_scalars, _adam_step_ms(ev), (pc, sc)
+
+
+def _adam_step_ms(events):
+    """Device ms a profiled step, the L2 flush and the phase marks (the
+    optimizer's spans while a profiler records) left out."""
+    return device_ms([e for e in events if "bitwise_not" not in e.key
+                      and "nerf::mark" not in e.key]) / ADAM_PROFILED
+
+
 def adam_path(dev):
     """[adam], the module docstring's Adam paragraph. Returns (the largest
     |kernel - chain| over the compared leaves, parameters, kernel ms, the
-    chain's ms, torch._fused_adam_'s ms)."""
-    from nerf_pl_tpu_torch.ops import adam as A
+    chain's ms, torch._fused_adam_'s ms) of the dense recipe's leaves;
+    prints mip-NeRF 360's clipped case and its [bound] line."""
     sched = get_lr_schedule("steplr", 5e-4, 16, 1000, decay_step=[2, 4, 8],
                             decay_gamma=0.5)
     opt = get_optimizer("adam", sched)
@@ -1897,51 +1986,16 @@ def adam_path(dev):
             (fm.GRAD_FLOATS,), generator=gen, device=dev) * 1e-3))
             for m in params}
 
-    def copy(tree):
-        return tree_unflatten(tree, [t.clone() for t in tree_leaves(tree)])
-
-    n0, err = A.adam_launches, 0.0
-    for inplace in (False, True):
-        pk, sk = copy(params), opt.init(params)
-        pc, sc = params, opt.init(params)
-        for i in range(ADAM_STEPS):
-            g = grads()
-            pk, sk = optimizer_step(opt, g, sk, pk, inplace)
-            upd, sc = opt.update(g, sc, pc)
-            pc = apply_updates(pc, upd)
-            got = pytree.tree_leaves((pk, sk))
-            want = pytree.tree_leaves((pc, sc))
-            worst = max(max_err(a.float(), b.float())
-                        for a, b in zip(got, want))
-            err = max(err, worst)
-            if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"[adam] step {i} in place {inplace}: "
-                                     f"kernel off the chain by {worst}")
-    launches = A.adam_launches - n0
-    if launches != 2 * ADAM_STEPS:
-        raise AssertionError(f"[adam] {launches} launches in "
-                             f"{2 * ADAM_STEPS} steps")
+    err, k_ms, with_scalars, chain_ms, _ = _adam_case(opt, params, grads,
+                                                      "dense")
     g = grads()
     flush = torch.zeros((L2_FLUSH_BYTES,), dtype=torch.uint8, device=dev)
-
-    def kernel_steps():
-        nonlocal pk, sk
-        for _ in range(ADAM_PROFILED):
-            flush.bitwise_not_()
-            pk, sk = optimizer_step(opt, g, sk, pk, True)
-
-    def chain_steps():
-        nonlocal pc, sc
-        for _ in range(ADAM_PROFILED):
-            flush.bitwise_not_()
-            upd, sc = opt.update(g, sc, pc)
-            pc = apply_updates(pc, upd)
-
     # the library's one call over the same leaves, timed beside the
     # kernel only: its rounding is not optax's order, and the port does
     # not call it (contiguous gradients: it reads no strided view)
-    lib = [tree_leaves(t, params) for t in (copy(params), g, opt.init(
-        params)[0]["mu"], opt.init(params)[0]["nu"])]
+    lib = [tree_leaves(t, params) for t in (
+        tree_unflatten(params, [t.clone() for t in tree_leaves(params)]), g,
+        opt.init(params)[0]["mu"], opt.init(params)[0]["nu"])]
     lib[1] = [t.contiguous() for t in lib[1]]
     lib_steps_t = [torch.ones((), device=dev) for _ in lib[0]]
 
@@ -1952,25 +2006,9 @@ def adam_path(dev):
                                beta2=B2, weight_decay=0.0, eps=1e-8,
                                amsgrad=False, maximize=False)
 
-    def step_ms(events):
-        return device_ms([e for e in events if "bitwise_not" not in e.key]
-                         ) / ADAM_PROFILED
-
-    kernel_steps()
-    chain_steps()
     library_steps()
-    n1 = A.adam_launches
-    _, ev = device_events(kernel_steps)
-    if A.adam_launches - n1 != ADAM_PROFILED:
-        raise AssertionError(f"[adam] {A.adam_launches - n1} launches in "
-                             f"{ADAM_PROFILED} profiled steps")
-    k_ms = sum(e.self_device_time_total for e in ev
-               if "adam_kernel" in e.key) / 1e3 / ADAM_PROFILED
-    with_scalars = step_ms(ev)
-    _, ev = device_events(chain_steps)
-    chain_ms = step_ms(ev)
     _, ev = device_events(library_steps)
-    lib_ms = step_ms(ev)
+    lib_ms = _adam_step_ms(ev)
     print(f"[adam] {n_params} parameters in {len(tree_leaves(params))} "
           f"leaves: {ADAM_STEPS} steps out of place and {ADAM_STEPS} in "
           f"place bit for bit the foreach chain's (largest |kernel - "
@@ -1978,6 +2016,42 @@ def adam_path(dev):
           f"{k_ms:.4f}, with the scalar ops {with_scalars:.4f}, the chain "
           f"{chain_ms:.4f} ({chain_ms / with_scalars:.1f}x), "
           f"torch._fused_adam_ {lib_ms:.4f} (not called by the port)")
+
+    # mip-NeRF 360's leaves at published widths with its clip and eps; the
+    # gradients of the heads padded to 8 columns are column slices, as the
+    # step's are
+    mip_opt = get_optimizer("adam", sched, eps=1e-6, clip_norm=MIP_CLIP)
+    mip = init_mip_params(torch.Generator().manual_seed(7), MipConfig(),
+                          dev)
+    n_mip = sum(t.numel() for t in tree_leaves(mip))
+
+    def mip_grads():
+        def one(t):
+            if t.dim() == 2 and t.shape[1] % 8:
+                wide = (t.shape[0], -(-t.shape[1] // 8) * 8)
+                return (torch.randn(wide, generator=gen, device=dev)
+                        * 1e-3)[:, :t.shape[1]]
+            return torch.randn(t.shape, generator=gen, device=dev) * 1e-3
+        return tree_unflatten(mip, [one(t) for t in tree_leaves(mip)])
+
+    factor = float(clip_scale(tree_leaves(mip_grads(), mip), MIP_CLIP))
+    if not factor < 1:
+        raise AssertionError(f"[adam] mip-NeRF 360: the clip's factor "
+                             f"{factor} does not bite")
+    m_err, m_ms, m_scalars, m_chain, _ = _adam_case(mip_opt, mip, mip_grads,
+                                                    "mip-NeRF 360")
+    bound_ms, bound_by = bound("adam", n_mip, None)
+    print(f"[adam] mip-NeRF 360: {n_mip} parameters in "
+          f"{len(tree_leaves(mip))} leaves, global-norm clip {MIP_CLIP} "
+          f"(factor {factor:.3e}), eps 1e-6: {ADAM_STEPS} steps out of "
+          f"place and {ADAM_STEPS} in place bit for bit the clipped "
+          f"foreach chain's (largest |kernel - chain| {m_err}); device ms a "
+          f"step, L2 flushed: kernel {m_ms:.4f}, with the clip and the "
+          f"scalar ops {m_scalars:.4f}, the chain {m_chain:.4f} "
+          f"({m_chain / m_scalars:.1f}x)")
+    print(f"[bound] adam at mip-NeRF 360's {n_mip} parameters, clipped: "
+          f"{m_ms:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / m_ms:.1f}% of the bound's rate")
     return err, n_params, k_ms, chain_ms, lib_ms
 
 

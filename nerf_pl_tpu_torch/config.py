@@ -12,6 +12,16 @@ Flag surface parity: reference opt.py:3-78 (every flag preserved, same
 defaults), plus TPU-specific additions kept at the end: --precision,
 --num_chips (alias of the reference's --num_gpus), --val_chunk, --steps,
 --log_every, --val_every, --data_on_device, --fused_mlp.
+
+The port's own flags follow every JAX flag: `--model
+mipnerf360` trains mip-NeRF 360 (models/mipnerf360.py) on an llff scene in
+its 360 layout (`--spheric_poses`) with its published recipe
+(training/system.py), and the `--mip_*` flags set the two MLPs' widths and
+the samples of each proposal level and of the NeRF level. `--precision
+bfloat16` then runs the MLPs' products on bf16 operands (float32 master
+weights either way). The paths mip-NeRF 360
+does not take are refused here: occupancy training, the fused NeRF
+kernels, more than one card, another optimizer or dataset.
 """
 from __future__ import annotations
 
@@ -110,6 +120,12 @@ class Hparams:
     #   density threshold) or "weight" (visibility-pruned: cells must also
     #   receive quadrature weight from some training ray — occluded junk
     #   density stops inflating the occupied set)
+    # --- the port's own: mip-NeRF 360 ------------------------------------
+    model: str = "nerf"             # "nerf" | "mipnerf360"
+    mip_prop_width: int = 256
+    mip_nerf_width: int = 1024
+    mip_prop_samples: int = 64      # each of the two proposal levels
+    mip_nerf_samples: int = 32
 
 
 def validate_hparams(hp: Hparams) -> Hparams:
@@ -188,7 +204,60 @@ def validate_hparams(hp: Hparams) -> Hparams:
             f"--val_every_steps {hp.val_every_steps} must be >= 0 "
             "(0 = epoch-boundary validation only; a negative value would "
             "silently never fire)")
+    if getattr(hp, "model", "nerf") == "mipnerf360":   # JAX's has none
+        _validate_mip(hp)
     return hp
+
+
+def _validate_mip(hp) -> None:
+    """The paths `--model mipnerf360` does not take, refused by flag."""
+    refused = [("--occ_train", hp.occ_train), ("--occ_pack", hp.occ_pack),
+               ("--fused_mlp", hp.fused_mlp),
+               ("--fused_train", hp.fused_train),
+               (f"--num_gpus {hp.num_gpus}", hp.num_gpus > 1),
+               (f"--optimizer {hp.optimizer}", hp.optimizer != "adam"),
+               (f"--dataset_name {hp.dataset_name}",
+                hp.dataset_name != "llff"),
+               ("no --spheric_poses", not hp.spheric_poses)]
+    bad = [flag for flag, on in refused if on]
+    if bad:
+        raise ValueError(
+            f"--model mipnerf360 does not take {', '.join(bad)}: it trains "
+            "on one device through the Trainer's autograd step (no "
+            "occupancy culling, no fused NeRF kernels, no data or tensor "
+            "parallelism), with clipped adam, on an llff scene in the 360 "
+            "layout (--dataset_name llff --spheric_poses)")
+    if hp.mip_prop_samples < 2 or hp.mip_nerf_samples < 2:
+        raise ValueError("--mip_prop_samples and --mip_nerf_samples take "
+                         "at least 2 samples a level")
+
+
+def mip_config(hp):
+    """The MipConfig of parsed flags (the train or the eval CLI's)."""
+    from .models.mipnerf360 import MipConfig
+    return MipConfig(prop_width=hp.mip_prop_width,
+                     nerf_width=hp.mip_nerf_width,
+                     num_prop_samples=(hp.mip_prop_samples,) * 2,
+                     num_nerf_samples=hp.mip_nerf_samples,
+                     precision=hp.precision)
+
+
+def add_mip_flags(parser: argparse.ArgumentParser) -> None:
+    """--model and the --mip_* flags (the model's widths and samples),
+    after the JAX package's flags."""
+    parser.add_argument('--model', type=str, default='nerf',
+                        choices=['nerf', 'mipnerf360'],
+                        help='model family: the NeRF of nerf_pl, or '
+                             'mip-NeRF 360 (an llff scene with '
+                             '--spheric_poses)')
+    parser.add_argument('--mip_prop_width', type=int, default=256,
+                        help='mipnerf360: the proposal MLP\'s width')
+    parser.add_argument('--mip_nerf_width', type=int, default=1024,
+                        help='mipnerf360: the NeRF MLP\'s width')
+    parser.add_argument('--mip_prop_samples', type=int, default=64,
+                        help='mipnerf360: samples of each proposal level')
+    parser.add_argument('--mip_nerf_samples', type=int, default=32,
+                        help='mipnerf360: samples of the NeRF level')
 
 
 def get_opts(argv: Optional[List[str]] = None) -> Hparams:
@@ -369,6 +438,7 @@ def get_opts(argv: Optional[List[str]] = None) -> Hparams:
                         help='sigma above which a grid cell is occupied')
     parser.add_argument('--occ_margin', type=float, default=0.1,
                         help='world-space slack kept around occupied spans')
+    add_mip_flags(parser)
 
     args = parser.parse_args(argv)
     return validate_hparams(Hparams(**vars(args)))

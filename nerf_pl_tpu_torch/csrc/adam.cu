@@ -19,7 +19,10 @@
 // nvcc contracts a * b + c into one FMA by default, and the chain rounds
 // each product and sum: every operation here is an explicitly rounded
 // intrinsic. b1^t and b2^t are taken in double from the device count and
-// rounded to float, as optimizers.py's _decay_pow.
+// rounded to float, as optimizers.py's _decay_pow. With a clip scale (a
+// float32 device scalar: the global-norm clip's factor, which the step
+// computes before the launch) every gradient is multiplied by it first, as
+// the chain's clipped gradients are; without one the kernel reads none.
 
 #include <cuda_runtime.h>
 
@@ -50,6 +53,7 @@ struct Leaf {             // 72 bytes
 struct Table {
   const int* count;       // Adam's count, already incremented: t
   const float* lr;        // the learning rate, a float32 device scalar
+  const float* clip_scale;  // the gradients' factor, or null: no clip
   float b1, b2;           // the decays, rounded to float
   float one_minus_b1;     // 1 - b1 and 1 - b2 taken in double, then
   float one_minus_b2;     // rounded to float, as torch rounds a scalar
@@ -90,6 +94,8 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
   const float corr1 = s_corr[0], corr2 = s_corr[1];
   const float step_size = -*t.lr;
+  const bool clip = t.clip_scale != nullptr;
+  const float scale = clip ? *t.clip_scale : 1.0f;
   const int n = L.rows * L.cols;
   const int base = (b - L.first_block) * BLOCK_ELEMS + threadIdx.x;
 
@@ -109,6 +115,7 @@ __global__ void __launch_bounds__(THREADS)
     const int e = base + k * THREADS;
     if (e >= n) continue;
     float gk = g[k];
+    if (clip) gk = __fmul_rn(gk, scale);
     if (t.decay) gk = __fadd_rn(gk, __fmul_rn(p[k], t.weight_decay));
     const float mu = __fadd_rn(__fmul_rn(m[k], t.b1),
                                __fmul_rn(gk, t.one_minus_b1));

@@ -34,6 +34,13 @@ struct frame_gather;
 struct frame_to_host;
 struct cull;
 struct bucket;
+struct prop0;
+struct resample1;
+struct prop1;
+struct resample2;
+struct nerf;
+struct losses;
+struct clip;
 }  // namespace span
 
 template <class Tag>
@@ -52,6 +59,10 @@ const MarkFn MARK_FNS[] = {
     mark<span::frame_pack>,   mark<span::frame_pad>,
     mark<span::frame_gather>, mark<span::frame_to_host>,
     mark<span::cull>,         mark<span::bucket>,
+    mark<span::prop0>,        mark<span::resample1>,
+    mark<span::prop1>,        mark<span::resample2>,
+    mark<span::nerf>,         mark<span::losses>,
+    mark<span::clip>,
 };
 constexpr int N_MARKS = static_cast<int>(sizeof(MARK_FNS) / sizeof(MarkFn));
 

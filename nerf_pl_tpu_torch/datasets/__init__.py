@@ -2,8 +2,9 @@
 (blender, llff and their ray, pose and depth utilities; PIL only where an
 image is read) and camera rays in torch (`rays`)."""
 from .blender import BlenderDataset
-from .llff import LLFFDataset
+from .llff import LLFF360Dataset, LLFFDataset
 
 dataset_dict = {"blender": BlenderDataset, "llff": LLFFDataset}
 
-__all__ = ["BlenderDataset", "LLFFDataset", "dataset_dict"]
+__all__ = ["BlenderDataset", "LLFF360Dataset", "LLFFDataset",
+           "dataset_dict"]

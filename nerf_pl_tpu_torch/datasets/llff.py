@@ -165,3 +165,49 @@ class LLFFDataset:
             sample["rgbs"] = _load_image_rgb(self.image_paths[idx],
                                              self.img_wh)
         return sample
+
+
+class LLFF360Dataset(LLFFDataset):
+    """The LLFF scene in mip-NeRF 360's layout (`--model mipnerf360`; no
+    JAX counterpart): no NDC, the camera positions scaled into
+    [-1, 1]^3 around the average pose's centre, directions as the camera
+    gives them (d = R ((i - W/2)/f, -(j - H/2)/f, -1), not normalised),
+    every ray's near and far the given ones, and each pixel's radius
+    |d(i + 1, j) - d(i, j)| 2 / sqrt(12) (multinerf's radii; the last
+    column repeats its neighbour's). Training adds `all_radii` (N,); a
+    val or test sample adds `radii`."""
+
+    def __init__(self, root_dir: str, split: str = "train",
+                 img_wh=(504, 378), val_num: int = 1, near: float = 0.2,
+                 far: float = 1e6):
+        self.near, self.far = near, far
+        super().__init__(root_dir, split, img_wh, spheric_poses=True,
+                         val_num=val_num)
+        if split == "train":
+            n_img = len(self.all_rays) // len(self.pixel_radii)
+            self.all_radii = np.tile(self.pixel_radii, n_img)
+
+    @property
+    def pixel_radii(self) -> np.ndarray:
+        """(H * W,) float32 radii of one image's pixels."""
+        d = self.directions
+        dx = np.linalg.norm(d[:, 1:] - d[:, :-1], axis=-1)
+        dx = np.concatenate([dx, dx[:, -1:]], axis=1)
+        return (dx * 2 / np.sqrt(12)).reshape(-1).astype(np.float32)
+
+    def _rays_for_pose(self, c2w: np.ndarray) -> np.ndarray:
+        scale = 1.0 / np.abs(self.poses[..., 3]).max()
+        c2w = np.asarray(c2w, dtype=np.float32)
+        rays_d = self.directions.reshape(-1, 3) @ c2w[:, :3].T
+        rays_o = np.broadcast_to(c2w[:, 3] * scale, rays_d.shape)
+        return np.concatenate(
+            [rays_o, rays_d, np.full_like(rays_o[:, :1], self.near),
+             np.full_like(rays_o[:, :1], self.far)], 1).astype(np.float32)
+
+    def __getitem__(self, idx: int):
+        sample = super().__getitem__(idx)
+        if self.split == "train":
+            sample["radii"] = self.all_radii[idx]
+        else:
+            sample["radii"] = self.pixel_radii
+        return sample

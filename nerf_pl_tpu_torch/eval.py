@@ -26,6 +26,12 @@ on rank 0 and broadcast), and rank 0 writes the images, depth maps, GIF
 and metrics and prints the PSNR. --compile_cache is accepted and does
 nothing: PyTorch runs eagerly and the kernels are cached under build/.
 
+`--model mipnerf360` renders a mip-NeRF 360 checkpoint (the train CLI's
+`--model mipnerf360` and its `--mip_*` widths and samples) from an
+llff scene in the 360 layout, through `rendering/mip360.py`'s chunked
+test-time render on one device; the NeRF paths' flags (--fused_mlp,
+--occ_grid, --num_chips > 1) are refused at parse time.
+
 The dataset classes are the port's copies of the JAX package's (numpy;
 PIL where an image is read).
 """
@@ -37,7 +43,7 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from .config import COMPILE_CACHE_DEFAULT
+from .config import COMPILE_CACHE_DEFAULT, add_mip_flags, mip_config
 
 
 def build_parser() -> ArgumentParser:
@@ -131,11 +137,24 @@ def build_parser() -> ArgumentParser:
     parser.add_argument('--compile_cache', type=str,
                         default=COMPILE_CACHE_DEFAULT,
                         help='accepted for flag parity; does nothing here')
+    add_mip_flags(parser)
     return parser
 
 
 def get_opts(argv=None):
-    return build_parser().parse_args(argv)
+    args = build_parser().parse_args(argv)
+    if args.model == "mipnerf360":
+        bad = [f for f, on in (("--fused_mlp", args.fused_mlp),
+                               ("--occ_grid", args.occ_grid),
+                               (f"--num_chips {args.num_chips}",
+                                args.num_chips > 1),
+                               (f"--dataset_name {args.dataset_name}",
+                                args.dataset_name != "llff")) if on]
+        if bad:
+            raise ValueError(f"--model mipnerf360 does not take "
+                             f"{', '.join(bad)}: it renders an llff scene "
+                             "in the 360 layout on one device, unfused")
+    return args
 
 
 def save_gif(path, frames, fps=30):
@@ -147,6 +166,17 @@ def save_gif(path, frames, fps=30):
         imgs = [Image.fromarray(f) for f in frames]
         imgs[0].save(path, save_all=True, append_images=imgs[1:],
                      duration=int(1000 / fps), loop=0)
+
+
+def load_mip_params(ckpt_path, cfg):
+    """Both mip-NeRF 360 MLPs of a checkpoint as CPU tensors."""
+    from .models.mipnerf360 import init_mip_params
+    from .training.checkpoints import load_ckpt
+
+    params = init_mip_params(torch.Generator().manual_seed(0), cfg)
+    for name in params:
+        params = load_ckpt(params, ckpt_path, name)
+    return params
 
 
 def load_params(ckpt_path, with_fine=True):
@@ -232,7 +262,7 @@ def main(argv=None, device=None):
     without ground truth). --num_chips > 1 spawns the ranks."""
     from . import dist as pdist
 
-    args = build_parser().parse_args(argv)
+    args = get_opts(argv)
     kind, world = pdist.plan_world(args.num_chips, device)
     if world == 1:
         return _eval(args, device)
@@ -247,12 +277,12 @@ def _eval_rank(group, device, args):
 def _eval(args, device, group=None):
     from PIL import Image
 
-    from .datasets import dataset_dict
+    from .datasets import LLFF360Dataset, dataset_dict
     from .datasets.depth_utils import save_pfm
     from .device import resolve_device
     from . import dist as pdist
     from .parallel import make_render_fn
-    from .rendering import ModelConfig, RenderConfig
+    from .rendering import ModelConfig, RenderConfig, mip360
     from .training.metrics import psnr as psnr_fn
     from .training.metrics import ssim as ssim_fn
 
@@ -267,28 +297,45 @@ def _eval(args, device, group=None):
 
     kwargs = {'root_dir': args.root_dir, 'split': args.split,
               'img_wh': tuple(args.img_wh)}
-    if args.dataset_name == 'llff':
-        kwargs['spheric_poses'] = args.spheric_poses
-        kwargs['val_num'] = args.val_num
-    dataset = dataset_dict[args.dataset_name](**kwargs)
+    if args.model == "mipnerf360":
+        dataset = LLFF360Dataset(val_num=args.val_num, **kwargs)
+        mcfg = mip_config(args)
+        params = load_mip_params(args.ckpt_path, mcfg)
+        render_mip = mip360.make_render_fn(mcfg, args.chunk, device)
 
-    mcfg = ModelConfig()
-    params = load_params(args.ckpt_path, with_fine=args.N_importance > 0)
-
-    rcfg = RenderConfig(
-        N_samples=args.N_samples, N_importance=args.N_importance,
-        use_disp=args.use_disp, perturb=0.0, noise_std=0.0,
-        white_back=dataset.white_back, test_time=True,
-        compute_dtype=(torch.bfloat16 if args.precision == "bfloat16"
-                       else torch.float32),
-        fused=args.fused_mlp)
-    if args.occ_grid:
-        render = culled_render_fn(args, dataset, params, rcfg, mcfg, device,
-                                  group)
+        def render(params, samples, n_pad_frames):
+            return render_mip(
+                params, np.concatenate([s['rays'] for s in samples], 0),
+                np.concatenate([s['radii'] for s in samples], 0))
+        typ = "fine"
     else:
-        render = make_render_fn(rcfg, args.chunk, device, mcfg, group=group)
+        if args.dataset_name == 'llff':
+            kwargs['spheric_poses'] = args.spheric_poses
+            kwargs['val_num'] = args.val_num
+        dataset = dataset_dict[args.dataset_name](**kwargs)
+        mcfg = ModelConfig()
+        params = load_params(args.ckpt_path, with_fine=args.N_importance > 0)
+        rcfg = RenderConfig(
+            N_samples=args.N_samples, N_importance=args.N_importance,
+            use_disp=args.use_disp, perturb=0.0, noise_std=0.0,
+            white_back=dataset.white_back, test_time=True,
+            compute_dtype=(torch.bfloat16 if args.precision == "bfloat16"
+                           else torch.float32),
+            fused=args.fused_mlp)
+        if args.occ_grid:
+            render_rays = culled_render_fn(args, dataset, params, rcfg, mcfg,
+                                           device, group)
+        else:
+            render_rays = make_render_fn(rcfg, args.chunk, device, mcfg,
+                                         group=group)
 
-    typ = "fine" if args.N_importance > 0 else "coarse"
+        def render(params, samples, n_pad_frames):
+            rays_all = np.concatenate([s['rays'] for s in samples], 0)
+            if n_pad_frames:
+                rays_all = np.concatenate(
+                    [rays_all] + [samples[-1]['rays']] * n_pad_frames, 0)
+            return render_rays(params, rays_all)
+        typ = "fine" if args.N_importance > 0 else "coarse"
     dir_name = os.path.join(args.out_dir, args.dataset_name, args.scene_name)
     if main_rank:
         os.makedirs(dir_name, exist_ok=True)
@@ -300,15 +347,11 @@ def _eval(args, device, group=None):
     for start in range(0, len(dataset), fpd):
         idxs = list(range(start, min(start + fpd, len(dataset))))
         samples = [dataset[i] for i in idxs]
-        rays_all = np.concatenate([s['rays'] for s in samples], 0)
         # the culled path pads the last group to a whole dispatch, as
         # eval.py does: the cull sorts and tiles a dispatch's rays together
         n_pad_frames = fpd - len(idxs) if (start and args.occ_grid) else 0
-        if n_pad_frames:
-            rays_all = np.concatenate(
-                [rays_all] + [samples[-1]['rays']] * n_pad_frames, 0)
         t0 = time.perf_counter()
-        results = render(params, rays_all)
+        results = render(params, samples, n_pad_frames)
         dispatch_times.append((time.perf_counter() - t0, len(idxs)))
         if not main_rank:
             continue

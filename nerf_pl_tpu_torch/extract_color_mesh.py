@@ -91,10 +91,14 @@ def main(argv=None, device=None):
     from .mesh.native import keep_largest_cluster, marching_cubes
     from .models import init_nerf_params
     from .rendering import ModelConfig, RenderConfig, render_rays_chunked
-    from .training.checkpoints import load_ckpt
+    from .training.checkpoints import load_ckpt, model_names
     from .training.metrics import no_tf32
 
     args = get_opts(argv)
+    if "nerf_mlp" in model_names(args.ckpt_path):
+        raise ValueError(f"{args.ckpt_path} is a mip-NeRF 360 checkpoint: "
+                         "mesh extraction takes a NeRF's (nerf_coarse, "
+                         "nerf_fine)")
     dev = resolve_device(device)
 
     kwargs = {'root_dir': args.root_dir, 'img_wh': tuple(args.img_wh)}

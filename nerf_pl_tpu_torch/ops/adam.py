@@ -14,7 +14,10 @@ strided view whose rows are `g_stride` floats apart (`unpack_grads` gives
 `gws[:, :1]` and `gwr[:, :3]`): the kernel reads it where it lies; params
 and moments are contiguous. With `inplace` the kernel writes the new
 values into p, mu and nu themselves (the step graph's static buffers);
-otherwise into new tensors. Each launch adds one to `adam_launches`.
+otherwise into new tensors. With `clip_scale` (a float32 device scalar,
+the global-norm clip's factor) the kernel multiplies every gradient by it
+first; without it the table's pointer is null and nothing more is read.
+Each launch adds one to `adam_launches`.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ class _Leaf(ctypes.Structure):
 
 class _Table(ctypes.Structure):
     """csrc/adam.cu's Table."""
-    _fields_ = [("count", _P), ("lr", _P), ("b1", _F),
+    _fields_ = [("count", _P), ("lr", _P), ("clip_scale", _P), ("b1", _F),
                 ("b2", _F), ("one_minus_b1", _F), ("one_minus_b2", _F),
                 ("eps", _F), ("weight_decay", _F), ("decay", _I),
                 ("n_leaves", _I), ("leaves", _Leaf * MAX_LEAVES)]
@@ -115,12 +118,14 @@ def leaf_layout(params: Sequence[torch.Tensor],
 def make_table(params, grads, mu, nu, outs, layout: Sequence[LeafLayout],
                count: torch.Tensor, lr: torch.Tensor, *,
                b1: float, b2: float, eps: float,
-               weight_decay: float) -> _Table:
+               weight_decay: float,
+               clip_scale: Optional[torch.Tensor] = None) -> _Table:
     """The kernel's argument: the leaves' addresses and layout, and the
     scalars rounded to float as torch rounds a Python scalar (1 - b1 and
     1 - b2 are taken in double first, as the chain's Python arithmetic)."""
     t = _Table()
     t.count, t.lr = count.data_ptr(), lr.data_ptr()
+    t.clip_scale = None if clip_scale is None else clip_scale.data_ptr()
     t.b1, t.b2 = float(np.float32(b1)), float(np.float32(b2))
     t.one_minus_b1 = float(np.float32(1 - b1))
     t.one_minus_b2 = float(np.float32(1 - b2))
@@ -165,10 +170,12 @@ def adam_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
               mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor],
               count: torch.Tensor, lr: torch.Tensor, *,
               b1: float, b2: float, eps: float, weight_decay: float = 0.0,
-              inplace: bool = False):
+              inplace: bool = False,
+              clip_scale: Optional[torch.Tensor] = None):
     """One Adam step of every leaf in one launch: (params, mu, nu) after
     it, as lists. `count` is Adam's int32 count already incremented (the
-    t of b1^t), `lr` the learning rate as a float32 device scalar.
+    t of b1^t), `lr` the learning rate as a float32 device scalar,
+    `clip_scale` the gradients' factor (a float32 device scalar) or None.
     With `inplace` the new values are written into params, mu and nu,
     which are returned; otherwise into new tensors."""
     global adam_launches
@@ -182,6 +189,10 @@ def adam_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     if not isinstance(lr, torch.Tensor) or lr.dtype != torch.float32 or \
             lr.numel() != 1 or lr.device != dev:
         raise ValueError(f"lr must be one float32 on {dev}")
+    if clip_scale is not None and (
+            clip_scale.dtype != torch.float32 or clip_scale.numel() != 1
+            or clip_scale.device != dev):
+        raise ValueError(f"clip_scale must be one float32 on {dev}")
     if not all(t.is_contiguous() for ts in (params, mu, nu) for t in ts):
         raise ValueError("the adam kernel takes contiguous params and "
                          "moments")
@@ -193,7 +204,7 @@ def adam_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                      for ts in (params, mu, nu))
     table = make_table(params, grads, mu, nu, list(zip(*outs)), layout,
                        count, lr, b1=b1, b2=b2, eps=eps,
-                       weight_decay=weight_decay)
+                       weight_decay=weight_decay, clip_scale=clip_scale)
     lib = _checked_library()
     with torch.cuda.device(dev):
         err = lib.nerf_adam(ctypes.addressof(table), blocks,

@@ -36,6 +36,15 @@ segment loads from the caller's state and returns clones of; the store is
 permuted in place, and a new store (set_data, tighten_store) or a new
 state structure captures the step anew.
 
+A `MipConfig` model (`models/mipnerf360.py`) trains mip-NeRF 360 through
+the same store, graph and optimizer: its store carries each ray's pixel
+radius beside the rays, its draws are three jitters a ray, and its step
+is autograd over `rendering/mip360.py`'s three levels and
+`training/losses.py`'s mip360_loss (phases `prop0` to `nerf`, `losses`,
+`backward`), then, where the optimizer clips, the clip's factor (`clip`)
+before the update. It runs on one device: a group, tensor parallelism or
+the occupancy tightening raise.
+
 Occupancy (`tighten_store`) clips every stored ray's [near, far] to its
 occupancy-box overlaps, stores a per-ray occupied-segment mask for the
 coarse placement, and with `pack` keeps the store survivors-first so that
@@ -52,13 +61,16 @@ import torch
 import torch.utils._pytree as pytree
 
 from .. import dist as pdist
+from ..models.mipnerf360 import MipConfig, init_mip_params
 from ..models.nerf import init_nerf_params
 from ..ops import add_launches, launch_counts
 from ..rendering.occupancy import (dilate_segment_bits, ray_box_hits,
                                    ray_box_segment_bits, tighten_intervals)
+from ..rendering.mip360 import MipDraws, render_levels
 from ..rendering.render import (ModelConfig, RenderConfig, TrainDraws,
                                 fused_mse_train_step, render_rays)
 from ..training.checkpoints import map_with_paths
+from ..training.losses import mip360_loss
 from ..training.optimizers import Optimizer, optimizer_step, tree_leaves, \
     tree_unflatten
 from ..utils import profiling as P
@@ -126,6 +138,10 @@ class Trainer:
                  device: torch.device | str, group=None, num_model: int = 1,
                  tensor_parallel: bool = False):
         self.mcfg = mcfg
+        self.mip = isinstance(mcfg, MipConfig)
+        if self.mip and (group is not None or tensor_parallel):
+            raise ValueError("mipnerf360 trains on one device: no process "
+                             "group, no tensor parallelism")
         self.rcfg_train = rcfg_train
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
@@ -148,33 +164,38 @@ class Trainer:
         self.device = torch.device(device)
         self.all_rays = None
         self.all_rgbs = None
+        self.all_radii = None
         self._graph = None       # the captured step (CUDA only)
         self.captures = 0        # how many times the step was captured
 
     # ---------------------------------------------------------------- data
     def set_data(self, all_rays: np.ndarray, all_rgbs: np.ndarray,
-                 shuffle_seed: int = 0):
+                 shuffle_seed: int = 0,
+                 all_radii: Optional[np.ndarray] = None):
         """Shuffle the whole store once on the host (the JAX Trainer's
         numpy permutation, the same on every rank), pad it to whole global
         batches by repeating head rays modulo n, and move this rank's
         contiguous shard (P("data")'s block) to the device. Step i of an
-        epoch then reads the shard's contiguous block i."""
+        epoch then reads the shard's contiguous block i. `all_radii` (N,),
+        the rays' pixel radii (mip-NeRF 360's store), go with them."""
+        if self.mip != (all_radii is not None):
+            raise ValueError("a mipnerf360 store takes the rays' radii, "
+                             "and only it")
         n = all_rays.shape[0]
         perm = np.random.default_rng(shuffle_seed).permutation(n)
-        all_rays = all_rays[perm]
-        all_rgbs = all_rgbs[perm]
+        arrays = [a[perm] for a in (all_rays, all_rgbs, all_radii)
+                  if a is not None]
         pad = (-n) % self.batch_size
         if pad:
             idx = np.arange(pad) % n
-            all_rays = np.concatenate([all_rays, all_rays[idx]], 0)
-            all_rgbs = np.concatenate([all_rgbs, all_rgbs[idx]], 0)
-        self.n_rays_local = all_rays.shape[0] // self.num_data
+            arrays = [np.concatenate([a, a[idx]], 0) for a in arrays]
+        self.n_rays_local = arrays[0].shape[0] // self.num_data
         lo = self.data_index * self.n_rays_local
         shard = slice(lo, lo + self.n_rays_local)
-        self.all_rays = torch.as_tensor(all_rays[shard], dtype=torch.float32,
-                                        device=self.device)
-        self.all_rgbs = torch.as_tensor(all_rgbs[shard], dtype=torch.float32,
-                                        device=self.device)
+        self.all_rays, self.all_rgbs, *radii = [
+            torch.as_tensor(a[shard], dtype=torch.float32,
+                            device=self.device) for a in arrays]
+        self.all_radii = radii[0] if radii else None
         # steps of one pass over a shard (the JAX steps_per_epoch_local)
         self.steps_per_epoch = max(1, self.n_rays_local // self.batch_local)
         # Occupancy state, set by tighten_store: the original [near, far]
@@ -209,7 +230,8 @@ class Trainer:
     def _store_named(self):
         """(name, array) of the store's row-aligned arrays."""
         named = [("all_rays", self.all_rays), ("all_rgbs", self.all_rgbs),
-                 ("all_nf0", self.all_nf0), ("all_occm", self.all_occm),
+                 ("all_radii", self.all_radii), ("all_nf0", self.all_nf0),
+                 ("all_occm", self.all_occm),
                  ("all_hit", self.all_hit), ("all_idx", self.all_idx)]
         return [(n, a) for n, a in named if a is not None]
 
@@ -262,6 +284,8 @@ class Trainer:
 
         Returns {"hit_frac", "shrink"} and, with pack, {"miss_mse",
         "expand"}: over the whole store, summed across the data axis."""
+        if self.mip:
+            raise ValueError("mipnerf360 takes no occupancy tightening")
         if self.all_nf0 is None:
             self.all_nf0 = self.all_rays[:, 6:8].clone()
         boxes = torch.as_tensor(np.asarray(boxes, np.float32),
@@ -311,6 +335,8 @@ class Trainer:
 
     # --------------------------------------------------------------- state
     def _mlp_names(self) -> List[str]:
+        if self.mip:
+            return ["prop_mlp", "nerf_mlp"]
         return ["nerf_coarse"] + (["nerf_fine"]
                                   if self.rcfg_train.N_importance > 0 else [])
 
@@ -329,9 +355,12 @@ class Trainer:
         torch.bfloat16) casts the stored (master) weights, and the
         optimizer's moments follow them; the kernels run bf16 products
         either way, so it moves only where the update rounds."""
-        params = {name: init_nerf_params(generator, self.mcfg.nerf,
-                                         self.device)
-                  for name in self._mlp_names()}
+        if self.mip:
+            params = init_mip_params(generator, self.mcfg, self.device)
+        else:
+            params = {name: init_nerf_params(generator, self.mcfg.nerf,
+                                             self.device)
+                      for name in self._mlp_names()}
         params = pdist.broadcast_tree(params, self.group)
         if self.tp is not None:
             params = map_with_paths(self.tp.shard_leaf, params)
@@ -343,7 +372,8 @@ class Trainer:
     # --------------------------------------------------------------- train
     def _sample_batch(self, step):
         """Contiguous block `step % steps_per_epoch` of the store: (rays,
-        rgbs), and the segment masks when the store has them. `step` is an
+        rgbs), and the radii or the segment masks when the store has them.
+        `step` is an
         int or a 0-dim integer tensor on the store's device (the offset is
         then computed there, as JAX's dynamic_slice takes it). With
         survivor packing the offset wraps over the survivor region [0, K),
@@ -356,6 +386,8 @@ class Trainer:
         idx = off + torch.arange(b, device=self.device)
         batch = (self.all_rays.index_select(0, idx),
                  self.all_rgbs.index_select(0, idx))
+        if self.all_radii is not None:
+            return batch + (self.all_radii.index_select(0, idx),)
         if self.all_occm is None:
             return batch
         return batch + (self.all_occm.index_select(0, idx),)
@@ -415,6 +447,22 @@ class Trainer:
                     (loss_sum, sq, grads), data_group)
         return loss_sum / self.batch_size, sq / (self.batch_size * 3), grads
 
+    def _mip_loss_and_grads(self, params, rays, rgbs, radii,
+                            draws: MipDraws):
+        """(loss, mse, grads) of mip-NeRF 360's step: autograd over the
+        three levels and the three losses."""
+        dev = rays.device
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        p = tree_unflatten(params, leaves)
+        with torch.enable_grad():
+            out = render_levels(p, rays, radii, self.mcfg, draws.jitter)
+            with P.phase("losses", dev):
+                loss, _ = mip360_loss(out, rgbs, self.mcfg)
+                mse = torch.mean((out["rgb"].detach() - rgbs) ** 2)
+            with P.phase("backward", dev):
+                grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), mse, tree_unflatten(params, list(grads))
+
     def _step(self, params, opt_state, step: torch.Tensor,
               draws: TrainDraws, inplace: bool = False):
         """One optimizer step on device inputs only: the batch at the
@@ -427,17 +475,16 @@ class Trainer:
         the optimizer write the new state into the given tensors."""
         dev = self.device
         with P.phase("batch", dev):
-            rays, rgbs, *occm = self._sample_batch(step)
-        loss, mse, grads = self._loss_and_grads(params, rays, rgbs, None,
-                                                draws, occm=occm[0] if occm
-                                                else None)
-        with P.phase("optimizer", dev):
-            p = tree_leaves(params)
-            grads = tree_unflatten(params, [g.to(q.dtype) for g, q in
-                                            zip(tree_leaves(grads, params),
-                                                p)])
-            params, opt_state = optimizer_step(self.optimizer, grads,
-                                               opt_state, params, inplace)
+            rays, rgbs, *extra = self._sample_batch(step)
+        if self.mip:
+            loss, mse, grads = self._mip_loss_and_grads(params, rays, rgbs,
+                                                        extra[0], draws)
+        else:
+            loss, mse, grads = self._loss_and_grads(
+                params, rays, rgbs, None, draws,
+                occm=extra[0] if extra else None)
+        params, opt_state = optimizer_step(self.optimizer, grads, opt_state,
+                                           params, inplace)
         with P.phase("tail", dev):
             # clamp: mse == 0 would give an infinite psnr
             psnr = -10.0 * torch.log10(torch.clamp(mse, min=1e-10))
@@ -455,7 +502,10 @@ class Trainer:
         the render takes them from its generator: the perturb uniforms and
         the coarse noise, then the importance u and the fine noise, for
         this data index's rays. These are all the random numbers of a step on
-        every path."""
+        every path (mip-NeRF 360's: one jitter a ray for each level)."""
+        if self.mip:
+            return [("jitter", (self.batch_local,
+                                len(self.mcfg.num_prop_samples) + 1), True)]
         cfg, R = self.rcfg_train, self.batch_local
         S, S_imp = cfg.N_samples, cfg.N_importance
         specs = []
@@ -480,10 +530,11 @@ class Trainer:
             else:
                 buf.normal_(generator=g)
 
-    def step_draws(self, seed: int, step: int) -> TrainDraws:
+    def step_draws(self, seed: int, step: int) -> TrainDraws | MipDraws:
         """Every random draw of global step `step`, as tensors."""
-        draws = TrainDraws(**{name: torch.empty(shape, device=self.device)
-                              for name, shape, _ in self._draw_specs()})
+        kind = MipDraws if self.mip else TrainDraws
+        draws = kind(**{name: torch.empty(shape, device=self.device)
+                        for name, shape, _ in self._draw_specs()})
         self._draw_into(draws, seed, step)
         return draws
 

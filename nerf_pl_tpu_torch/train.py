@@ -28,6 +28,10 @@ with `--fused_train` or `--fused_mlp` keeps bf16 master weights and
 moments. On the card each segment of steps replays one captured CUDA
 graph of the step. Reading the datasets' images needs PIL.
 
+`--model mipnerf360` (with `--dataset_name llff --spheric_poses` and the
+`--mip_*` flags, config.py) trains mip-NeRF 360 on one card through the
+same NeRFSystem and Trainer; the NeRF paths' flags are refused for it.
+
 `--num_gpus N` trains data parallel, one process a rank
 (`dist.py`): on the card over min(N, the cards there are) ranks,
 one card each, over NCCL, as the JAX package takes min(--num_gpus,

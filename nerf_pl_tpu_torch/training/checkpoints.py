@@ -174,6 +174,16 @@ def extract_model_state_dict(ckpt_path: str, model_name: str = "nerf_coarse",
     return out
 
 
+def model_names(ckpt_path: str) -> List[str]:
+    """The models a checkpoint holds: its params' first keys in a full
+    train state, else its first keys (a weights-only export); nerf_coarse
+    and nerf_fine, or mip-NeRF 360's prop_mlp and nerf_mlp."""
+    with np.load(ckpt_path) as z:
+        keys = [k.split("/") for k in z.files if k != "__meta__"]
+    full = [k[1:] for k in keys if k[0] == "params"]
+    return sorted({k[0] for k in (full or keys)})
+
+
 def load_ckpt(params: Dict[str, Any], ckpt_path: str,
               model_name: str = "nerf_coarse",
               prefixes_to_ignore=()) -> Dict[str, Any]:

@@ -59,3 +59,26 @@ def get_lr_schedule(lr_scheduler: str,
         return lr * torch.where(epoch <= warmup_epochs, ramp, after)
 
     return schedule
+
+
+def get_loglinear_schedule(lr_init: float, lr_final: float, max_steps: int,
+                           delay_steps: int = 0,
+                           delay_mult: float = 1.0) -> Callable:
+    """mip-NeRF 360's schedule (multinerf's learning_rate_decay): the lr
+    log-linear from lr_init at step 0 to lr_final at max_steps, scaled
+    during the first delay_steps by delay_mult + (1 - delay_mult) sin(pi/2
+    min(step / delay_steps, 1)). A step -> float32 tensor function, as
+    get_lr_schedule's."""
+    lv0, lv1 = math.log(lr_init), math.log(lr_final)
+
+    def schedule(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        frac = torch.clamp(step / max_steps, 0.0, 1.0)
+        lr = torch.exp(frac * (lv1 - lv0) + lv0)
+        if delay_steps > 0:
+            ramp = torch.clamp(step / delay_steps, 0.0, 1.0)
+            lr = lr * (delay_mult + (1 - delay_mult)
+                       * torch.sin(0.5 * math.pi * ramp))
+        return lr
+
+    return schedule

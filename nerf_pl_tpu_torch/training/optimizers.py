@@ -22,6 +22,15 @@ The arithmetic follows optax operation by operation, on the whole
 parameter list at once (torch._foreach_*). The moments take the params'
 dtype (bf16 master weights keep bf16 moments); the counts are int32.
 
+Adam with `clip_norm` > 0 first scales the gradients by min(1, clip_norm
+/ (eps + their global norm)), multinerf's global-norm clip (mip-NeRF
+360's recipe; the JAX package has no clip). `optimizer_step` computes the
+factor once, a device scalar from one reduction over the leaves, in a
+phase of its own (`clip`) before the update's (`optimizer`), and the
+update takes it. Without a clip the step is the unclipped chain's, launch
+for launch. The clip adds no state, so the tree and its checkpoint keys
+stay optax's.
+
 `optimizer_step` is update and apply_updates in one, the Trainer's call.
 On float32 CUDA leaves Adam's takes one launch of ops/adam.py's kernel,
 which gives the chain's bits; the chain is its plain version and takes
@@ -39,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops import adam as adam_kernel
+from ..utils import profiling as P
 
 ScalarOrSchedule = Union[float, Callable]
 B1, B2 = 0.9, 0.999     # Adam's decays (optax's defaults)
@@ -73,24 +83,46 @@ def apply_updates(params, updates):
 
 
 class Optimizer(NamedTuple):
-    """init(params) -> state; update(grads, state, params) -> (updates,
-    state); apply (None: update, then apply_updates) (grads, state, params,
-    inplace) -> (params, state)."""
+    """init(params) -> state; update(grads, state, params[, scale]) ->
+    (updates, state); apply (None: update, then apply_updates) (grads,
+    state, params, inplace[, scale]) -> (params, state); clip_norm: the
+    global-norm clip (0: none), whose factor `scale` update and apply then
+    take (only adam's clips)."""
     init: Callable[[Any], Tuple]
-    update: Callable[[Any, Tuple, Any], Tuple[Any, Tuple]]
-    apply: Optional[Callable[[Any, Tuple, Any, bool], Tuple[Any, Tuple]]] \
-        = None
+    update: Callable[..., Tuple[Any, Tuple]]
+    apply: Optional[Callable[..., Tuple[Any, Tuple]]] = None
+    clip_norm: float = 0.0
+
+
+F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def clip_scale(grads: List[torch.Tensor], clip_norm: float) -> torch.Tensor:
+    """min(1, clip_norm / (eps + the global norm of the leaves)), a
+    float32 device scalar (multinerf's clip_gradients)."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    return torch.clamp(clip_norm / (F32_EPS + norm), max=1.0)
 
 
 def optimizer_step(optimizer: Optimizer, grads, state, params,
                    inplace: bool = False) -> Tuple[Any, Tuple]:
-    """(params, state) after one update. `inplace` lets the optimizer
-    write them into the given params' and state's tensors (the step
-    graph's static buffers)."""
-    if optimizer.apply is not None:
-        return optimizer.apply(grads, state, params, inplace)
-    updates, state = optimizer.update(grads, state, params)
-    return apply_updates(params, updates), state
+    """(params, state) after one update, the gradients cast to the params'
+    dtypes: phase `clip` (the clip's factor, where the optimizer clips),
+    then `optimizer`. `inplace` lets the optimizer write them into the
+    given params' and state's tensors (the step graph's static
+    buffers)."""
+    p = tree_leaves(params)
+    g = tree_leaves(grads, params)
+    scale = ()
+    if optimizer.clip_norm > 0:
+        with P.phase("clip", p[0].device):
+            scale = (clip_scale(g, optimizer.clip_norm),)
+    with P.phase("optimizer", p[0].device):
+        grads = tree_unflatten(params, [x.to(q.dtype) for x, q in zip(g, p)])
+        if optimizer.apply is not None:
+            return optimizer.apply(grads, state, params, inplace, *scale)
+        updates, state = optimizer.update(grads, state, params, *scale)
+        return apply_updates(params, updates), state
 
 
 def _count(params) -> torch.Tensor:
@@ -156,9 +188,11 @@ def _decay_pow(decay: float, count: torch.Tensor) -> torch.Tensor:
 
 def _chain(name: str, learning_rate: ScalarOrSchedule, momentum: float,
            weight_decay: float, eps: float, b1: float = B1,
-           b2: float = B2) -> Optimizer:
+           b2: float = B2, clip_norm: float = 0.0) -> Optimizer:
     """optax.chain(add_decayed_weights?, scale_by_<name>,
-    scale_by_learning_rate) for name in sgd, adam, radam."""
+    scale_by_learning_rate) for name in sgd, adam, radam; adam's after
+    the global-norm clip when clip_norm > 0, by the factor `scale` that
+    update and apply then take (optimizer_step's)."""
     decay = bool(weight_decay and weight_decay > 0)
     scheduled = callable(learning_rate)
     ro_inf = 2.0 / (1.0 - b2) - 1.0     # radam's maximum length of the SMA
@@ -172,9 +206,11 @@ def _chain(name: str, learning_rate: ScalarOrSchedule, momentum: float,
         lr_stage = {"count": _count(params)} if scheduled else {}
         return ((({},) if decay else ()) + (inner, lr_stage))
 
-    def update(grads, state, params):
+    def update(grads, state, params, scale=None):
         g = tree_leaves(grads, params)
         p = tree_leaves(params)
+        if clip_norm > 0:
+            g = torch._foreach_mul(g, scale)
         if decay:   # torch-style coupled L2: g + wd * p
             g = torch._foreach_add(g, torch._foreach_mul(p, weight_decay))
         inner, lr_stage = state[-2], state[-1]
@@ -218,16 +254,16 @@ def _chain(name: str, learning_rate: ScalarOrSchedule, momentum: float,
         return (tree_unflatten(params, u),
                 state[:-2] + (inner, lr_stage))
 
-    def apply(grads, state, params, inplace):
+    def apply(grads, state, params, inplace, scale=None):
         """adam's update and apply_updates: one kernel launch on float32
-        CUDA leaves, else the chain."""
+        CUDA leaves (reading the clip's factor), else the chain."""
         p = tree_leaves(params)
         g = tree_leaves(grads, params)
         inner, lr_stage = state[-2], state[-1]
         mu = tree_leaves(inner["mu"], params)
         nu = tree_leaves(inner["nu"], params)
         if not adam_kernel.takes_kernel(*p, *g, *mu, *nu):
-            updates, state = update(grads, state, params)
+            updates, state = update(grads, state, params, scale)
             return apply_updates(params, updates), state
 
         def incremented(c):
@@ -242,24 +278,31 @@ def _chain(name: str, learning_rate: ScalarOrSchedule, momentum: float,
         count = incremented(inner["count"])
         p, mu, nu = adam_kernel.adam_step(
             p, g, mu, nu, count, lr, b1=b1, b2=b2, eps=eps,
-            weight_decay=weight_decay if decay else 0.0, inplace=inplace)
+            weight_decay=weight_decay if decay else 0.0, inplace=inplace,
+            clip_scale=scale if clip_norm > 0 else None)
         inner = {"count": count, "mu": tree_unflatten(params, mu),
                  "nu": tree_unflatten(params, nu)}
         return (tree_unflatten(params, p),
                 state[:-2] + (inner, lr_stage))
 
-    return Optimizer(init, update, apply if name == "adam" else None)
+    return Optimizer(init, update, apply if name == "adam" else None,
+                     clip_norm)
 
 
 def get_optimizer(name: str,
                   learning_rate: ScalarOrSchedule,
                   momentum: float = 0.9,
                   weight_decay: float = 0.0,
-                  eps: float = 1e-8) -> Optimizer:
+                  eps: float = 1e-8,
+                  clip_norm: float = 0.0) -> Optimizer:
     """Build the optimizer named by the --optimizer flag. `learning_rate`
-    is a float or a step -> lr schedule."""
+    is a float or a step -> lr schedule; clip_norm > 0 clips the
+    gradients' global norm first (adam only: mip-NeRF 360's recipe)."""
+    if clip_norm > 0 and name != "adam":
+        raise ValueError(f"no global-norm clip for the {name!r} optimizer")
     if name in ("sgd", "adam", "radam"):
-        return _chain(name, learning_rate, momentum, weight_decay, eps)
+        return _chain(name, learning_rate, momentum, weight_decay, eps,
+                      clip_norm=clip_norm)
     if name == "ranger":
         # the reference Ranger's betas (0.95, 0.999) and eps 1e-5
         return lookahead(_chain("radam", learning_rate, momentum,

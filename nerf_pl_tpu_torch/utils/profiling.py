@@ -48,11 +48,14 @@ from ..ops import _build
 # training step's (`draws` outside its graph, `batch` to `tail` inside,
 # `backward` on the autograd routes, `allreduce` with a data group), a
 # frame's (`frame_*`, the per-tile `coarse_z` to `fine`), the culled
-# renderer's `cull` and `bucket`, and `end`.
+# renderer's `cull` and `bucket`, and `end`; then mip-NeRF 360's step
+# (`batch`, `prop0`, `resample1`, `prop1`, `resample2`, `nerf`, `losses`,
+# `backward`, `clip`, `optimizer`, `tail`, `end`).
 MARKS = ("draws", "batch", "coarse_z", "occupied_z", "coarse", "fine_z",
          "fine", "backward", "allreduce", "optimizer", "tail", "end",
          "frame_pack", "frame_pad", "frame_gather", "frame_to_host", "cull",
-         "bucket")
+         "bucket", "prop0", "resample1", "prop1", "resample2", "nerf",
+         "losses", "clip")
 
 _OFF = contextlib.nullcontext()
 _recorded: Optional[List[int]] = None   # inside recording_marks()

@@ -31,7 +31,7 @@ from nerf_pl_tpu_torch.ops import fused_mlp as fm
 from nerf_pl_tpu_torch.training.checkpoints import flatten_with_paths
 from nerf_pl_tpu_torch.training.lr_schedule import get_lr_schedule
 from nerf_pl_tpu_torch.training.optimizers import (_decay_pow, apply_updates,
-                                                   get_optimizer,
+                                                   clip_scale, get_optimizer,
                                                    optimizer_step,
                                                    tree_leaves)
 
@@ -108,9 +108,10 @@ def test_table_holds_the_leaves_and_the_scalars():
     lr = torch.full((), 5e-4)
     t = A.make_table(p, g, mu, nu, list(zip(*outs)), layout, count, lr,
                      b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-2)
-    assert ctypes.sizeof(t) == 4080 <= 4096
+    assert ctypes.sizeof(t) == 4088 <= 4096
     assert ctypes.sizeof(A._Leaf) == 72
     assert t.count == count.data_ptr() and t.lr == lr.data_ptr()
+    assert t.clip_scale is None     # no clip: a null pointer
     assert t.n_leaves == 48 and t.decay == 1
     for name, want in (("b1", 0.9), ("b2", 0.999), ("eps", 1e-8),
                        ("weight_decay", 1e-2), ("one_minus_b1", 1 - 0.9),
@@ -124,6 +125,11 @@ def test_table_holds_the_leaves_and_the_scalars():
     t = A.make_table(p, g, mu, nu, list(zip(*outs)), layout, count, lr,
                      b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)
     assert t.decay == 0 and t.weight_decay == 0.0
+    scale = torch.full((), 0.5)
+    t = A.make_table(p, g, mu, nu, list(zip(*outs)), layout, count, lr,
+                     b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0,
+                     clip_scale=scale)
+    assert t.clip_scale == scale.data_ptr()
 
 
 def _tree(rng, dtype=torch.float32):
@@ -136,14 +142,16 @@ def _tree(rng, dtype=torch.float32):
 
 def _chain_run(opt, params, grads_list, via_step, inplace=False):
     """The flattened state after the steps: through optimizer_step, or
-    update + apply_updates."""
+    update + apply_updates (with the clip's factor where opt clips)."""
     state = opt.init(params)
     for grads in grads_list:
         if via_step:
             params, state = optimizer_step(opt, grads, state, params,
                                            inplace)
         else:
-            upd, state = opt.update(grads, state, params)
+            scale = ((clip_scale(tree_leaves(grads, params), opt.clip_norm),)
+                     if opt.clip_norm > 0 else ())
+            upd, state = opt.update(grads, state, params, *scale)
             params = apply_updates(params, upd)
     return _flat({"params": params, "opt_state": state})
 
@@ -184,16 +192,18 @@ def test_other_routes_take_the_foreach_chain(name, dtype, monkeypatch):
 
 
 def _plain_adam_step(params, grads, mu, nu, count, lr, *, b1, b2, eps,
-                     weight_decay=0.0, inplace=False):
+                     weight_decay=0.0, inplace=False, clip_scale=None):
     """adam_step's arithmetic in plain torch (the chain's operations,
     leaf by leaf), with its contract: writes into the given tensors in
-    place, else new ones."""
+    place, else new ones; the gradients scaled by clip_scale first."""
     corr1 = 1 - _decay_pow(b1, count)
     corr2 = 1 - _decay_pow(b2, count)
     assert lr.dtype == torch.float32 and lr.dim() == 0   # the kernel's lr
     step_size = -lr
     outs = ([], [], [])
     for p, g, m, v in zip(params, grads, mu, nu):
+        if clip_scale is not None:
+            g = g * clip_scale
         if weight_decay > 0:
             g = g + p * weight_decay
         m2 = m * b1 + g * (1 - b1)
@@ -261,3 +271,36 @@ def test_takes_kernel_wants_float32_on_one_cuda_device():
     assert not A.takes_kernel(f32, Leaf(device=cuda0, dtype=torch.bfloat16))
     assert not A.takes_kernel(f32, Leaf(device=cuda1, dtype=torch.float32))
     assert not A.takes_kernel(torch.zeros(2), torch.zeros(2))
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_clipped_kernel_route_equals_the_clipped_chain(inplace, monkeypatch):
+    """With a global-norm clip (mip-NeRF 360's), the kernel's route with
+    the plain stand-in (the factor handed to the launch) gives the clipped
+    chain's state bit for bit; the clip does bite (the gradients' norm is
+    over it) and adds nothing to the state tree."""
+    monkeypatch.setattr(A, "takes_kernel", lambda *leaves: True)
+    monkeypatch.setattr(A, "adam_step", _plain_adam_step)
+    rng = np.random.default_rng(2)
+    params = _tree(rng)
+    grads = [_tree(rng) for _ in range(5)]
+    assert float(clip_scale(tree_leaves(grads[0], params), 1e-3)) < 1e-3
+    opt = get_optimizer("adam", get_lr_schedule(**SCHED), eps=1e-6,
+                        clip_norm=1e-3)
+    plain = get_optimizer("adam", get_lr_schedule(**SCHED), eps=1e-6)
+    copy = {m: {k: {n: t.clone() for n, t in d.items()}
+                for k, d in v.items()} for m, v in params.items()}
+    got = _chain_run(opt, copy, grads, True, inplace)
+    _assert_same(got, _chain_run(opt, params, grads, False))
+    assert got[0] == _chain_run(plain, params, grads, False)[0]
+    assert not all(torch.equal(a, b) for a, b in zip(
+        got[1], _chain_run(plain, params, grads, False)[1]))
+
+
+@pytest.mark.parametrize("name", ["sgd", "radam", "ranger"])
+def test_only_adam_takes_a_clip(name):
+    """The global-norm clip is mip-NeRF 360's Adam's: every other
+    optimizer refuses it, and takes none by default."""
+    with pytest.raises(ValueError, match="no global-norm clip"):
+        get_optimizer(name, 1e-3, clip_norm=1e-3)
+    assert get_optimizer(name, 1e-3).clip_norm == 0

@@ -1296,3 +1296,134 @@ def test_adam_replayed_steps_equal_eager_and_launch_once(dev):
     tr.run_steps(sg, 5, 7)
     assert A.adam_launches == n0 + 7
 
+
+
+# ------------------------------------------------------------ mip-NeRF 360
+
+def _mip_cell(n_rays, batch):
+    """The benchmark's mipnerf360_outdoor.train16k at published widths,
+    its store and batch cut."""
+    import copy
+    from nerfbench import run
+    cell = copy.deepcopy(run.load_cell("mipnerf360_outdoor.train16k"))
+    cell["config"]["store"]["n_rays"] = n_rays
+    cell["traffic"]["batch_per_rank"] = batch
+    return cell
+
+
+def _mip_trainer(dev, cell, seed):
+    from nerf_pl_tpu_torch.parallel.spmd import TrainState
+    from nerfbench import inputs_mip360 as mi
+    from nerfbench.runners import train_mip360 as runner
+    tr = runner.trainer_with_store(cell, seed, dev)
+    params = mi.make_params(cell["config"]["model"], seed, dev)
+    return tr, TrainState(params, tr.optimizer.init(params), 0)
+
+
+def test_mip360_replayed_steps_equal_eager_steps(dev):
+    """20 replayed graph steps of mip-NeRF 360 at published widths (batch
+    1024) leave the state, and give the metrics, that 20 eager steps do,
+    bit for bit; one capture, one adam launch a step."""
+    cell = _mip_cell(65536, 1024)
+    finals = []
+    for eager in (True, False):
+        tr, state = _mip_trainer(dev, cell, 7)
+        state, m = tr.run_steps(state, 7, 20, eager=eager)
+        finals.append((tr, state, m))
+    (_, se, me), (tr, sg, mg) = finals
+    assert tr.captures == 1 and tr._graph.launches == {"adam": 1}
+    for a, b in zip(_state_leaves(se.params, se.opt_state),
+                    _state_leaves(sg.params, sg.opt_state)):
+        assert torch.equal(a, b)
+    for k in ("loss", "psnr", "lr"):
+        assert torch.equal(me[k], mg[k]), k
+    assert torch.isfinite(mg["loss"]).all()
+
+
+def test_mip360_step_at_published_widths_against_the_reference(dev):
+    """The program's first three steps on 256 rays a step, at published
+    widths in bf16 products, against the plain float32 reference: within
+    the cell's limits (nerfbench/limits/...train16k.json)."""
+    import json
+    from pathlib import Path
+    from nerfbench import check
+    from nerfbench.runners import train_mip360 as runner
+    cell = _mip_cell(65536, 256)
+    res = runner.run(cell, 2718281828, 0.1, False, 0.0, device="cuda")
+    limits = json.loads((Path(__file__).resolve().parents[1] / "nerfbench"
+                         / "limits" / "mipnerf360_outdoor.train16k.json")
+                        .read_text())["limits"]
+    ok, checks = check.judge(res["numbers"], limits)
+    print(res["numbers"])
+    assert ok, checks
+
+
+def test_mip360_replayed_step_marks_in_order(dev):
+    """Under a profiler, 2 replayed steps show mip-NeRF 360's marks in its
+    step's order, the clip's norm kernels in `clip` and one adam_kernel in
+    `optimizer`."""
+    cell = _mip_cell(65536, 1024)
+    tr, state = _mip_trainer(dev, cell, 3)
+    state, _ = tr.run_steps(state, 3, 2)
+    (state, m), dev_spans, _, _ = _profiled(lambda: tr.run_steps(state, 3, 2))
+    assert tr.captures == 1 and torch.isfinite(m["loss"]).all()
+    from nerfbench.metrics import _spans as S
+    seen = [p for p, _, _ in S.marks(type("Tr", (), {"device": dev_spans})())]
+    assert seen == ["draws", "batch", "prop0", "resample1", "prop1",
+                    "resample2", "nerf", "losses", "backward", "clip",
+                    "optimizer", "tail", "end"] * 2
+    phases = _by_phase(dev_spans)
+    assert sum("adam_kernel" in n for n in phases["optimizer"]) == 2
+    assert any("norm" in n.lower() for n in phases["clip"])
+    assert not any("adam_kernel" in n for p, ns in phases.items()
+                   if p != "optimizer" for n in ns)
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_adam_kernel_with_clip_equals_the_clipped_chain(dev, inplace):
+    """5 steps of the dense recipe's 48 leaves with a global-norm clip of
+    1e-3 and eps 1e-6: the kernel (the clip's factor read from the device)
+    gives the clipped foreach chain's params, moments and counts bit for
+    bit, one launch a step; the factor is below 1 (the clip bites)."""
+    from nerf_pl_tpu_torch.ops import adam as A
+    from nerf_pl_tpu_torch.training.optimizers import (apply_updates,
+                                                       clip_scale,
+                                                       optimizer_step)
+    sched = get_lr_schedule("steplr", 5e-4, 16, 2, decay_step=[1, 2],
+                            decay_gamma=0.5)
+    opt = get_optimizer("adam", sched, eps=1e-6, clip_norm=1e-3)
+    params = _dense_params(dev)
+    pk = {m: {k: {n: t.clone() for n, t in d.items()} for k, d in v.items()}
+          for m, v in params.items()}
+    sk, pc, sc = opt.init(params), params, opt.init(params)
+    for i in range(5):
+        grads = _dense_grads(dev, i)
+        scale = clip_scale(tree_leaves(grads, params), 1e-3)
+        assert float(scale) < 1
+        n0 = A.adam_launches
+        pk, sk = optimizer_step(opt, grads, sk, pk, inplace)
+        assert A.adam_launches == n0 + 1
+        upd, sc = opt.update(grads, sc, pc, scale)
+        pc = apply_updates(pc, upd)
+        for j, (a, b) in enumerate(zip(_state_leaves(pk, sk),
+                                       _state_leaves(pc, sc))):
+            assert a.dtype == b.dtype and torch.equal(a, b), (i, j)
+
+
+def test_nerf_recipe_step_launches_no_clip(dev):
+    """The loss-fused dense recipe (no clip asked for): the captured step
+    launches what it did before the clip existed (two mse_render, one
+    adam), its marks have no `clip`, and no phase of it runs a foreach
+    pass (the clip's norm is one)."""
+    tr = _traced_trainer(dev, False)
+    assert tr.optimizer.clip_norm == 0
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    state, _ = tr.run_steps(state, 5, 2)
+    assert tr._graph.launches == {"mse_render": 2, "adam": 1}
+    (_, _), dev_spans, _, _ = _profiled(lambda: tr.run_steps(state, 5, 2))
+    from nerfbench.metrics import _spans as S
+    seen = [p for p, _, _ in S.marks(type("Tr", (), {"device": dev_spans})())]
+    assert "clip" not in seen and seen == _step_marks(False) * 2
+    for p, names in _by_phase(dev_spans).items():
+        assert not any("lpnorm" in n.lower() or "multi_tensor_apply" in n
+                       for n in names), p

@@ -129,10 +129,19 @@ def test_main_needs_cuda_unless_given_a_device(scene, ckpt, tmp_path,
     assert not (tmp_path / "blender").exists()
 
 
+# the port's eval flags after every eval.py flag: mip-NeRF 360's model
+EVAL_PORT_FLAGS = ("model", "mip_prop_width", "mip_nerf_width",
+                   "mip_prop_samples", "mip_nerf_samples")
+
+
 def test_parsers_share_flags_and_defaults():
+    """Every eval.py flag with its default, then exactly the port's own
+    (EVAL_PORT_FLAGS)."""
     import eval as jeval
     argv = ["--root_dir", "r", "--ckpt_path", "c"]
-    assert vars(teval.get_opts(argv)) == vars(jeval.get_opts(argv))
+    ours, want = vars(teval.get_opts(argv)), vars(jeval.get_opts(argv))
+    assert {k: ours[k] for k in want} == want
+    assert tuple(k for k in ours if k not in want) == EVAL_PORT_FLAGS
 
 
 @pytest.fixture(scope="module")

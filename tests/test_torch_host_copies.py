@@ -64,18 +64,32 @@ def _parser_of(get_opts, monkeypatch):
     return _parser_built_by(lambda: get_opts([]), monkeypatch)
 
 
+# the port's flags after every JAX flag (mip-NeRF 360's), by dest
+PORT_FLAGS = ("model", "mip_prop_width", "mip_nerf_width",
+              "mip_prop_samples", "mip_nerf_samples")
+
+
 def test_parser_flags_and_defaults_match(monkeypatch):
+    """Every JAX flag, field for field and in order, then exactly the
+    port's own flags (PORT_FLAGS); the Hparams and a parse agree on every
+    JAX field."""
     ours = _parser_of(tconfig.get_opts, monkeypatch)._actions
     ref = _parser_of(jconfig.get_opts, monkeypatch)._actions
-    assert len(ours) == len(ref) > 50
+    assert len(ref) > 50
+    assert len(ours) == len(ref) + len(PORT_FLAGS)
     for a, b in zip(ours, ref):
         assert (a.option_strings, a.dest, a.default, a.nargs, a.type,
                 a.choices) == (b.option_strings, b.dest, b.default, b.nargs,
                                b.type, b.choices), b.dest
-    assert (tconfig.Hparams().__dict__ == jconfig.Hparams().__dict__)
+    assert tuple(a.dest for a in ours[len(ref):]) == PORT_FLAGS
+    ours_hp, ref_hp = tconfig.Hparams().__dict__, jconfig.Hparams().__dict__
+    assert list(ours_hp) == list(ref_hp) + list(PORT_FLAGS)
+    assert {k: ours_hp[k] for k in ref_hp} == ref_hp
     argv = ["--fused_train", "--img_wh", "40", "40", "--decay_step", "2", "4",
             "--num_chips", "1", "--occ_range", "-1", "1"]
-    assert vars(tconfig.get_opts(argv)) == vars(jconfig.get_opts(argv))
+    parsed, want = vars(tconfig.get_opts(argv)), vars(jconfig.get_opts(argv))
+    assert {k: parsed[k] for k in want} == want
+    assert set(parsed) - set(want) == set(PORT_FLAGS)
 
 
 VALIDATE_CASES = {

@@ -44,7 +44,7 @@ def test_port_imports_no_jax_and_no_pil():
                  "preview_bounds", "save_weights_only",
                  "make_hard_datasets", "northstar", "dist",
                  "dryrun_multichip", "bench_kernels", "parallel.mesh",
-                 "bench"):
+                 "bench", "models.mipnerf360", "rendering.mip360"):
         assert f"nerf_pl_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
