@@ -37,7 +37,9 @@
    TestGradientParity: a flipped bf16 rounding or ReLU mask moves every
    product downstream of it), and two launches bit-identical. Times both
    at R = 1024, S = 32, 64, 96 and 128 (the coarse and fine passes of the
-   dense and culled32 configs). Then a
+   dense and culled32 configs), each line with the kernel's padding share
+   (1 - R S over launch A's tile rows, nerf_ray_tile_rows) and its share of
+   the bound's rate. Then a
    teacher (fixed random weights) renders 4 frames of 400x400 through the
    fused eval path, and a Trainer at the dense bench config (64 + 64,
    batch 1024, perturb 1, noise 1, white background, adam 5e-4, steplr
@@ -709,6 +711,15 @@ def compare_mse(mlp, dev):
     return worst_abs, worst_rel
 
 
+def padding_and_bound(name, R, S, ms, mlp):
+    """The padding share of a training kernel's launch A at (R, S) and its
+    share of the bound's rate at `ms`, as a line's tail."""
+    rows = _build.load_library().nerf_ray_tile_rows(R, S)
+    bound_ms, _ = bound(name, (R, S), mlp)
+    return (f"; padding {1 - R * S / rows:.3f} of {rows} tile rows, "
+            f"{100 * bound_ms / ms:.1f}% of the bound's rate")
+
+
 def time_mse(mlp, dev):
     """Median ms of mse_render and its plain version at the batch's R, at
     the dense passes' S (64, 128) and culled32's (32, 96)."""
@@ -721,7 +732,8 @@ def time_mse(mlp, dev):
                         reps=5, warmup=1)
         times[S] = (t_k, t_p)
         print(f"[time] mse_render R={TRAIN_BATCH} S={S}: kernel {t_k:.3f} "
-              f"ms, plain {t_p:.3f} ms ({t_p / t_k:.2f}x)")
+              f"ms, plain {t_p:.3f} ms ({t_p / t_k:.2f}x)"
+              + padding_and_bound("mse_render", TRAIN_BATCH, S, t_k, mlp))
     return times
 
 
@@ -1688,8 +1700,8 @@ TRAIN_MIXES = (("rgb", True), ("depth_opacity", False), ("weights", False),
 # (R, S) of the training kernels' checks: small, main and large batches at
 # the coarse and fine sample counts, rays longer than ~390 samples (launch
 # A's ring takes two stages; train_fwd's at S = 1024 too), and culled32's
-# passes: 32 coarse samples (4 rays a 128-point tile) and 32 + 64 (one ray
-# a tile, a quarter of it padding)
+# passes: 32 coarse samples (4 rays a 128-point tile) and 32 + 64 (4 rays
+# in 3 tiles)
 TRAIN_SHAPES = ([(R, S) for R in (8, 1024, 4104) for S in (64, 128, 192)]
                 + [(5, 400), (3, 1024)]
                 + [(R, S) for S in (32, 96) for R in (8, 1024, 4104)])
@@ -1811,7 +1823,8 @@ def time_train(mlp, dev):
             t_k, t_p = median_ms(kern), median_ms(plain, reps=5, warmup=1)
             times[(name, S)] = (t_k, t_p)
             print(f"[time] {name} R={TRAIN_BATCH} S={S}: kernel {t_k:.3f} "
-                  f"ms, plain {t_p:.3f} ms ({t_p / t_k:.2f}x)")
+                  f"ms, plain {t_p:.3f} ms ({t_p / t_k:.2f}x)"
+                  + padding_and_bound(name, TRAIN_BATCH, S, t_k, mlp))
     return times
 
 

@@ -68,6 +68,8 @@
 // the first CUDA error of their launches.
 #include <cuda_runtime.h>
 
+#include <numeric>
+
 #include "ray_tile.cuh"
 
 namespace nerf {
@@ -168,22 +170,41 @@ __device__ void quad_vjp(const TrainArgs& a, const RaySmem& sm,
 // dL/dsigma (32 bytes a point, 36 with the backward's). The ring has nst =
 // 3 stages, 2 where a long ray would not fit 227 KB with 3 (a backward at
 // S > ~390, train_fwd at S > ~670).
-// At S = 128 a backward block takes 222,848 bytes and train_fwd's 214,784,
-// so one block per SM, and a batch of R = 1024 is 1024 blocks, 7.8 waves
-// of 132 SMs; at S = 64: rpb = 2, 512 blocks, 3.9 waves.
+//
+// rpb is the fewest rays whose points fill whole tiles, AT / gcd(S, AT),
+// where a backward block of that many fits with three stages; else AT / S
+// rays (S < AT) or one, and the last tile of a block is partly padding
+// rows. A ray's quadrature stays in its block, and which rows share a tile
+// changes no row's products, so out8 and the weights do not depend on rpb.
+// At R = 1024, one block per SM:
+//   S = 32:  rpb 4, 1 tile, 256 blocks, 1.9 waves of 132 SMs, 222,848 bytes;
+//   S = 64:  rpb 2, 1 tile, 512 blocks, 3.9 waves, 222,848 bytes;
+//   S = 96:  rpb 4, 3 tiles, 256 blocks, 1.9 waves (6 tile-times an SM, as
+//            against 8 for a block per ray, whose tile is a quarter
+//            padding), 232,064 bytes: 384 under MAX_SMEM, so the BWD
+//            layout takes nothing more without redoing this sum;
+//   S = 128: rpb 1, 1 tile, 1024 blocks, 7.8 waves, 222,848 bytes
+// (train_fwd's FWD blocks take 8,064 bytes less at S = 32, 64 and 128,
+// 9,088 at S = 96). S = 48 and 192 also lose their padding (rpb 8 and 2,
+// three tiles); at S = 24, 400 or 1024 a block of whole tiles would not
+// fit, or is one ray already.
 
-inline int a_rays_per_block(int S) { return S >= AT ? 1 : AT / S; }
+inline int a_rays_per_block(int S) {
+  const int whole = AT / std::gcd(S, AT);
+  if (FbLayout(S, whole, 3, BWD).total <= MAX_SMEM) return whole;
+  return S >= AT ? 1 : AT / S;
+}
 
 // The block grid of launch A over R rays of S samples and its scratch
-// rows (whole tiles per block; rows of the last tile past the block's
-// points are zero cotangents).
+// rows (whole tiles per block; rows of a block's tiles past its points,
+// whole tiles of them in a ragged last block, are zero cotangents).
 struct AShape {
   int rpb, ntile, grid;
   size_t rows;
   AShape(int R, int S)
       : rpb(a_rays_per_block(S)),
-        ntile((a_rays_per_block(S) * S + AT - 1) / AT),
-        grid((R + a_rays_per_block(S) - 1) / a_rays_per_block(S)),
+        ntile((rpb * S + AT - 1) / AT),
+        grid((R + rpb - 1) / rpb),
         rows((size_t)grid * ntile * AT) {}
 };
 
@@ -405,6 +426,12 @@ long long nerf_mse_workspace_bytes(int R, int S) {
       nerf::Workspace(sh.rows, 2 * sh.grid,
                       sh.rows / nerf::AT * nerf::MASK_TILE_BYTES)
           .total);
+}
+
+// Tile rows that launch A runs over R rays of S samples (mse_render,
+// train_bwd and train_fwd alike): R S of them are points, the rest padding.
+long long nerf_ray_tile_rows(int R, int S) {
+  return static_cast<long long>(nerf::AShape(R, S).rows);
 }
 
 // Floats of the gradient buffer of the training kernels (mse_render,

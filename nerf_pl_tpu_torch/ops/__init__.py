@@ -3,10 +3,11 @@ point MLP (packing and its three kernels), the fused render kernels, the
 three training render kernels and Adam's update (CUDA, built on first
 use).
 
-Each kernel wrapper counts its launches in a plain int of its module;
-`launch_counts` reads all nine and `add_launches` adds to them (a
-replayed CUDA graph launches what its capture recorded, which no wrapper
-sees). `device_events` profiles a call on the card, and `kernel_events`
+Each kernel wrapper counts its launches in a plain int of its module,
+and the training kernels count their points and tile rows too
+(`WORK_COUNTERS`); `launch_counts` reads them and `add_launches` adds to
+them (a replayed CUDA graph launches what its capture recorded, which no
+wrapper sees). `device_events` profiles a call on the card, and `kernel_events`
 counts the nine kernels' launches in what it saw, so a count the
 wrappers inferred can be held against the device's own."""
 from __future__ import annotations
@@ -28,6 +29,13 @@ LAUNCH_COUNTERS = {
     "adam": ("adam", "adam_launches"),
 }
 
+# what the launches on rays covered (ops/fused_train.py): counter: (module,
+# its int)
+WORK_COUNTERS = {
+    "ray_points": ("fused_train", "ray_points"),
+    "ray_tile_rows": ("fused_train", "ray_tile_rows"),
+}
+
 # kernel: the __global__ function its wrapper launches once a call
 # (mse_render and train_bwd are fwdbwd_kernel<false> and <true>)
 KERNEL_SYMBOLS = {
@@ -47,16 +55,18 @@ def _module(name: str):
     return importlib.import_module(f"{__name__}.{name}")
 
 
-def launch_counts() -> Dict[str, int]:
-    """{kernel: launches so far} of the nine kernels."""
-    return {k: getattr(_module(mod), attr)
-            for k, (mod, attr) in LAUNCH_COUNTERS.items()}
+def launch_counts(work: bool = False) -> Dict[str, int]:
+    """{kernel: launches so far} of the nine kernels, and with `work` the
+    WORK_COUNTERS' counts too."""
+    table = {**LAUNCH_COUNTERS, **WORK_COUNTERS} if work else LAUNCH_COUNTERS
+    return {k: getattr(_module(mod), attr) for k, (mod, attr) in table.items()}
 
 
 def add_launches(counts: Dict[str, int], times: int = 1) -> None:
-    """Add counts[k] * times to kernel k's launch count."""
+    """Add counts[k] * times to counter k: a kernel's launch count or one of
+    WORK_COUNTERS."""
     for k, n in counts.items():
-        mod, attr = LAUNCH_COUNTERS[k]
+        mod, attr = LAUNCH_COUNTERS.get(k) or WORK_COUNTERS[k]
         m = _module(mod)
         setattr(m, attr, getattr(m, attr) + n * times)
 

@@ -104,6 +104,7 @@ SIGNATURES = {
     "nerf_render_eval": (_I, [_P, _P, _I, _I] + [_P] * 13 + [_I]
                          + [_P] * 4),
     "nerf_mse_workspace_bytes": (ctypes.c_longlong, [_I, _I]),
+    "nerf_ray_tile_rows": (ctypes.c_longlong, [_I, _I]),     # R, S
     "nerf_grad_floats": (_I, []),
     # rays, z, noise, gt, R, S, 13 weight buffers, white_back, scale, out8,
     # weights, workspace, grad, stream

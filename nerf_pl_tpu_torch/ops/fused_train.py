@@ -16,7 +16,10 @@ Each pass dispatches on the device of `rays`:
     `csrc/fused_train.cu` (mse_render, train_fwd, train_bwd; built on first
     use by `_build.py`) or raises.
 There is no path from a kernel to its plain version. Each launch adds one
-to `mse_render_launches`, `train_fwd_launches` or `train_bwd_launches`.
+to `mse_render_launches`, `train_fwd_launches` or `train_bwd_launches`,
+its R * S points to `ray_points` and the 128-point tile rows it runs them
+in to `ray_tile_rows` (`nerf_ray_tile_rows`); 1 - ray_points /
+ray_tile_rows is the share of the kernels' tile rows that were padding.
 
 The plain versions follow the TPU kernels step by step: points `o + d*z`,
 the MLP forward with bf16 products and f32 sums keeping its activations
@@ -49,6 +52,9 @@ from .fused_render import MAX_SAMPLES, _points
 mse_render_launches = 0
 train_fwd_launches = 0
 train_bwd_launches = 0
+# The three kernels' points and tile rows (plain ints, as the launches)
+ray_points = 0
+ray_tile_rows = 0
 
 
 class Quad(NamedTuple):
@@ -231,6 +237,13 @@ def _check_inputs(mlp: PackedMLP, rays, z, noise, **per_ray):
                              f"tensor on {rays.device}")
 
 
+def _count_rows(lib, R: int, S: int) -> None:
+    """Add a launch's points and tile rows to the counters."""
+    global ray_points, ray_tile_rows
+    ray_points += R * S
+    ray_tile_rows += lib.nerf_ray_tile_rows(R, S)
+
+
 def _mse_render_cuda(mlp: PackedMLP, rays, z, noise, gt, white_back: bool,
                      scale: float):
     global mse_render_launches
@@ -257,6 +270,7 @@ def _mse_render_cuda(mlp: PackedMLP, rays, z, noise, gt, white_back: bool,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "mse_render")
     mse_render_launches += 1
+    _count_rows(lib, R, S)
     return out8, weights, _pack_layout_grads(grad)
 
 
@@ -303,6 +317,7 @@ def _train_fwd_cuda(mlp: PackedMLP, rays, z, noise, white_back: bool):
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "train_fwd")
     train_fwd_launches += 1
+    _count_rows(lib, R, S)
     return out8, weights
 
 
@@ -329,6 +344,7 @@ def _train_bwd_cuda(mlp: PackedMLP, rays, z, noise, white_back: bool, g8,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "train_bwd")
     train_bwd_launches += 1
+    _count_rows(lib, R, S)
     return _pack_layout_grads(grad)
 
 

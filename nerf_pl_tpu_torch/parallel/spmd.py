@@ -63,7 +63,8 @@ import torch.utils._pytree as pytree
 from .. import dist as pdist
 from ..models.mipnerf360 import MipConfig, init_mip_params
 from ..models.nerf import init_nerf_params
-from ..ops import add_launches, launch_counts
+from ..ops import (LAUNCH_COUNTERS, WORK_COUNTERS, add_launches,
+                   launch_counts)
 from ..rendering.occupancy import (dilate_segment_bits, ray_box_hits,
                                    ray_box_segment_bits, tighten_intervals)
 from ..rendering.mip360 import MipDraws, render_levels
@@ -601,7 +602,7 @@ class Trainer:
             with P.phase("draws", self.device):
                 self._draw_into(g.draws, seed, state.step + i)
             replay()
-        add_launches(g.launches, times=n_steps)
+        add_launches({**g.launches, **g.work}, times=n_steps)
         params, opt_state = g.state()
         return (TrainState(params, opt_state, state.step + n_steps),
                 {k: v[:n_steps].clone() for k, v in g.metrics.items()})
@@ -616,7 +617,8 @@ class _StepGraph:
     first use, autograd's and the allocator's first passes) run on a side
     stream before capture, on these buffers, before any caller's state is
     loaded. Capture runs nothing; it records each kernel wrapper's launch
-    once, and those counts are taken back and added per replay.
+    once, and those counts (`launches`, and the training kernels' points
+    and tile rows, `work`) are taken back and added per replay.
 
     The step is captured once, with its phases' marks
     (utils/profiling.py): `traced` is its executable with them, replayed
@@ -666,16 +668,19 @@ class _StepGraph:
                 body()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.row.zero_()
-        before = launch_counts()
+        before = launch_counts(work=True)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
             with P.recording_marks() as marks, torch.cuda.graph(self.graph):
                 body()
         finally:
-            recorded = launch_counts()
+            recorded = launch_counts(work=True)
             add_launches({k: before[k] - n for k, n in recorded.items()})
-        self.launches = {k: n - before[k] for k, n in recorded.items()
-                         if n != before[k]}
+        counted = {k: n - before[k] for k, n in recorded.items()
+                   if n != before[k]}
+        self.launches = {k: n for k, n in counted.items()
+                         if k in LAUNCH_COUNTERS}
+        self.work = {k: n for k, n in counted.items() if k in WORK_COUNTERS}
         self.traced = P.MarkedGraph(self.graph, marks)
         self.graph.instantiate()
 

@@ -480,9 +480,11 @@ def _train_cotangent(mix, out8, w, gt):
 # batches, rays longer than ~390 samples, where launch A's ring drops to
 # two stages (train_fwd's keeps three at S = 400), and the culled32
 # recipe's passes: 32 coarse samples (4 rays a 128-point tile) and 32 + 64
-# (one ray a tile, 25% of it padding).
+# (4 rays in 3 tiles), with a ragged last block of 1 or 3 rays whose last
+# tiles hold no point.
 TRAIN_SHAPES = [(R, S) for R in (8, 37, 1024, 4104) for S in (64, 128, 192)
-                ] + [(5, 400)] + [(R, S) for R in (8, 1024) for S in (32, 96)]
+                ] + [(5, 400)] + [(R, S) for R in (8, 1024) for S in (32, 96)
+                                  ] + [(1, 96), (37, 96), (4103, 96)]
 
 
 @pytest.mark.parametrize("R,S", TRAIN_SHAPES)
@@ -560,7 +562,8 @@ def test_train_bwd_matches_mse_render(dev, R, S):
 
 
 @pytest.mark.parametrize("R,S", [(8, 64), (1024, 64), (1024, 128),
-                                 (37, 192), (5, 400), (3, 1024)])
+                                 (37, 192), (5, 400), (3, 1024), (1, 96),
+                                 (37, 96), (4103, 96)])
 @pytest.mark.parametrize("white_back", [True, False])
 def test_train_fwd_matches_mse_render_bitwise(dev, R, S, white_back):
     """train_fwd runs mse_render's forward and quadrature without the
@@ -582,11 +585,12 @@ def test_train_fwd_matches_mse_render_bitwise(dev, R, S, white_back):
         assert torch.equal(f8, out8), (weights, max_err(f8, out8))
 
 
-@pytest.mark.parametrize("R,S", [(37, 192)])
+@pytest.mark.parametrize("R,S", [(37, 192), (1, 96), (37, 96), (4103, 96)])
 def test_backward_kernels_ragged_shapes(dev, R, S):
-    """mse_render and train_bwd at a ragged R whose rays take two point
-    tiles each (the second half full), against their plain versions, and
-    relaunched bit-identically."""
+    """mse_render and train_bwd at a ragged R (at S = 192, blocks of two
+    rays in three tiles, the last block one ray; at S = 96, blocks of four
+    rays in three tiles, the last block one or three rays), against their
+    plain versions, and relaunched bit-identically."""
     mlp = fm.pack_mlp(dense_params(0, dev), dev)
     rays, z, noise, gt = _mse_inputs(R, S, dev, seed=11)
     scale = 1.0 / (R * 3)
@@ -613,6 +617,49 @@ def test_backward_kernels_ragged_shapes(dev, R, S):
                 assert _rel(a, b) <= GRAD_TOL, (i, _rel(a, b))
             else:
                 assert not a.any(), i
+
+
+@pytest.mark.parametrize("R,S,rows", [(1024, 32, 32768), (1024, 64, 65536),
+                                      (1024, 128, 131072), (1024, 96, 98304),
+                                      (37, 96, 3840), (5, 400, 2560)])
+def test_ray_blocks_fill_whole_tiles(dev, R, S, rows):
+    """Launch A's blocks hold the fewest whole rays that fill whole
+    128-point tiles where such a block fits shared memory: at R = 1024 and
+    S = 32, 64, 96 and 128 its tile rows are R S, padding none; a ragged
+    last block at (37, 96) holds one ray in three tiles; a ray of 400
+    samples keeps a block of its own, 4 tiles with 112 padding rows.
+    mse_render, train_fwd and train_bwd each add R S points and those rows
+    to the counters."""
+    assert ft._checked_library().nerf_ray_tile_rows(R, S) == rows
+    mlp = fm.pack_mlp(dense_params(0, dev), dev)
+    rays, z, noise, gt = _mse_inputs(R, S, dev, seed=S)
+    p0, r0 = ft.ray_points, ft.ray_tile_rows
+    out8, _, _ = ft.fused_mse_render(mlp, rays, z, noise, gt, True,
+                                     1.0 / (R * 3))
+    assert (ft.ray_points - p0, ft.ray_tile_rows - r0) == (R * S, rows)
+    ft.train_forward(mlp, rays, z, noise, True)
+    g8 = torch.zeros_like(out8)
+    g8[:, 0:3] = out8[:, 0:3] - gt
+    ft.train_backward(mlp, rays, z, noise, True, g8, None)
+    torch.cuda.synchronize()
+    assert (ft.ray_points - p0, ft.ray_tile_rows - r0) == (3 * R * S,
+                                                           3 * rows)
+
+
+@pytest.mark.parametrize("culled", [False, True], ids=["dense", "culled"])
+def test_replayed_steps_count_their_tile_rows(dev, culled):
+    """A replayed loss-fused step adds its capture's points and tile rows
+    to the counters, as it adds its launches: 1024 rays at 64 + 128
+    samples (dense) or 32 + 96 (culled32), none of their rows padding."""
+    tr = _traced_trainer(dev, culled)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    state, _ = tr.run_steps(state, 5, 1)
+    points = 1024 * ((32 + 96) if culled else (64 + 128))
+    assert tr._graph.work == {"ray_points": points, "ray_tile_rows": points}
+    p0, r0 = ft.ray_points, ft.ray_tile_rows
+    tr.run_steps(state, 5, 7)
+    assert (ft.ray_points - p0, ft.ray_tile_rows - r0) == (7 * points,
+                                                           7 * points)
 
 
 @pytest.mark.parametrize("P", [300, 4099, 131075])

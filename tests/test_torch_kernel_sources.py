@@ -20,6 +20,7 @@ sources as text (no compiler needed, so they run on the CPU):
     issues wgmma on operands that TMA brings in with mbarriers; every
     sigma comes from one function, trunk_tile, which forward_tile calls;
     no source holds WMMA any more, and nerf_mlp.cuh holds no tile loop;
+  * launch A's blocks hold whole rays in whole tiles by one rule on S;
   * no C entry takes transposed weights, and each C entry's arguments in
     the sources match its ctypes signature in ops/_build.py.
 """
@@ -283,6 +284,23 @@ def test_wmma_training_code_is_gone():
         assert "rgb" not in body, m.group(1)
     assert sorted(found) == ["align128", "point_coord", "sincos_col",
                              "weights_at"], found
+
+
+def test_launch_a_blocks_are_whole_tiles_of_whole_rays():
+    """Launch A's rays a block (fused_train.cu) come from one rule on S
+    alone, which AShape applies for mse_render, train_bwd and train_fwd
+    alike: the fewest whole rays that fill whole 128-point tiles, AT /
+    gcd(S, AT), where their backward block fits shared memory with three
+    ring stages. Nothing but S reaches the rule, so no flag or template
+    argument can select another geometry, and the train args take their
+    rpb from AShape."""
+    rule = definitions()["a_rays_per_block"]
+    assert "std::gcd(S, AT)" in rule and "FbLayout(S, whole, 3, BWD)" in rule
+    code = code_of(CSRC / "fused_train.cu")
+    assert re.findall(r"\ba_rays_per_block\s*\(([^)]*)\)", code) == [
+        "int S", "S"]
+    assert re.findall(r"\brpb\s*=[^;]*;", code) == [
+        "rpb = AShape(R, S).rpb;"]
 
 
 def test_hopper_helpers_issue_the_ptx():

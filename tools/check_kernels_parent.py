@@ -14,7 +14,8 @@ wfT, wtT) only where it takes them, as the kernels before their Hopper
 redesign did. Both builds then run on the same rays, depths, noise,
 targets, points and weights:
 
-  * mse_render at (R, S) = (8, 64), (1024, 64), (1024, 128), (37, 192);
+  * mse_render at (R, S) = (8, 64), (1024, 64), (1024, 128), (37, 192),
+    and culled32's (1024, 32), (1024, 96) with a ragged (37, 96);
   * train_fwd at the same shapes (white background);
   * train_bwd (through its C entry, nerf_train_bwd) on the rgb cotangent
     2 scale (rgb - gt) at the same shapes;
@@ -35,7 +36,15 @@ max(1, max |sigma|), and each of the 17 gradient leaves within 0.03
 relative max error. A kernel redesigned on wgmma sums in another order
 than the WMMA products of an earlier build, so it is not bit for bit the
 parent's; a kernel whose code did not change should be, and each line
-says whether its outputs are bit-identical to the parent build's. Both
+says whether its outputs are bit-identical to the parent build's (the
+training kernels' forward, out8 and weights, and their gradients apart:
+another grouping of rays into blocks changes only the order in which the
+gradients are summed). Each training kernel's launch A is also profiled
+once in each build: its grid, rays a block (R over the grid, rounded up),
+block threads and shared memory as the runtime recorded the launch, and
+its padding share, 1 - R S over its tile rows (`nerf_ray_tile_rows`, or
+for a build without that entry the whole tiles of the grid's blocks).
+Both
 builds are called the same way, through their C entries with outputs and
 workspace allocated once (the wrappers' checks and allocations would add
 host time to one side only). Prints the median ms of each build at each
@@ -44,6 +53,7 @@ parent / this. `--kernels` runs only the named kernels (comma-separated;
 default all). Exits non-zero past a bar.
 """
 import ctypes
+import json
 import statistics
 import subprocess
 import sys
@@ -58,7 +68,8 @@ from nerf_pl_tpu_torch.models import init_nerf_params  # noqa: E402
 from nerf_pl_tpu_torch.ops import _build  # noqa: E402
 from nerf_pl_tpu_torch.ops import fused_mlp as fm  # noqa: E402
 
-SHAPES = ((8, 64), (1024, 64), (1024, 128), (37, 192))
+SHAPES = ((8, 64), (1024, 64), (1024, 128), (37, 192), (1024, 32),
+          (1024, 96), (37, 96))
 MLP_P = 131072
 MLP_FWD_P = (65536, 131072)
 EVAL_SHAPES = ((4099, 64), (32768, 128), (32768, 192))
@@ -137,6 +148,11 @@ class Build:
 
     def __init__(self, path: Path, entries, mlp):
         self.lib = ctypes.CDLL(str(path))
+        self.tile_rows = None                  # a build from before it
+        if "nerf_ray_tile_rows" in entries:
+            self.tile_rows = self.lib.nerf_ray_tile_rows
+            self.tile_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+            self.tile_rows.restype = ctypes.c_longlong
         self.names = {}
         for name in ENTRIES:
             result, args = entries[name]
@@ -266,7 +282,7 @@ def compare(what, got, ref, out=None):
     """Prints and returns the failures of gradients `got` against `ref`
     (none if `got` is None) and, with out = ((out8, w), (ref8, ref_w)),
     of the forward's outputs."""
-    bad, parts, same = [], [], True
+    bad, parts, same = [], [], []
     if out is not None:
         (o8, w), (r8, rw) = out
         errs = {"rgb": (o8[:, :3] - r8[:, :3]).abs().max().item(),
@@ -275,13 +291,13 @@ def compare(what, got, ref, out=None):
                 "weights": (w - rw).abs().max().item()}
         parts.append(", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         bad += [k for k, v in errs.items() if not v <= TOL[k]]
-        same = same_bits((o8, w), (r8, rw))
+        same.append(f"out8 and weights {same_bits((o8, w), (r8, rw))}")
     if got is not None:
         rels = rel_errs(got, ref)
         parts.append("grad rel per leaf " + " ".join(f"{r:.2e}" for r in rels))
         bad += [f"grad {i}" for i, r in enumerate(rels) if not r <= GRAD_TOL]
-        same = same and same_bits(got, ref)
-    parts.append(f"bit-identical to the parent: {same}")
+        same.append(f"gradients {same_bits(got, ref)}")
+    parts.append("bit-identical to the parent: " + ", ".join(same))
     print(f"[parent] {what}: " + "; ".join(parts)
           + (f"  FAIL {bad}" if bad else ""))
     return bad
@@ -320,6 +336,47 @@ def report_time(what, parent, here):
           f"parent / this {tp / th:.2f}x")
 
 
+def launch_a(fn, kernel):
+    """{(grid, block, shared memory bytes)} of the launches of `kernel`
+    that fn() makes, as the runtime recorded them (the profiler's trace of
+    the card; a field it did not record reads None)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = REPO / "build" / "check_kernels_parent_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    return {(tuple(a.get("grid") or ()), tuple(a.get("block") or ()),
+             a.get("shared memory"))
+            for e in events if e.get("cat") == "kernel"
+            and kernel in e.get("name", "") for a in (e.get("args", {}),)}
+
+
+def report_launch(what, kernel, R, S, builds):
+    """Prints launch A's geometry and padding share in each build of
+    builds {label: (Build, fn)}; returns whether the geometries agree."""
+    seen, parts = [], []
+    for label, (b, fn) in builds.items():
+        launches = launch_a(fn, kernel)
+        seen.append(launches)
+        for grid, block, smem in sorted(launches, key=str):
+            n = grid[0] if grid else None
+            rpb = -(-R // n) if n else None
+            rows = (b.tile_rows(R, S) if b.tile_rows is not None else
+                    n * -(-rpb * S // 128) * 128 if n else None)
+            pad = f"{1 - R * S / rows:.4f}" if rows else "not recorded"
+            parts.append(f"{label} grid {n}, {rpb} rays a block, block "
+                         f"{block[0] if block else None}, shared memory "
+                         f"{smem}, tile rows {rows}, padding {pad}")
+    same = len(seen) == 2 and seen[0] == seen[1]
+    print(f"[launch] {what} {kernel}: " + "; ".join(parts)
+          + f"; same launches: {same}")
+    return same
+
+
 def check_training(old, new, run, g, dev):
     """mse_render, train_fwd and train_bwd at SHAPES; returns failures."""
     failed = []
@@ -354,6 +411,10 @@ def check_training(old, new, run, g, dev):
             failed += compare(f"train_bwd R={R} S={S}", hg, pg)
             pairs["train_bwd"] = (parent_tb, here_tb)
         for name, (p_fn, h_fn) in pairs.items():
+            report_launch(f"{name} R={R} S={S}",
+                          "fwd_quad_kernel" if name == "train_fwd" else
+                          "fwdbwd_kernel", R, S,
+                          {"parent": (old, p_fn), "this": (new, h_fn)})
             report_time(f"{name} R={R} S={S}", p_fn, h_fn)
     return failed
 
