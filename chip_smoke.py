@@ -250,7 +250,8 @@
    [culled] ladder together, its error, its ms and its plain version's at
    the main shape, its
    bound: the larger of the bytes it must move over 3.35 TB/s and its
-   bf16 operations over 989 TFLOP/s (mlp_flops_per_point); adam's is its
+   bf16 operations over 989 TFLOP/s (nerfbench/work.py's
+   flops_per_point); adam's is its
    28 bytes a parameter, its plain version the foreach chain), and
    library_ms, null: no single PyTorch call computes a fused NeRF MLP with
    its quadrature or its gradients, and the port uses no fused optimizer
@@ -280,7 +281,6 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from nerf_pl_tpu_torch.datasets import dataset_dict  # noqa: E402
 from nerf_pl_tpu_torch.datasets.rays import frame_rays, sphere_pose  # noqa: E402
-from nerf_pl_tpu_torch.eval import load_params  # noqa: E402
 from nerf_pl_tpu_torch.mesh.dae import read_dae  # noqa: E402
 from nerf_pl_tpu_torch.mesh.extract import (  # noqa: E402
     compute_vertex_normals, fuse_colors_by_projection, grid_to_world,
@@ -320,7 +320,9 @@ from nerf_pl_tpu_torch.training.checkpoints import (  # noqa: E402
 from nerf_pl_tpu_torch.training.optimizers import (  # noqa: E402
     B1, B2, apply_updates, clip_scale, optimizer_step, tree_leaves,
     tree_unflatten)
+from nerf_pl_tpu_torch.training.families import NeRFFamily  # noqa: E402
 from nerf_pl_tpu_torch.utils.profiling import cuda_event_ms  # noqa: E402
+from nerfbench.work import flops_per_point  # noqa: E402
 
 TOL = {"weights": 5e-3, "rgb": 1e-2, "opacity": 1e-2, "depth": 5e-2}
 MAIN_PATH_TOL = 2e-2
@@ -385,6 +387,12 @@ def reset_counts():
 
 def read_counts():
     return launch_counts()
+
+
+def load_mlps(ckpt):
+    """Both MLPs of a checkpoint as CPU tensors."""
+    return NeRFFamily(ModelConfig(), RenderConfig(
+        N_importance=N_IMPORTANCE)).load_params(ckpt)
 
 
 def dense_params(seed, device):
@@ -840,11 +848,11 @@ def train_path(dev, store, name, rcfg, per_step, tighten=None,
     plain_tr = Trainer(ModelConfig(), dataclasses.replace(
         rcfg, fused=False, fused_train=False, fused_loss=False),
         tr.optimizer, sched, loss_dict["mse"], TRAIN_BATCH, dev)
-    plain_tr.occ_n_seg = tr.occ_n_seg
-    loss_f, _, g_f = tr._loss_and_grads(state.params, rays_b, rgbs_b, None,
-                                        draws, occm=occm)
-    loss_p, _, g_p = plain_tr._loss_and_grads(state.params, rays_b, rgbs_b,
+    plain_tr.family.n_seg = tr.family.n_seg
+    loss_f, _, g_f = tr.family.loss_and_grads(state.params, rays_b, rgbs_b,
                                               None, draws, occm=occm)
+    loss_p, _, g_p = plain_tr.family.loss_and_grads(
+        state.params, rays_b, rgbs_b, None, draws, occm=occm)
     cos = [cosine(a, b) for a, b in zip(tree_leaves(g_f),
                                         tree_leaves(g_p, g_f))]
     print(f"[train] {name}: one batch at step {state.step} vs plain autograd"
@@ -1087,10 +1095,10 @@ def dp_rank(group, dev, rays, rgbs):
     for s in range(DP_STEPS):
         batch = tr._sample_batch(s)
         draws = tr.step_draws(TRAIN_SEED, s)
-        g_dp = tree_leaves(tr._loss_and_grads(state.params, *batch, None,
-                                              draws)[2])
+        g_dp = tree_leaves(tr.family.loss_and_grads(state.params, *batch,
+                                                    None, draws)[2])
         g_one = tree_leaves(rr.fused_mse_train_step(
-            state.params, *batch, tr.rcfg_train, TRAIN_BATCH,
+            state.params, *batch, tr.family.rcfg, TRAIN_BATCH,
             draws=draws)[2])
         ones = pdist.gather_rows({i: g[None] for i, g in enumerate(g_one)},
                                  group)
@@ -1326,8 +1334,8 @@ def tp_rank(group, dev, rays, rgbs):
         batch = tr._sample_batch(0)
         draws = tr.step_draws(TRAIN_SEED, 0)
         reset_counts()
-        loss, _, grads = tr._loss_and_grads(state.params, *batch, None,
-                                            draws)
+        loss, _, grads = tr.family.loss_and_grads(state.params, *batch,
+                                                  None, draws)
         torch.cuda.synchronize()
         counts = read_counts()
         out[route] = {"loss": float(loss), "counts": counts,
@@ -1356,8 +1364,9 @@ def tp_path(dev, store, smi):
         t1 = tp_trainer(dev, None, kw, num_model=1)
         t1.set_data(rays, rgbs)
         st1 = t1.init_state(torch.Generator().manual_seed(0))
-        loss1, _, g1 = t1._loss_and_grads(st1.params, *t1._sample_batch(0),
-                                          None, t1.step_draws(TRAIN_SEED, 0))
+        loss1, _, g1 = t1.family.loss_and_grads(
+            st1.params, *t1._sample_batch(0), None,
+            t1.step_draws(TRAIN_SEED, 0))
         refs[route] = (float(loss1), [g.cpu() for g in tree_leaves(g1)])
     launches = {}
     for r, out in enumerate(res):
@@ -1828,41 +1837,18 @@ def time_train(mlp, dev):
     return times
 
 
-def mlp_layers(full):
-    """(fan_in, fan_out, input is an embedding) of each product of one
-    point through the MLP, at the function's own widths: gamma(x) is 3 +
-    6 FX = 63 wide and gamma(d) 3 + 6 FD = 27 (the kernels' zero padding
-    of K is not work). The trunk with its skip (its x part a product of
-    its own) and the sigma head, and with `full` the feature, view (its
-    direction part apart) and rgb layers."""
-    kx, kd = 3 + 6 * fm.FX, 3 + 6 * fm.FD
-    layers = ([(kx, fm.W, True), (kx, fm.W, True)]
-              + [(fm.W, fm.W, False)] * (fm.D - 1) + [(fm.W, 1, False)])
-    if full:
-        layers += [(fm.W, fm.W, False), (fm.W, fm.WD, False),
-                   (kd, fm.WD, True), (fm.WD, 3, False)]
-    return layers
-
-
-def mlp_flops_per_point(full, backward=False):
-    """2 x the multiply-adds of one point through the MLP. A backward
-    recomputes the forward, forms every weight gradient, and forms the data
-    gradient of every product's input except the embeddings (layer 0's,
-    the skip's x part and the view layer's direction part need none)."""
-    layers = mlp_layers(full)
-    fwd = sum(k * n for k, n, _ in layers)
-    if not backward:
-        return 2 * fwd
-    data = sum(k * n for k, n, embedding in layers if not embedding)
-    return 2 * (fwd + data + fwd)
+# ops/fused_mlp.py's MLP in the benchmark's model dict, for its FLOP count
+# (nerfbench/work.py's mlp_layers and flops_per_point)
+FM_MODEL = {"D": fm.D, "W": fm.W, "xyz_freqs": fm.FX, "dir_freqs": fm.FD,
+            "skips": (fm.SKIP_LAYER,)}
 
 
 def bound(name, shape, mlp):
     """(least ms, what bounds it) of one call at `shape` ((R, S) rays and
     samples, or P points): the larger of the bytes it must move (each
     input read once, each output written once) over the HBM rate and its
-    bf16 operations over the tensor cores' dense peak
-    (mlp_flops_per_point). The element-wise work (bias adds, ReLUs, the
+    bf16 operations over the tensor cores' dense peak (nerfbench/work.py's
+    flops_per_point). The element-wise work (bias adds, ReLUs, the
     embeddings' sin/cos, the quadrature: a few thousand f32 operations a
     point) runs beside the tensor cores, at under a tenth of this time at
     the 67 TFLOP/s f32 rate. Adam's `shape` is its parameters, and its
@@ -1875,8 +1861,9 @@ def bound(name, shape, mlp):
                    for n in names)
     full, trunk = wbytes(fm._FULL), wbytes(fm._FULL[:6])
     grads = 4 * fm.GRAD_FLOATS
-    f_full, f_sig = mlp_flops_per_point(True), mlp_flops_per_point(False)
-    f_bwd = mlp_flops_per_point(True, backward=True)
+    f_full = flops_per_point(FM_MODEL)
+    f_sig = flops_per_point(FM_MODEL, full=False)
+    f_bwd = flops_per_point(FM_MODEL, train=True)
     if isinstance(shape, tuple):            # (R, S): rays and samples
         R, S = shape
         P, rays, ps = R * S, 32 * R, 4 * R * S
@@ -2223,7 +2210,7 @@ def culled_path(dev, ckpt):
     (the rendered rows within the kernel bars, the image within
     CULL_MSE_BAR). Returns the kernels' launches over the ladder."""
     params = {k: params_from_numpy(v, dev)
-              for k, v in load_params(ckpt).items()}
+              for k, v in load_mlps(ckpt).items()}
     focal = 0.5 * BIG_IMG / np.tan(0.5 * CAMERA_ANGLE_X)
     rays = torch.cat([frame_rays(sphere_pose(t, np.pi / 5, 4.0), BIG_IMG,
                                  BIG_IMG, focal, 2.0, 6.0, dev)
@@ -2557,7 +2544,7 @@ def mesh_path(dev, work, ckpt, smi):
     vertices within MESH_VERTEX_TOL cells) and occlusion_opacity on
     MESH_CPU_RAYS vertex rays of view 0 (within MESH_OPACITY_TOL; the
     vertices whose opacity < MESH_OCC flips printed)."""
-    cpu = load_params(ckpt)
+    cpu = load_mlps(ckpt)
     params = {k: params_from_numpy(v, dev) for k, v in cpu.items()}
     fine = params["nerf_fine"]
     mcfg = ModelConfig()

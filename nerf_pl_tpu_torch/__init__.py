@@ -28,8 +28,8 @@ two-kernel fused training render (`RenderConfig(fused_train=True)`):
                layout on its model axis (mesh)
   dist       — data parallel over torch.distributed: the world, the
                launcher of one process a rank, the collectives over trees
-  training   — checkpoints (both packages' format), losses, lr schedules,
-               sgd/adam, PSNR / SSIM, NeRFSystem
+  training   — model families, checkpoints (both packages'), losses, lr
+               schedules, sgd/adam, PSNR / SSIM, NeRFSystem
   datasets   — blender and llff scenes (numpy), camera rays and sphere
                poses in torch
   mesh       — the σ grid and occlusion renders (plain f32 MLP), marching

@@ -78,11 +78,11 @@ def main(argv=None, device=None):
     """Returns the matrix as it is written to --json_out."""
     from .datasets import dataset_dict
     from .device import resolve_device
-    from .eval import load_params
     from .models import params_from_numpy
     from .parallel import make_render_fn
     from .rendering import (CulledRenderer, ModelConfig, RenderConfig,
                             load_or_build_grid, rays_aabb)
+    from .training.families import NeRFFamily
     from .training.metrics import psnr as psnr_fn
 
     args = build_parser().parse_args(argv)
@@ -97,18 +97,18 @@ def main(argv=None, device=None):
     rays_np = np.asarray(sample['rays'], np.float32)
 
     mcfg = ModelConfig()
-    params = {k: params_from_numpy(v, device)
-              for k, v in load_params(args.ckpt_path).items()}
     rcfg = RenderConfig(
         N_samples=args.N_samples, N_importance=args.N_importance,
         white_back=dataset.white_back, test_time=True, fused=True)
+    params = {k: params_from_numpy(v, device) for k, v in
+              NeRFFamily(mcfg, rcfg).load_params(args.ckpt_path).items()}
     typ = "fine" if args.N_importance > 0 else "coarse"
 
     occ = None
     if any(c != 'dense' for c in args.configs):
         t0 = time.perf_counter()
         occ = load_or_build_grid(
-            args.ckpt_path, params["nerf_fine"], mcfg, N=args.occ_N,
+            args.ckpt_path, params[f"nerf_{typ}"], mcfg, N=args.occ_N,
             occ_range=args.occ_range, sigma_threshold=args.occ_threshold,
             aabb=rays_aabb(rays_np), mode=args.occ_mode,
             vis_rays=(rays_np if args.occ_mode == 'weight' else None))

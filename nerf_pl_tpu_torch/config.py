@@ -16,7 +16,7 @@ defaults), plus TPU-specific additions kept at the end: --precision,
 The port's own flags follow every JAX flag: `--model
 mipnerf360` trains mip-NeRF 360 (models/mipnerf360.py) on an llff scene in
 its 360 layout (`--spheric_poses`) with its published recipe
-(training/system.py), and the `--mip_*` flags set the two MLPs' widths and
+(training/families.py), and the `--mip_*` flags set the two MLPs' widths and
 the samples of each proposal level and of the NeRF level. `--precision
 bfloat16` then runs the MLPs' products on bf16 operands (float32 master
 weights either way). The paths mip-NeRF 360
@@ -232,8 +232,13 @@ def _validate_mip(hp) -> None:
                          "at least 2 samples a level")
 
 
-def mip_config(hp):
-    """The MipConfig of parsed flags (the train or the eval CLI's)."""
+def model_config(hp):
+    """The model config of the train or the eval CLI's flags: --model
+    mipnerf360's MipConfig of the --mip_* flags, else a NeRF's ModelConfig
+    (the JAX package's Hparams has no --model)."""
+    if getattr(hp, "model", "nerf") == "nerf":
+        from .rendering.render import ModelConfig
+        return ModelConfig()
     from .models.mipnerf360 import MipConfig
     return MipConfig(prop_width=hp.mip_prop_width,
                      nerf_width=hp.mip_nerf_width,

@@ -27,10 +27,10 @@ and metrics and prints the PSNR. --compile_cache is accepted and does
 nothing: PyTorch runs eagerly and the kernels are cached under build/.
 
 `--model mipnerf360` renders a mip-NeRF 360 checkpoint (the train CLI's
-`--model mipnerf360` and its `--mip_*` widths and samples) from an
-llff scene in the 360 layout, through `rendering/mip360.py`'s chunked
-test-time render on one device; the NeRF paths' flags (--fused_mlp,
---occ_grid, --num_chips > 1) are refused at parse time.
+`--model mipnerf360` and its `--mip_*` widths and samples) from an llff
+scene in the 360 layout, through its family (`training/families.py`), on
+one device; the NeRF paths' flags (--fused_mlp, --occ_grid, --num_chips
+> 1) are refused at parse time.
 
 The dataset classes are the port's copies of the JAX package's (numpy;
 PIL where an image is read).
@@ -43,7 +43,7 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from .config import COMPILE_CACHE_DEFAULT, add_mip_flags, mip_config
+from .config import COMPILE_CACHE_DEFAULT, add_mip_flags, model_config
 
 
 def build_parser() -> ArgumentParser:
@@ -168,33 +168,6 @@ def save_gif(path, frames, fps=30):
                      duration=int(1000 / fps), loop=0)
 
 
-def load_mip_params(ckpt_path, cfg):
-    """Both mip-NeRF 360 MLPs of a checkpoint as CPU tensors."""
-    from .models.mipnerf360 import init_mip_params
-    from .training.checkpoints import load_ckpt
-
-    params = init_mip_params(torch.Generator().manual_seed(0), cfg)
-    for name in params:
-        params = load_ckpt(params, ckpt_path, name)
-    return params
-
-
-def load_params(ckpt_path, with_fine=True):
-    """Both MLPs of a checkpoint (either package's format) as CPU tensors;
-    the fine one only `with_fine` (a coarse-only checkpoint then raises
-    rather than rendering from random fine weights)."""
-    from .models import init_nerf_params
-    from .training.checkpoints import load_ckpt
-
-    gen = torch.Generator().manual_seed(0)
-    params = {"nerf_coarse": init_nerf_params(gen),
-              "nerf_fine": init_nerf_params(gen)}
-    params = load_ckpt(params, ckpt_path, "nerf_coarse")
-    if with_fine:
-        params = load_ckpt(params, ckpt_path, "nerf_fine")
-    return params
-
-
 def culled_renderer(args, occ, rcfg, mcfg, device, group=None):
     """The CLIs' CulledRenderer from their --occ_* flags, over `group`'s
     ranks when given. The base tile is min(--chunk, DEFAULT_CHUNK) unless
@@ -218,8 +191,9 @@ def culled_render_fn(args, dataset, params, rcfg, mcfg, device, group=None):
     """The --occ_grid renderer of eval.py: the grid built (or loaded from
     its cache) on the fine MLP, the aabb from every len//8-th pose and, in
     weight mode, the visibility rays from every len//32-th; returns
-    render(params, rays) -> numpy outputs. In a group rank 0 builds or
-    loads the grid and broadcasts it, and the ranks render together."""
+    render(params, samples) -> numpy outputs of the samples' rays. In a
+    group rank 0 builds or loads the grid and broadcasts it, and the ranks
+    render together."""
     from . import dist as pdist
 
     occ = None
@@ -228,7 +202,8 @@ def culled_render_fn(args, dataset, params, rcfg, mcfg, device, group=None):
     occ = pdist.broadcast_object(occ, group)
     cr = culled_renderer(args, occ, rcfg, mcfg, device, group)
 
-    def render(params, rays):
+    def render(params, samples):
+        rays = np.concatenate([s['rays'] for s in samples])
         return {k: v.cpu().numpy() for k, v in cr(params, rays).items()}
     return render
 
@@ -277,12 +252,11 @@ def _eval_rank(group, device, args):
 def _eval(args, device, group=None):
     from PIL import Image
 
-    from .datasets import LLFF360Dataset, dataset_dict
     from .datasets.depth_utils import save_pfm
     from .device import resolve_device
     from . import dist as pdist
-    from .parallel import make_render_fn
-    from .rendering import ModelConfig, RenderConfig, mip360
+    from .rendering import RenderConfig
+    from .training.families import family_for
     from .training.metrics import psnr as psnr_fn
     from .training.metrics import ssim as ssim_fn
 
@@ -295,47 +269,21 @@ def _eval(args, device, group=None):
                  if device.type == "cuda" else "")
               + f"; world {pdist.world_of(group)}")
 
-    kwargs = {'root_dir': args.root_dir, 'split': args.split,
-              'img_wh': tuple(args.img_wh)}
-    if args.model == "mipnerf360":
-        dataset = LLFF360Dataset(val_num=args.val_num, **kwargs)
-        mcfg = mip_config(args)
-        params = load_mip_params(args.ckpt_path, mcfg)
-        render_mip = mip360.make_render_fn(mcfg, args.chunk, device)
-
-        def render(params, samples, n_pad_frames):
-            return render_mip(
-                params, np.concatenate([s['rays'] for s in samples], 0),
-                np.concatenate([s['radii'] for s in samples], 0))
-        typ = "fine"
-    else:
-        if args.dataset_name == 'llff':
-            kwargs['spheric_poses'] = args.spheric_poses
-            kwargs['val_num'] = args.val_num
-        dataset = dataset_dict[args.dataset_name](**kwargs)
-        mcfg = ModelConfig()
-        params = load_params(args.ckpt_path, with_fine=args.N_importance > 0)
-        rcfg = RenderConfig(
-            N_samples=args.N_samples, N_importance=args.N_importance,
-            use_disp=args.use_disp, perturb=0.0, noise_std=0.0,
-            white_back=dataset.white_back, test_time=True,
-            compute_dtype=(torch.bfloat16 if args.precision == "bfloat16"
-                           else torch.float32),
-            fused=args.fused_mlp)
-        if args.occ_grid:
-            render_rays = culled_render_fn(args, dataset, params, rcfg, mcfg,
-                                           device, group)
-        else:
-            render_rays = make_render_fn(rcfg, args.chunk, device, mcfg,
-                                         group=group)
-
-        def render(params, samples, n_pad_frames):
-            rays_all = np.concatenate([s['rays'] for s in samples], 0)
-            if n_pad_frames:
-                rays_all = np.concatenate(
-                    [rays_all] + [samples[-1]['rays']] * n_pad_frames, 0)
-            return render_rays(params, rays_all)
-        typ = "fine" if args.N_importance > 0 else "coarse"
+    # N_importance names the NeRF's MLPs
+    family = family_for(model_config(args),
+                        RenderConfig(N_importance=args.N_importance))
+    dataset = family.dataset(args, args.split)
+    params = family.load_params(args.ckpt_path)
+    rcfg = RenderConfig(
+        N_samples=args.N_samples, N_importance=args.N_importance,
+        use_disp=args.use_disp, white_back=dataset.white_back,
+        test_time=True,
+        compute_dtype=(torch.bfloat16 if args.precision == "bfloat16"
+                       else torch.float32),
+        fused=args.fused_mlp)
+    render = (culled_render_fn(args, dataset, params, rcfg, family.mcfg,
+                               device, group) if args.occ_grid else
+              family.render_fn(rcfg, args.chunk, device, group))
     dir_name = os.path.join(args.out_dir, args.dataset_name, args.scene_name)
     if main_rank:
         os.makedirs(dir_name, exist_ok=True)
@@ -351,7 +299,8 @@ def _eval(args, device, group=None):
         # eval.py does: the cull sorts and tiles a dispatch's rays together
         n_pad_frames = fpd - len(idxs) if (start and args.occ_grid) else 0
         t0 = time.perf_counter()
-        results = render(params, samples, n_pad_frames)
+        results = render(params, samples + samples[-1:] * n_pad_frames)
+        typ = "fine" if "rgb_fine" in results else "coarse"
         dispatch_times.append((time.perf_counter() - t0, len(idxs)))
         if not main_rank:
             continue

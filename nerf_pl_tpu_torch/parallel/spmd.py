@@ -1,8 +1,9 @@
 """The trainer: the ray store on the device, contiguous batch reads, the
-loss-fused or autograd step, K steps at a time, and the occupancy
-tightening of the store; on one device, or over a torch.distributed group
-(`dist.py`), one process a rank, laid out as a (data, model) mesh
-(`mesh.py`).
+step of the model config's family (`training/families.py`: its params,
+store columns, draws, loss and gradients), K steps at a time, and the
+occupancy tightening of the store; on one device, or over a
+torch.distributed group (`dist.py`), one process a rank, laid out as a
+(data, model) mesh (`mesh.py`).
 
 Port of `Trainer` in nerf_pl_tpu/parallel/spmd.py. The JAX Trainer shards
 the store and the batch over the mesh's `data` axis; here each rank holds
@@ -36,15 +37,6 @@ segment loads from the caller's state and returns clones of; the store is
 permuted in place, and a new store (set_data, tighten_store) or a new
 state structure captures the step anew.
 
-A `MipConfig` model (`models/mipnerf360.py`) trains mip-NeRF 360 through
-the same store, graph and optimizer: its store carries each ray's pixel
-radius beside the rays, its draws are three jitters a ray, and its step
-is autograd over `rendering/mip360.py`'s three levels and
-`training/losses.py`'s mip360_loss (phases `prop0` to `nerf`, `losses`,
-`backward`), then, where the optimizer clips, the clip's factor (`clip`)
-before the update. It runs on one device: a group, tensor parallelism or
-the occupancy tightening raise.
-
 Occupancy (`tighten_store`) clips every stored ray's [near, far] to its
 occupancy-box overlaps, stores a per-ray occupied-segment mask for the
 coarse placement, and with `pack` keeps the store survivors-first so that
@@ -61,21 +53,17 @@ import torch
 import torch.utils._pytree as pytree
 
 from .. import dist as pdist
-from ..models.mipnerf360 import MipConfig, init_mip_params
-from ..models.nerf import init_nerf_params
 from ..ops import (LAUNCH_COUNTERS, WORK_COUNTERS, add_launches,
                    launch_counts)
 from ..rendering.occupancy import (dilate_segment_bits, ray_box_hits,
                                    ray_box_segment_bits, tighten_intervals)
-from ..rendering.mip360 import MipDraws, render_levels
-from ..rendering.render import (ModelConfig, RenderConfig, TrainDraws,
-                                fused_mse_train_step, render_rays)
+from ..rendering.render import ModelConfig, RenderConfig
+from ..training import families
 from ..training.checkpoints import map_with_paths
-from ..training.losses import mip360_loss
 from ..training.optimizers import Optimizer, optimizer_step, tree_leaves, \
     tree_unflatten
 from ..utils import profiling as P
-from .mesh import TensorParallel, make_mesh, model_pspecs
+from .mesh import make_mesh
 
 
 class TrainState(NamedTuple):
@@ -122,7 +110,7 @@ class Trainer:
       mcfg, rcfg_train: model and training render config.
       optimizer: from training.optimizers.get_optimizer.
       lr_schedule: step -> lr (logged beside the metrics).
-      loss_fn: results dict, rgbs -> scalar (the autograd branch).
+      loss_fn: results dict, rgbs -> scalar (the NeRF's autograd route).
       batch_size: the GLOBAL rays per step; each data index takes
         batch_size // num_data of them.
       device: where this rank's store, the params and the step live.
@@ -138,15 +126,8 @@ class Trainer:
                  loss_fn: Callable, batch_size: int,
                  device: torch.device | str, group=None, num_model: int = 1,
                  tensor_parallel: bool = False):
-        self.mcfg = mcfg
-        self.mip = isinstance(mcfg, MipConfig)
-        if self.mip and (group is not None or tensor_parallel):
-            raise ValueError("mipnerf360 trains on one device: no process "
-                             "group, no tensor parallelism")
-        self.rcfg_train = rcfg_train
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
-        self.loss_fn = loss_fn
         self.group = group
         self.mesh = make_mesh(group, num_model)
         self.num_data = self.mesh.num_data
@@ -156,12 +137,13 @@ class Trainer:
                              f"the data axis of {self.num_data} ranks")
         self.batch_size = batch_size
         self.batch_local = batch_size // self.num_data
-        self.tensor_parallel = tensor_parallel
-        self.tp = None
-        if tensor_parallel and num_model > 1:
-            self.tp = TensorParallel(self.mesh, model_pspecs(
-                {name: self._layer_shapes() for name in self._mlp_names()},
-                num_model, True))
+        self.family = families.family_for(mcfg, rcfg_train, loss_fn,
+                                          batch_size, self.mesh,
+                                          tensor_parallel)
+        if not self.family.parallel and (group is not None or tensor_parallel):
+            raise ValueError(f"{self.family.name} trains on one device: no "
+                             "process group, no tensor parallelism")
+        self.tp = self.family.tp
         self.device = torch.device(device)
         self.all_rays = None
         self.all_rgbs = None
@@ -178,10 +160,10 @@ class Trainer:
         batches by repeating head rays modulo n, and move this rank's
         contiguous shard (P("data")'s block) to the device. Step i of an
         epoch then reads the shard's contiguous block i. `all_radii` (N,),
-        the rays' pixel radii (mip-NeRF 360's store), go with them."""
-        if self.mip != (all_radii is not None):
-            raise ValueError("a mipnerf360 store takes the rays' radii, "
-                             "and only it")
+        the rays' pixel radii (a family's `radii` column), go with them."""
+        if ("radii" in self.family.columns) != (all_radii is not None):
+            raise ValueError(f"a {self.family.name} store takes "
+                             f"{self.family.columns} beside rays and rgbs")
         n = all_rays.shape[0]
         perm = np.random.default_rng(shuffle_seed).permutation(n)
         arrays = [a[perm] for a in (all_rays, all_rgbs, all_radii)
@@ -205,7 +187,7 @@ class Trainer:
         # survivor count and total / survivors.
         self.all_nf0 = None
         self.all_occm = None
-        self.occ_n_seg = 0
+        self.family.n_seg = 0
         self.all_hit = None
         self.all_nsurv = None
         self.pack_expand = 1.0
@@ -285,8 +267,9 @@ class Trainer:
 
         Returns {"hit_frac", "shrink"} and, with pack, {"miss_mse",
         "expand"}: over the whole store, summed across the data axis."""
-        if self.mip:
-            raise ValueError("mipnerf360 takes no occupancy tightening")
+        if not self.family.occupancy:
+            raise ValueError(f"{self.family.name} takes no occupancy "
+                             "tightening")
         if self.all_nf0 is None:
             self.all_nf0 = self.all_rays[:, 6:8].clone()
         boxes = torch.as_tensor(np.asarray(boxes, np.float32),
@@ -308,7 +291,7 @@ class Trainer:
             occm = ray_box_segment_bits(boxes, self.all_rays, n_seg)
             if dilate > 0:
                 occm = dilate_segment_bits(occm, n_seg, dilate)
-            self.all_occm, self.occ_n_seg = occm, n_seg
+            self.all_occm, self.family.n_seg = occm, n_seg
         if pack:
             self.all_hit = hit
             stats.update(self._partition_store())
@@ -321,7 +304,7 @@ class Trainer:
         (background - gt)^2. `expand` is the whole store's total over its
         survivors."""
         miss = ~self.all_hit
-        bg = 1.0 if self.rcfg_train.white_back else 0.0
+        bg = 1.0 if self.family.rcfg.white_back else 0.0
         sse = (((self.all_rgbs - bg) ** 2) * miss[:, None]).double().sum()
         n_miss_local = miss.sum()
         self._permute(torch.argsort(miss.to(torch.uint8), stable=True))
@@ -335,17 +318,6 @@ class Trainer:
                 "expand": self.pack_expand}
 
     # --------------------------------------------------------------- state
-    def _mlp_names(self) -> List[str]:
-        if self.mip:
-            return ["prop_mlp", "nerf_mlp"]
-        return ["nerf_coarse"] + (["nerf_fine"]
-                                  if self.rcfg_train.N_importance > 0 else [])
-
-    def _layer_shapes(self):
-        """One MLP's {layer: {"w"}} on the meta device (shapes only)."""
-        return {name: {"w": torch.empty(dims, device="meta")}
-                for name, dims in self.mcfg.nerf.all_layer_dims().items()}
-
     def init_state(self, generator: torch.Generator,
                    master_dtype: Optional[torch.dtype] = None) -> TrainState:
         """Params drawn from `generator` (torch.nn.Linear's init), on the
@@ -356,13 +328,8 @@ class Trainer:
         torch.bfloat16) casts the stored (master) weights, and the
         optimizer's moments follow them; the kernels run bf16 products
         either way, so it moves only where the update rounds."""
-        if self.mip:
-            params = init_mip_params(generator, self.mcfg, self.device)
-        else:
-            params = {name: init_nerf_params(generator, self.mcfg.nerf,
-                                             self.device)
-                      for name in self._mlp_names()}
-        params = pdist.broadcast_tree(params, self.group)
+        params = pdist.broadcast_tree(
+            self.family.init_params(generator, self.device), self.group)
         if self.tp is not None:
             params = map_with_paths(self.tp.shard_leaf, params)
         if master_dtype is not None:
@@ -371,101 +338,29 @@ class Trainer:
         return TrainState(params, self.optimizer.init(params), 0)
 
     # --------------------------------------------------------------- train
+    def _columns(self) -> List[str]:
+        """A batch's columns: rays, rgbs, the family's, then occm if any."""
+        return ["rays", "rgbs", *self.family.columns] + (
+            ["occm"] if self.all_occm is not None else [])
+
     def _sample_batch(self, step):
-        """Contiguous block `step % steps_per_epoch` of the store: (rays,
-        rgbs), and the radii or the segment masks when the store has them.
-        `step` is an
-        int or a 0-dim integer tensor on the store's device (the offset is
-        then computed there, as JAX's dynamic_slice takes it). With
-        survivor packing the offset wraps over the survivor region [0, K),
-        K = max(nsurv // batch, 1) * batch, so an epoch keeps its step
-        count and cycles through the survivors."""
+        """Contiguous block `step % steps_per_epoch` of the store, its
+        `_columns`. `step` is an int or a 0-dim integer tensor on the
+        store's device (the offset is then computed there, as JAX's
+        dynamic_slice takes it). With survivor packing the offset wraps
+        over the survivor region [0, K), K = max(nsurv // batch, 1) *
+        batch, so an epoch keeps its step count and cycles through the
+        survivors."""
         b = self.batch_local
         off = (step % self.steps_per_epoch) * b
         if self.all_nsurv is not None:
             off = off % (max(self.all_nsurv // b, 1) * b)
         idx = off + torch.arange(b, device=self.device)
-        batch = (self.all_rays.index_select(0, idx),
-                 self.all_rgbs.index_select(0, idx))
-        if self.all_radii is not None:
-            return batch + (self.all_radii.index_select(0, idx),)
-        if self.all_occm is None:
-            return batch
-        return batch + (self.all_occm.index_select(0, idx),)
+        return tuple(getattr(self, f"all_{c}").index_select(0, idx)
+                     for c in self._columns())
 
-    def _loss_and_grads(self, params, rays, rgbs,
-                        generator: Optional[torch.Generator],
-                        draws: Optional[TrainDraws] = None,
-                        occm: Optional[torch.Tensor] = None):
-        """(loss, mse, grads) of the global batch: autograd over
-        render_rays, or the loss-fused step with the cotangent scale
-        1 / (global batch * 3). `rays`, `rgbs` and `occm` (the segment
-        masks, for the coarse placement in occupied segments) are this
-        data index's part of the batch, and under tensor parallelism
-        `params` and the grads are this rank's blocks. Over a data axis
-        the autograd route differentiates the local mean times
-        batch_local / batch_size, and both routes sum their loss, squared
-        error and gradients across the data group (one all-reduce)."""
-        n_seg = self.occ_n_seg if occm is not None else 0
-        data_group = self.mesh.data_group
-        dev = rays.device
-        if not self.rcfg_train.fused_loss:
-            leaves = [p.detach().requires_grad_() for p in
-                      tree_leaves(params)]
-            p = tree_unflatten(params, leaves)
-            with torch.enable_grad():
-                out = render_rays(p, rays, self.rcfg_train, self.mcfg,
-                                  generator=generator, draws=draws,
-                                  occm=occm, n_seg=n_seg, tp=self.tp)
-                with P.phase("backward", dev):
-                    loss = self.loss_fn(out, rgbs)
-                    if data_group is not None:
-                        loss = loss * (self.batch_local / self.batch_size)
-                    grads = torch.autograd.grad(loss, leaves)
-                    typ = "fine" if "rgb_fine" in out else "coarse"
-                    mse = torch.mean((out[f"rgb_{typ}"].detach() - rgbs)
-                                     ** 2)
-            loss, grads = loss.detach(), tree_unflatten(params, list(grads))
-            if data_group is None:
-                return loss, mse, grads
-            with P.phase("allreduce", dev):
-                mse = mse * (self.batch_local / self.batch_size)
-                return pdist.all_reduce_tree((loss, mse, grads), data_group)
-
-        if self.tensor_parallel:
-            raise ValueError(
-                "fused_loss shards rays only; run with "
-                "tensor_parallel=False (or drop fused_loss to use the "
-                "autograd path, which supports the model axis)")
-        loss_sum, out, grads = fused_mse_train_step(
-            params, rays, rgbs, self.rcfg_train, self.batch_size, self.mcfg,
-            generator=generator, draws=draws, occm=occm, n_seg=n_seg)
-        typ = "fine" if "rgb_fine" in out else "coarse"
-        sq = torch.sum((out[f"rgb_{typ}"] - rgbs) ** 2)
-        if data_group is not None:
-            with P.phase("allreduce", dev):
-                loss_sum, sq, grads = pdist.all_reduce_tree(
-                    (loss_sum, sq, grads), data_group)
-        return loss_sum / self.batch_size, sq / (self.batch_size * 3), grads
-
-    def _mip_loss_and_grads(self, params, rays, rgbs, radii,
-                            draws: MipDraws):
-        """(loss, mse, grads) of mip-NeRF 360's step: autograd over the
-        three levels and the three losses."""
-        dev = rays.device
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        p = tree_unflatten(params, leaves)
-        with torch.enable_grad():
-            out = render_levels(p, rays, radii, self.mcfg, draws.jitter)
-            with P.phase("losses", dev):
-                loss, _ = mip360_loss(out, rgbs, self.mcfg)
-                mse = torch.mean((out["rgb"].detach() - rgbs) ** 2)
-            with P.phase("backward", dev):
-                grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), mse, tree_unflatten(params, list(grads))
-
-    def _step(self, params, opt_state, step: torch.Tensor,
-              draws: TrainDraws, inplace: bool = False):
+    def _step(self, params, opt_state, step: torch.Tensor, draws,
+              inplace: bool = False):
         """One optimizer step on device inputs only: the batch at the
         device step, the given draws, the gradients cast to the master
         dtype (the kernels accumulate f32), the update, and the metrics
@@ -476,14 +371,9 @@ class Trainer:
         the optimizer write the new state into the given tensors."""
         dev = self.device
         with P.phase("batch", dev):
-            rays, rgbs, *extra = self._sample_batch(step)
-        if self.mip:
-            loss, mse, grads = self._mip_loss_and_grads(params, rays, rgbs,
-                                                        extra[0], draws)
-        else:
-            loss, mse, grads = self._loss_and_grads(
-                params, rays, rgbs, None, draws,
-                occm=extra[0] if extra else None)
+            batch = dict(zip(self._columns(), self._sample_batch(step)))
+        loss, mse, grads = self.family.loss_and_grads(params, draws=draws,
+                                                      **batch)
         params, opt_state = optimizer_step(self.optimizer, grads, opt_state,
                                            params, inplace)
         with P.phase("tail", dev):
@@ -498,44 +388,22 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(
             self._rank_seed(seed, step))
 
-    def _draw_specs(self) -> List[Tuple[str, Tuple[int, int], bool]]:
-        """(name, shape, uniform) of the draws a step takes, in the order
-        the render takes them from its generator: the perturb uniforms and
-        the coarse noise, then the importance u and the fine noise, for
-        this data index's rays. These are all the random numbers of a step on
-        every path (mip-NeRF 360's: one jitter a ray for each level)."""
-        if self.mip:
-            return [("jitter", (self.batch_local,
-                                len(self.mcfg.num_prop_samples) + 1), True)]
-        cfg, R = self.rcfg_train, self.batch_local
-        S, S_imp = cfg.N_samples, cfg.N_importance
-        specs = []
-        if cfg.perturb > 0:
-            specs.append(("perturb", (R, S), True))
-        if cfg.noise_std > 0:
-            specs.append(("noise_coarse", (R, S), False))
-        if S_imp > 0 and cfg.perturb > 0:
-            specs.append(("u", (R, S_imp), True))
-        if S_imp > 0 and cfg.noise_std > 0:
-            specs.append(("noise_fine", (R, S + S_imp), False))
-        return specs
-
-    def _draw_into(self, draws: TrainDraws, seed: int, step: int):
+    def _draw_into(self, draws, seed: int, step: int):
         """Fill `draws` in place with step `step`'s draws (in-place
         uniform_ / normal_ give torch.rand's / torch.randn's numbers)."""
         g = self.step_generator(seed, step)
-        for name, _, uniform in self._draw_specs():
+        for name, _, uniform in self.family.draw_specs():
             buf = getattr(draws, name)
             if uniform:
                 buf.uniform_(generator=g)
             else:
                 buf.normal_(generator=g)
 
-    def step_draws(self, seed: int, step: int) -> TrainDraws | MipDraws:
-        """Every random draw of global step `step`, as tensors."""
-        kind = MipDraws if self.mip else TrainDraws
-        draws = kind(**{name: torch.empty(shape, device=self.device)
-                        for name, shape, _ in self._draw_specs()})
+    def step_draws(self, seed: int, step: int):
+        """Every random draw of global step `step`: the family's Draws."""
+        draws = self.family.Draws(**{
+            name: torch.empty(shape, device=self.device)
+            for name, shape, _ in self.family.draw_specs()})
         self._draw_into(draws, seed, step)
         return draws
 
@@ -582,7 +450,7 @@ class Trainer:
         store = tuple((n, a.data_ptr(), tuple(a.shape))
                       for n, a in self._store_named())
         leaves, spec = pytree.tree_flatten((state.params, state.opt_state))
-        return (store, self.occ_n_seg, self.all_nsurv, self.steps_per_epoch,
+        return (store, self.family.n_seg, self.all_nsurv, self.steps_per_epoch,
                 str(spec), tuple((tuple(t.shape), t.dtype) for t in leaves),
                 id(self.mesh.data_group), id(self.mesh.model_group))
 

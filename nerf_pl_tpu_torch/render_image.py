@@ -82,11 +82,12 @@ def main(argv=None, device=None):
 
     from .datasets import dataset_dict
     from .device import resolve_device
-    from .eval import culled_renderer, load_params
+    from .eval import culled_renderer
     from .models import params_from_numpy
     from .parallel import make_render_fn
     from .rendering import (ModelConfig, RenderConfig, load_or_build_grid,
                             rays_aabb)
+    from .training.families import NeRFFamily
     from .training.metrics import psnr as psnr_fn
     from .utils.visualization import visualize_depth
 
@@ -101,12 +102,12 @@ def main(argv=None, device=None):
     sample = dataset[args.idx]
 
     mcfg = ModelConfig()
-    params = {k: params_from_numpy(v, device)
-              for k, v in load_params(args.ckpt_path).items()}
     rcfg = RenderConfig(
         N_samples=args.N_samples, N_importance=args.N_importance,
         use_disp=args.use_disp, white_back=dataset.white_back,
         test_time=True, fused=args.fused_mlp)
+    params = {k: params_from_numpy(v, device) for k, v in
+              NeRFFamily(mcfg, rcfg).load_params(args.ckpt_path).items()}
 
     if args.occ_grid:
         t0 = time.perf_counter()

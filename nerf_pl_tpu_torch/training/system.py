@@ -1,14 +1,15 @@
 """NeRFSystem: end-to-end training on one device or data parallel.
 
-Port of nerf_pl_tpu/training/system.py: dataset preparation, the trainer,
-the epoch loop (segments of --scan_steps steps), full-image validation
-with TensorBoard panels, top-k checkpointing, `last.ckpt` and resume, in
-checkpoints both packages load. The dataset classes, the flag checks and
-the host utilities are the port's copies of the JAX package's
-(`datasets/`, `config.py`, `utils/`). With --occ_train, after
---occ_warmup_epochs and then every --occ_refresh_epochs, an occupancy grid
-of the current fine model tightens the ray store (`_occ_tighten`), on the
-training device.
+Port of nerf_pl_tpu/training/system.py: the dataset, the recipe of the
+trainer and the validation render of the model's family (`families.py`, of
+--model: NeRF or mip-NeRF 360), the epoch loop (segments of --scan_steps
+steps), full-image validation with TensorBoard panels, top-k
+checkpointing, `last.ckpt` and resume, in checkpoints both packages load.
+The dataset classes, the flag checks and the host utilities are the port's
+copies of the JAX package's (`datasets/`, `config.py`, `utils/`). With
+--occ_train, after --occ_warmup_epochs and then every
+--occ_refresh_epochs, an occupancy grid of the current fine model tightens
+the ray store (`_occ_tighten`), on the training device.
 
 Data parallel (--num_gpus > 1, `train.py`) runs one NeRFSystem a rank of a
 torch.distributed group, the JAX system's mesh: every rank holds its shard
@@ -17,13 +18,6 @@ of the store and steps together; validation renders sharded
 writes TensorBoard, the checkpoints and `topk.json` while the others wait
 at a barrier; the occupancy grid is built on rank 0 and its boxes
 broadcast; on resume every rank loads the same checkpoint.
-
-With --model mipnerf360 the system trains mip-NeRF 360
-(models/mipnerf360.py) on the llff scene in its 360 layout
-(`LLFF360Dataset`: the rays' pixel radii go to the store): its log-linear
-lr with warm-up, Adam with its eps and the gradients' global-norm clip,
-and validation through `rendering/mip360.py`'s chunked test-time render
-(the NeRF level's colour and distance as rgb_fine and depth_fine).
 
 Validation renders clean (no jitter or noise) full images through
 `make_render_fn` with the training passes (test_time off), as the JAX
@@ -40,24 +34,18 @@ import numpy as np
 import torch
 
 from .. import dist as pdist
-from ..config import mip_config, validate_hparams
-from ..datasets import LLFF360Dataset, dataset_dict
+from ..config import model_config, validate_hparams
 from ..device import resolve_device
-from ..parallel.render import make_render_fn
 from ..parallel.spmd import Trainer, seed_for
 from ..rendering.occupancy import (build_occupancy_grid, pick_block,
                                    rays_aabb, resolve_ranges)
-from ..rendering import mip360
-from ..rendering.render import ModelConfig, RenderConfig
 from ..utils import profiling as P
 from ..utils.visualization import visualize_depth
 from .checkpoints import (TopKCheckpoints, load_checkpoint, load_ckpt,
                           save_checkpoint)
-from .losses import loss_dict
-from .lr_schedule import get_loglinear_schedule, get_lr_schedule
+from .families import family_for
 from .metrics import psnr as psnr_fn
 from .metrics import ssim as ssim_fn
-from .optimizers import get_optimizer
 
 
 class NeRFSystem:
@@ -75,23 +63,13 @@ class NeRFSystem:
         self.ckpt_dir = os.path.join(ckpt_root, hparams.exp_name)
         self.enable_tb = enable_tb
         self.writer = None
-        # the JAX package's Hparams, which has no --model, trains a NeRF
-        self.mip = getattr(hparams, "model", "nerf") == "mipnerf360"
-        self.mcfg = mip_config(hparams) if self.mip else ModelConfig()
+        self.mcfg = model_config(hparams)
+        self.family = family_for(self.mcfg)
 
     # ----------------------------------------------------------------- data
     def prepare_data(self):
-        hp = self.hparams
-        dataset = dataset_dict[hp.dataset_name]
-        kwargs = {"root_dir": hp.root_dir, "img_wh": tuple(hp.img_wh)}
-        if self.mip:
-            dataset = LLFF360Dataset
-            kwargs["val_num"] = hp.val_num
-        elif hp.dataset_name == "llff":
-            kwargs["spheric_poses"] = hp.spheric_poses
-            kwargs["val_num"] = hp.val_num
-        self.train_dataset = dataset(split="train", **kwargs)
-        self.val_dataset = dataset(split="val", **kwargs)
+        self.train_dataset = self.family.dataset(self.hparams, "train")
+        self.val_dataset = self.family.dataset(self.hparams, "val")
 
     # ---------------------------------------------------------------- setup
     def setup(self):
@@ -99,10 +77,15 @@ class NeRFSystem:
         # ceil: the store pads the tail batch, as Trainer.set_data does
         self.steps_per_epoch = max(
             1, -(-len(self.train_dataset) // hp.batch_size))
-        if self.mip:
-            self._setup_mip(hp)
-        else:
-            self._setup_nerf(hp)
+        ds = self.train_dataset
+        args, self.rcfg_val, master_dtype = self.family.recipe(
+            hp, self.steps_per_epoch, ds.white_back)
+        self.trainer = Trainer(self.mcfg, *args, hp.batch_size, self.device,
+                               group=self.group)
+        self.trainer.set_data(ds.all_rays, ds.all_rgbs, **{
+            f"all_{c}": getattr(ds, f"all_{c}") for c in self.family.columns})
+        self.state = self.trainer.init_state(
+            torch.Generator().manual_seed(hp.seed), master_dtype=master_dtype)
         if hp.ckpt_path:
             self._restore(hp.ckpt_path)
 
@@ -112,65 +95,6 @@ class NeRFSystem:
             self.writer = SummaryWriter(self.log_dir)
         self.topk = (TopKCheckpoints(self.ckpt_dir, k=5) if self.is_main
                      else None)
-
-    def _setup_mip(self, hp):
-        """mip-NeRF 360's trainer and state, with its published recipe
-        (multinerf's configs/360.gin): the lr log-linear from 2e-3 to 2e-5
-        over 250,000 steps after a 512-step warm-up from 0.01 of it, Adam
-        with eps 1e-6, the gradients' global norm clipped to 1e-3."""
-        self.lr_schedule = get_loglinear_schedule(2e-3, 2e-5, 250_000, 512,
-                                                  0.01)
-        optimizer = get_optimizer("adam", self.lr_schedule, eps=1e-6,
-                                  clip_norm=1e-3)
-        self.trainer = Trainer(self.mcfg, RenderConfig(), optimizer,
-                               self.lr_schedule, None, hp.batch_size,
-                               self.device, group=self.group)
-        self.trainer.set_data(self.train_dataset.all_rays,
-                              self.train_dataset.all_rgbs,
-                              all_radii=self.train_dataset.all_radii)
-        self.state = self.trainer.init_state(
-            torch.Generator().manual_seed(hp.seed))
-
-    def _setup_nerf(self, hp):
-        """The NeRF recipes' render configs, schedule, optimizer, trainer
-        and state."""
-        compute_dtype = (torch.bfloat16 if hp.precision == "bfloat16"
-                         else torch.float32)
-        white_back = self.train_dataset.white_back
-        self.rcfg_train = RenderConfig(
-            N_samples=hp.N_samples, N_importance=hp.N_importance,
-            use_disp=hp.use_disp, perturb=hp.perturb,
-            noise_std=hp.noise_std, white_back=white_back,
-            compute_dtype=compute_dtype, fused=hp.fused_mlp,
-            fused_train=hp.fused_train,
-            # the loss-fused step is exactly the reference MSE
-            fused_loss=(hp.fused_train and hp.loss_type == "mse"),
-            occ_keepalive=hp.occ_keepalive)
-        self.rcfg_val = RenderConfig(
-            N_samples=hp.N_samples, N_importance=hp.N_importance,
-            use_disp=hp.use_disp, perturb=0.0, noise_std=0.0,
-            white_back=white_back, compute_dtype=compute_dtype,
-            fused=hp.fused_mlp)
-        self.lr_schedule = get_lr_schedule(
-            hp.lr_scheduler, hp.lr, hp.num_epochs, self.steps_per_epoch,
-            decay_step=hp.decay_step, decay_gamma=hp.decay_gamma,
-            poly_exp=hp.poly_exp, warmup_multiplier=hp.warmup_multiplier,
-            warmup_epochs=hp.warmup_epochs, optimizer=hp.optimizer)
-        optimizer = get_optimizer(hp.optimizer, self.lr_schedule,
-                                  momentum=hp.momentum,
-                                  weight_decay=hp.weight_decay)
-        self.trainer = Trainer(self.mcfg, self.rcfg_train, optimizer,
-                               self.lr_schedule, loss_dict[hp.loss_type],
-                               hp.batch_size, self.device, group=self.group)
-        self.trainer.set_data(self.train_dataset.all_rays,
-                              self.train_dataset.all_rgbs)
-        # --precision bfloat16 with the fused kernels (which run bf16
-        # products either way) selects bf16 master weights and moments, as
-        # the JAX package does; f32 masters stay the default
-        master_dtype = (torch.bfloat16 if hp.precision == "bfloat16"
-                        and (hp.fused_train or hp.fused_mlp) else None)
-        self.state = self.trainer.init_state(
-            torch.Generator().manual_seed(hp.seed), master_dtype=master_dtype)
 
     def _restore(self, ckpt_path: str):
         """Full resume when the checkpoint holds a complete train state
@@ -257,28 +181,18 @@ class NeRFSystem:
         and rank 0 scores it; the other ranks return {}."""
         hp = self.hparams
         W, H = hp.img_wh
-        chunk = min(hp.val_chunk, hp.chunk)
-        if self.mip:
-            render_mip = mip360.make_render_fn(self.mcfg, chunk, self.device)
-
-            def render(params, sample):
-                return render_mip(params, sample["rays"], sample["radii"])
-            typ = "fine"
-        else:
-            render_nerf = make_render_fn(self.rcfg_val, chunk, self.device,
-                                         self.mcfg, group=self.group)
-
-            def render(params, sample):
-                return render_nerf(params, sample["rays"])
-            typ = "fine" if hp.N_importance > 0 else "coarse"
+        render = self.family.render_fn(self.rcfg_val,
+                                       min(hp.val_chunk, hp.chunk),
+                                       self.device, self.group)
         losses, psnrs, ssims = [], [], []
         n_items = len(self.val_dataset) if max_items is None else min(
             max_items, len(self.val_dataset))
         for i in range(n_items):
             sample = self.val_dataset[i]
-            out = render(self.state.params, sample)
+            out = render(self.state.params, [sample])
             if not self.is_main:
                 continue
+            typ = "fine" if "rgb_fine" in out else "coarse"
             rgbs = np.asarray(sample["rgbs"])
             losses.append(float(sum(np.mean((out[f"rgb_{t}"] - rgbs) ** 2)
                                     for t in ("coarse", "fine")

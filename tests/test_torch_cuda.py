@@ -751,7 +751,7 @@ def test_culled_loss_fused_step_matches_plain(dev):
                                          fused_loss=True), dev)
     plain = Trainer(ModelConfig(), RenderConfig(**base), tr.optimizer,
                     tr.lr_schedule, loss_dict["mse"], 1024, dev)
-    plain.occ_n_seg = tr.occ_n_seg
+    plain.family.n_seg = tr.family.n_seg
     params = {m: dense_params(i, dev)
               for i, m in enumerate(("nerf_coarse", "nerf_fine"))}
     rays, rgbs, occm = tr._sample_batch(0)
@@ -762,11 +762,11 @@ def test_culled_loss_fused_step_matches_plain(dev):
         u=torch.rand((1024, 64), generator=g, device=dev),
         noise_fine=torch.randn((1024, 96), generator=g, device=dev))
     n0 = ft.mse_render_launches
-    loss_f, _, g_f = tr._loss_and_grads(params, rays, rgbs, None, draws,
-                                        occm=occm)
+    loss_f, _, g_f = tr.family.loss_and_grads(params, rays, rgbs, None,
+                                              draws, occm=occm)
     assert ft.mse_render_launches == n0 + 2
-    loss_p, _, g_p = plain._loss_and_grads(params, rays, rgbs, None, draws,
-                                           occm=occm)
+    loss_p, _, g_p = plain.family.loss_and_grads(params, rays, rgbs, None,
+                                                 draws, occm=occm)
     assert torch.isfinite(loss_f) and torch.isfinite(loss_p)
     for a, b in zip(tree_leaves(g_f), tree_leaves(g_p, g_f)):
         cos = torch.nn.functional.cosine_similarity(a.reshape(-1),

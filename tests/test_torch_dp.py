@@ -299,8 +299,8 @@ def test_step_is_the_sum_of_one_process_shards(ranks, specs, route):
             grads.append(ranks_mod._np(g))
         else:
             tr = ranks_mod.trainer(s["rcfg"], b, None)
-            loss, _, g = tr._loss_and_grads(params, rays, rgbs, None,
-                                            draws=draws)
+            loss, _, g = tr.family.loss_and_grads(params, rays, rgbs, None,
+                                                  draws=draws)
             losses.append(loss * (b / STEP_BATCH))
             grads.append({k: v * np.float32(b / STEP_BATCH)
                           for k, v in ranks_mod._np(g).items()})

@@ -260,7 +260,7 @@ def test_trainer_step_matches_jax():
 
     loss_j, g_j = jax.value_and_grad(loss_of)(params)
     cfg = RenderConfig(**base)
-    loss_t, _, g_t = _trainer(cfg, R)._loss_and_grads(
+    loss_t, _, g_t = _trainer(cfg, R).family.loss_and_grads(
         {k: params_from_numpy(v) for k, v in params.items()},
         torch.from_numpy(rays), torch.from_numpy(rgbs), None,
         draws=_step_draws(key, R, cfg))

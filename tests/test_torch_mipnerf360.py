@@ -311,6 +311,17 @@ def test_cli_refuses_the_paths_mipnerf360_does_not_take(flags):
                   "--spheric_poses"] + flags)
 
 
+@pytest.mark.parametrize("flags", [["--fused_mlp"], ["--occ_grid"],
+                                   ["--num_chips", "2"],
+                                   ["--dataset_name", "blender"]])
+def test_eval_cli_refuses_the_paths_mipnerf360_does_not_take(flags):
+    """The eval CLI refuses them at parse time, before any file is read."""
+    from nerf_pl_tpu_torch.eval import get_opts
+    with pytest.raises(ValueError, match="mipnerf360 does not take"):
+        get_opts(["--model", "mipnerf360", "--root_dir", "scene",
+                  "--ckpt_path", "c", "--dataset_name", "llff"] + flags)
+
+
 def test_train_cli_checkpoint_and_eval(tmp_path, monkeypatch):
     """--model mipnerf360 at cut widths on a synthetic llff scene with
     --spheric_poses: a few steps through NeRFSystem.fit and run_steps, a

@@ -101,7 +101,7 @@ def test_autograd_step_matches_jax():
     loss_j, g_j = jax.jit(jax.value_and_grad(loss_of))(params)
     cfg = RenderConfig(**base)
     tr = _trainer(cfg, R)
-    loss_t, mse_t, g_t = tr._loss_and_grads(
+    loss_t, mse_t, g_t = tr.family.loss_and_grads(
         {k: params_from_numpy(v) for k, v in params.items()},
         torch.from_numpy(rays), torch.from_numpy(rgbs), None,
         draws=_step_draws(key, R, cfg))
@@ -143,7 +143,7 @@ def test_fused_autograd_step_matches_jax():
     loss_j, g_j = jax.value_and_grad(loss_of)(params)
     cfg = RenderConfig(**base)
     tr = _trainer(cfg, R)
-    loss_t, _, g_t = tr._loss_and_grads(
+    loss_t, _, g_t = tr.family.loss_and_grads(
         {k: params_from_numpy(v) for k, v in params.items()},
         torch.from_numpy(rays), torch.from_numpy(rgbs), None,
         draws=_step_draws(key, R, cfg))

@@ -125,9 +125,9 @@ def test_occm_step_matches_jax(route):
         np.testing.assert_allclose(out_t[k].numpy(), np.asarray(out_j[k]),
                                    atol=2e-2, err_msg=k)
     tr = _trainer(cfg, R)
-    tr.occ_n_seg = n_seg
-    loss_t, _, g_t = tr._loss_and_grads(tparams, *targs, None, draws=draws,
-                                        occm=tocc)
+    tr.family.n_seg = n_seg
+    loss_t, _, g_t = tr.family.loss_and_grads(tparams, *targs, None,
+                                              draws=draws, occm=tocc)
     assert abs(float(loss_t) - float(loss_j)) <= 1e-4 * float(loss_j)
     for model in g_j:
         for layer in g_j[model]:

@@ -106,7 +106,7 @@ def _eager_loop(tr, state, seed, n_steps):
             off %= max(tr.all_nsurv // b, 1) * b
         occm = None if tr.all_occm is None else tr.all_occm[off:off + b]
         lrs.append(tr.lr_schedule(s))
-        loss, mse, grads = tr._loss_and_grads(
+        loss, mse, grads = tr.family.loss_and_grads(
             params, tr.all_rays[off:off + b], tr.all_rgbs[off:off + b],
             tr.step_generator(seed, s), occm=occm)
         grads = tree_unflatten(params, [g.to(p.dtype) for g, p in zip(
@@ -164,9 +164,9 @@ def test_run_steps_equals_the_eager_loop(route):
         g = tr.step_generator(9, 0)
         before = g.get_state()
         rays_b, rgbs_b, *occm = tr._sample_batch(0)
-        tr._loss_and_grads(state.params, rays_b, rgbs_b, g,
-                           tr.step_draws(9, 0),
-                           occm=occm[0] if occm else None)
+        tr.family.loss_and_grads(state.params, rays_b, rgbs_b, g,
+                                 tr.step_draws(9, 0),
+                                 occm=occm[0] if occm else None)
         assert torch.equal(g.get_state(), before)
     (s1, m1), (s2, m2) = runs
     assert s1.step == s2.step == 8

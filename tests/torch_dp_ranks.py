@@ -56,8 +56,8 @@ def _store_part(group, device, s):
 
 
 def _step_part(group, device, s):
-    """One _loss_and_grads of the global batch with the given params,
-    this rank's rows and draws."""
+    """One family.loss_and_grads of the global batch with the given
+    params, this rank's rows and draws."""
     rank = pdist.rank_of(group)
     tr = trainer(s["rcfg"], s["batch"], group)
     b = tr.batch_local
@@ -65,7 +65,7 @@ def _step_part(group, device, s):
     draws = TrainDraws(**{k: torch.from_numpy(v[rank])
                           for k, v in s["draws"].items()})
     params = {k: params_from_numpy(v) for k, v in s["params"].items()}
-    loss, mse, grads = tr._loss_and_grads(
+    loss, mse, grads = tr.family.loss_and_grads(
         params, torch.from_numpy(s["rays"][rows]),
         torch.from_numpy(s["rgbs"][rows]), None, draws=draws)
     return {"loss": float(loss), "mse": float(mse), "grads": _np(grads)}

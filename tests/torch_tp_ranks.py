@@ -111,9 +111,9 @@ def _steps_part(group, device, s, dp_group):
 
 
 def _step_part(group, device, s, dp_group):
-    """One _loss_and_grads of the global batch at (2, 2) from the given
-    whole params (this rank keeps its blocks), this data index's rows and
-    draws: the loss and this rank's gradient blocks, per model."""
+    """One family.loss_and_grads of the global batch at (2, 2) from the
+    given whole params (this rank keeps its blocks), this data index's rows
+    and draws: the loss and this rank's gradient blocks, per model."""
     out = {}
     for name, params_np in s["params"].items():
         tr = trainer(dict(s, mcfg=name), group)
@@ -124,7 +124,7 @@ def _step_part(group, device, s, dp_group):
                               for k, v in s["draws"].items()})
         params = map_with_paths(tr.tp.shard_leaf, {
             k: params_from_numpy(v) for k, v in params_np.items()})
-        loss, mse, grads = tr._loss_and_grads(
+        loss, mse, grads = tr.family.loss_and_grads(
             params, torch.from_numpy(s["rays"][rows]),
             torch.from_numpy(s["rgbs"][rows]), None, draws=draws)
         out[name] = {"loss": float(loss), "mse": float(mse),
@@ -151,7 +151,7 @@ def _routes_part(group, device, s, dp_group):
                       for k, v in s["params"].items()}
             if tr.tp is not None:
                 params = map_with_paths(tr.tp.shard_leaf, params)
-            loss, mse, grads = tr._loss_and_grads(
+            loss, mse, grads = tr.family.loss_and_grads(
                 params, torch.from_numpy(s["rays"][rows]),
                 torch.from_numpy(s["rgbs"][rows]), None, draws=draws)
             res[tag] = {"loss": float(loss), "mse": float(mse),
