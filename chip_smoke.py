@@ -88,6 +88,24 @@
    1e-3 and eps 1e-6: the kernel reading the clip's factor from the
    device against the clipped chain, bit for bit out of place and in
    place, its ms and its [bound] line (28 bytes a parameter).
+   mip-NeRF 360's ReLU backward ([relu_bgrad]): the one launch pair of
+   csrc/relu_bgrad.cu at the cell's four shapes (524,288 x 1024, the
+   same with the gradient a 1024-column view of 1096-wide rows, 524,288 x
+   128 and a proposal level's 1,048,576 x 256), on a gradient of mean 1
+   (so that a column's |sum g| is near its sum |g|): g bit for bit
+   threshold_backward's and db within 1e-5 of sum |g| of a float64
+   column sum, per column, a bar that db rounded to bf16 must fail; then
+   the kernel's ms (10 launches an event pair, so the wrapper's host time
+   hides behind the device's), its bound (6 bytes a value), its share,
+   the plain version's ms and, as library_ms, threshold_backward +
+   sum(0), which the port no longer calls; and the sum over a step's 17
+   layers. Then mip-NeRF 360's training step ([mip]): the benchmark's
+   mipnerf360_outdoor.train16k at published widths and its batch of
+   16,384 rays (its store cut to 262,144 rays) through Trainer.run_steps,
+   3 steps in one capture and its replays, the counts zeroed just before:
+   a finite loss and 17 relu_bgrad launch pairs and one adam launch a
+   step, no other kernel. The kernels line's relu_bgrad launches are this
+   run's.
 5. Point-MLP path (`--fused_mlp` training). Holds the three point-MLP
    kernels against their plain versions at ragged P = 300, 4099 and
    131,075 with the weights of dense_params and of plain init: rgb within
@@ -252,10 +270,13 @@
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    bf16 operations over 989 TFLOP/s (nerfbench/work.py's
    flops_per_point); adam's is its
-   28 bytes a parameter, its plain version the foreach chain), and
+   28 bytes a parameter, its plain version the foreach chain; relu_bgrad's
+   its 6 bytes a value at (524,288, 1024), its launches the [mip] step's),
+   and
    library_ms, null: no single PyTorch call computes a fused NeRF MLP with
    its quadrature or its gradients, and the port uses no fused optimizer
-   of PyTorch's), mse_render's [bound] lines at culled32's (1024, 32) and
+   of PyTorch's; adam's torch._fused_adam_, relu_bgrad's threshold_backward
+   + sum(0)), mse_render's [bound] lines at culled32's (1024, 32) and
    (1024, 96), the nvidia-smi line, and last {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero without those lines.
 """
@@ -352,6 +373,8 @@ KERNELS = {   # name: (TPU kernel it replaces, source of the port's)
                   "nerf_pl_tpu_torch/csrc/fused_train.cu"),
     "adam": ("none: optax's Adam chain, which XLA fuses",
              "nerf_pl_tpu_torch/csrc/adam.cu"),
+    "relu_bgrad": ("none: the JAX package has no mip-NeRF 360",
+                   "nerf_pl_tpu_torch/csrc/relu_bgrad.cu"),
 }
 GRAD_TOL = 0.03
 COS_BAR = 0.95
@@ -377,6 +400,17 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 ADAM_BYTES = 28          # a parameter's p, g, mu, nu read, p, mu, nu written
 ADAM_STEPS, ADAM_PROFILED = 5, 50
 MIP_CLIP = 1e-3          # mip-NeRF 360's global-norm clip
+RELU_BYTES = 6           # a value's grad and y read, g written
+# mip-NeRF 360's ReLU layers at the cell's 16,384 rays: (points, width, the
+# gradient's row stride where it is a view, launches of that shape a step;
+# the proposal MLP runs once a level, 64 samples a ray each)
+RELU_SHAPES = ((524288, 1024, None, 7), (524288, 1024, 1096, 1),
+               (524288, 128, None, 1), (1048576, 256, None, 8))
+RELU_TIMED = 10          # launches an event pair: the host's part hidden
+RELU_DB_TOL = 1e-5       # db against a float64 sum, of the column's sum |g|
+MIP_STORE, MIP_STEPS = 262144, 3  # the [mip] step's store of rays, its steps
+# a mip-NeRF 360 step's launches: the 17 ReLU layers' backward and Adam
+MIP_PER_STEP = {"relu_bgrad": 17, "adam": 1}
 L2_FLUSH_BYTES = 256 << 20
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, same source
 
@@ -418,6 +452,15 @@ def rays_z(R, S, device, seed):
 
 def median_ms(fn, reps=10, warmup=2):
     return statistics.median(cuda_event_ms(fn, reps, warmup))
+
+
+def batched_ms(fn, n=RELU_TIMED):
+    """ms a call of fn, n calls between two events: the host's time a
+    call hides behind the device's."""
+    def calls():
+        for _ in range(n):
+            fn()
+    return median_ms(calls, reps=5, warmup=1) / n
 
 
 def max_err(a, b):
@@ -1855,6 +1898,9 @@ def bound(name, shape, mlp):
     bound their bytes."""
     if name == "adam":
         return 1e3 * ADAM_BYTES * shape / HBM_BYTES_PER_S, "bytes"
+    if name == "relu_bgrad":
+        return 1e3 * RELU_BYTES * shape[0] * shape[1] / HBM_BYTES_PER_S, \
+            "bytes"
 
     def wbytes(names):
         return sum(mlp.kernel[n].numel() * mlp.kernel[n].element_size()
@@ -2053,6 +2099,102 @@ def adam_path(dev):
           f"{m_ms:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}), "
           f"{100 * bound_ms / m_ms:.1f}% of the bound's rate")
     return err, n_params, k_ms, chain_ms, lib_ms
+
+
+def relu_bgrad_path(dev):
+    """[relu_bgrad], the module docstring's paragraph. Returns (the largest
+    |db - float64 sum| over sum |g| of a column, the kernel's ms, the
+    plain version's ms, threshold_backward + sum(0)'s ms) at the NeRF
+    trunk's (524,288, 1024)."""
+    from nerf_pl_tpu_torch.ops import relu_bgrad as RB
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    worst, step, out = 0.0, [0.0, 0.0], None
+
+    def db_err(db, want):
+        return ((db.double() - want.double().sum(0)).abs()
+                / want.double().abs().sum(0).clamp_min(1e-30)).max().item()
+    for P, N, width, per_step in RELU_SHAPES:
+        y = torch.relu(torch.randn((P, N), generator=gen, device=dev)
+                       ).to(torch.bfloat16)
+        # a gradient of mean 1: a column's |sum g| is near its sum |g|, so
+        # db's rounding shows against the bar
+        full = (torch.randn((P, width or N), generator=gen, device=dev) + 1
+                ).to(torch.bfloat16)
+        grad = full[:, :N]
+        g, db = RB.relu_bgrad(grad, y)
+        want = torch.ops.aten.threshold_backward(grad, y, 0)
+        if not torch.equal(g.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"[relu_bgrad] {P} x {N}: g is not "
+                                 "threshold_backward's")
+        err = db_err(db, want)
+        if not err <= RELU_DB_TOL:
+            raise AssertionError(f"[relu_bgrad] {P} x {N}: db off a float64 "
+                                 f"sum by {err:.3e} of sum |g|")
+        err_bf16 = db_err(db.to(torch.bfloat16).float(), want)
+        if not err_bf16 > RELU_DB_TOL:
+            raise AssertionError(f"[relu_bgrad] {P} x {N}: db rounded to "
+                                 f"bf16 passes the bar ({err_bf16:.3e})")
+        worst = max(worst, err)
+        del g, db, want
+        k_ms = batched_ms(lambda: RB.relu_bgrad(grad, y))
+        p_ms = batched_ms(lambda: RB.relu_bgrad_plain(grad, y))
+        lib_ms = batched_ms(lambda: torch.ops.aten.threshold_backward(
+            grad, y, 0).sum(0))
+        bound_ms, _ = bound("relu_bgrad", (P, N), None)
+        step[0] += per_step * k_ms
+        step[1] += per_step * bound_ms
+        print(f"[relu_bgrad] {P} x {N}"
+              + (f" (grad's rows {width} apart)" if width else "")
+              + f": kernel {k_ms:.4f} ms against a bound of {bound_ms:.4f} "
+              f"ms (bytes), {100 * bound_ms / k_ms:.1f}% of the bound's "
+              f"rate; plain {p_ms:.4f}; library_ms (threshold_backward + "
+              f"sum(0), which the port no longer calls) {lib_ms:.4f}; g bit "
+              f"for bit, db within {err:.2e} of sum |g| (rounded to bf16 "
+              f"{err_bf16:.2e})")
+        if (N, width) == (1024, None):
+            out = (k_ms, p_ms, lib_ms)
+        del y, full, grad
+    print(f"[relu_bgrad] a 16,384-ray mip-NeRF 360 step's 17 layers: "
+          f"{step[0]:.3f} ms against a bound of {step[1]:.3f} ms, "
+          f"{100 * step[1] / step[0]:.1f}%")
+    torch.cuda.empty_cache()
+    return (worst,) + out
+
+
+def mip_path(dev):
+    """[mip], the module docstring's paragraph. Returns the launch counts
+    of its steps."""
+    import copy
+    from nerf_pl_tpu_torch.parallel.spmd import TrainState
+    from nerfbench import inputs_mip360 as mi
+    from nerfbench import run
+    from nerfbench.runners import train_mip360 as runner
+    cell = copy.deepcopy(run.load_cell("mipnerf360_outdoor.train16k"))
+    cell["config"]["store"]["n_rays"] = MIP_STORE
+    batch = cell["traffic"]["batch_per_rank"]
+    tr = runner.trainer_with_store(cell, TRAIN_SEED, dev)
+    params = mi.make_params(cell["config"]["model"], TRAIN_SEED, dev)
+    state = TrainState(params, tr.optimizer.init(params), 0)
+    torch.cuda.synchronize()
+    reset_counts()
+    state, m = tr.run_steps(state, TRAIN_SEED, MIP_STEPS)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n_launched = MIP_STEPS + _StepGraph.WARMUP_STEPS * tr.captures
+    print(f"[mip] mip-NeRF 360 at published widths, batch {batch}: "
+          f"{MIP_STEPS} steps, {tr.captures} graph captures ({n_launched} "
+          f"steps launched): launches {launches}; loss "
+          f"{[round(v, 5) for v in m['loss'].tolist()]}")
+    if not torch.isfinite(m["loss"]).all():
+        raise AssertionError("[mip] loss not finite")
+    for k, n in launches.items():
+        if n != MIP_PER_STEP.get(k, 0) * n_launched:
+            raise AssertionError(f"[mip] {k} launched {n} times in "
+                                 f"{n_launched} steps, not "
+                                 f"{MIP_PER_STEP.get(k, 0)} per step")
+    del tr, state, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def validation_path(dev):
@@ -2674,6 +2816,10 @@ def main():
     mse_times = time_mse(mlp, dev)
     errs["adam"], n_params, adam_ms, chain_ms, adam_lib_ms = adam_path(dev)
     times[("adam", n_params)] = (adam_ms, chain_ms)
+    (errs["relu_bgrad"], relu_ms, relu_plain_ms,
+     relu_lib_ms) = relu_bgrad_path(dev)
+    relu_launches = mip_path(dev)["relu_bgrad"]
+    times[("relu_bgrad", RELU_SHAPES[0][1])] = (relu_ms, relu_plain_ms)
     store = teacher_store(dev)
     base = dict(N_samples=N_SAMPLES, N_importance=N_IMPORTANCE, perturb=1.0,
                 noise_std=1.0, white_back=True)
@@ -2724,6 +2870,7 @@ def main():
     for k, n in tp_launches.items():
         launches[k] += n
     launches["mse_render"] += bench_path(smi)
+    launches["relu_bgrad"] = relu_launches
 
     fine_S = N_SAMPLES + N_IMPORTANCE
     times[("mse_render", fine_S)] = mse_times[fine_S]
@@ -2742,7 +2889,8 @@ def main():
                   "sigma_fwd": CHUNK * N_SAMPLES,
                   "train_fwd": (TRAIN_BATCH, fine_S),
                   "train_bwd": (TRAIN_BATCH, fine_S),
-                  "adam": n_params}
+                  "adam": n_params,
+                  "relu_bgrad": RELU_SHAPES[0][:2]}
     # the timings are keyed by S for a ray batch and by P for points
     time_key = {k: v[1] if isinstance(v, tuple) else v
                 for k, v in main_shape.items()}
@@ -2755,7 +2903,8 @@ def main():
                         "max_abs_err": errs[k], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by,
-                        "library_ms": adam_lib_ms if k == "adam" else None})
+                        "library_ms": {"adam": adam_lib_ms,
+                                       "relu_bgrad": relu_lib_ms}.get(k)})
         print(f"[bound] {k} at {main_shape[k]}: {ms:.3f} ms against a "
               f"bound of {bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.1f}% of the bound's rate")

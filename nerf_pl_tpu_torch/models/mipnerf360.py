@@ -38,6 +38,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.relu_bgrad import relu_bgrad
+
 Params = Dict[str, Dict[str, torch.Tensor]]
 MLPS = ("prop_mlp", "nerf_mlp")
 
@@ -116,9 +118,10 @@ class _DenseReLU(torch.autograd.Function):
     rounded) with f32 sums, the bias and the ReLU in cuBLAS's epilogue: the
     one rounding to bf16 of relu(acc + b), as addmm then relu rounds it,
     with no pass of its own. The backward is addmm's and relu's: the
-    ReLU's mask from the output, the data gradient in bf16 (none for an
-    input that needs none), the weight's and bias's sums widened to
-    float32."""
+    ReLU's mask from the output and the bias's float32 column sums in one
+    pass (ops/relu_bgrad.py: one launch pair on CUDA), then the data
+    gradient in bf16 (none for an input that needs none) and the weight's
+    sums widened to float32."""
 
     @staticmethod
     def forward(ctx, x, w, b):
@@ -130,9 +133,9 @@ class _DenseReLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         x, wb, y = ctx.saved_tensors
-        g = torch.ops.aten.threshold_backward(grad, y, 0)
+        g, db = relu_bgrad(grad, y)
         gx = g @ wb.t() if ctx.needs_input_grad[0] else None
-        return gx, (x.t() @ g).float(), g.sum(0).float()
+        return gx, (x.t() @ g).float(), db
 
 
 def _dense(p: Dict[str, torch.Tensor], x: torch.Tensor, precision: str,

@@ -1,14 +1,14 @@
 """Kernels of the port and their plain versions: sample_pdf, the fused
 point MLP (packing and its three kernels), the fused render kernels, the
-three training render kernels and Adam's update (CUDA, built on first
-use).
+three training render kernels, Adam's update and mip-NeRF 360's ReLU
+backward with its bias gradient (CUDA, built on first use).
 
 Each kernel wrapper counts its launches in a plain int of its module,
 and the training kernels count their points and tile rows too
 (`WORK_COUNTERS`); `launch_counts` reads them and `add_launches` adds to
 them (a replayed CUDA graph launches what its capture recorded, which no
 wrapper sees). `device_events` profiles a call on the card, and `kernel_events`
-counts the nine kernels' launches in what it saw, so a count the
+counts the ten kernels' launches in what it saw, so a count the
 wrappers inferred can be held against the device's own."""
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ LAUNCH_COUNTERS = {
     "mlp_bwd": ("fused_mlp", "mlp_bwd_launches"),
     "sigma_fwd": ("fused_mlp", "sigma_fwd_launches"),
     "adam": ("adam", "adam_launches"),
+    "relu_bgrad": ("relu_bgrad", "relu_bgrad_launches"),
 }
 
 # what the launches on rays covered (ops/fused_train.py): counter: (module,
@@ -48,6 +49,7 @@ KERNEL_SYMBOLS = {
     "mlp_bwd": "point_fwdbwd_kernel",
     "sigma_fwd": "sigma_fwd_kernel",
     "adam": "adam_kernel",
+    "relu_bgrad": "relu_bgrad_kernel",
 }
 
 
@@ -56,7 +58,7 @@ def _module(name: str):
 
 
 def launch_counts(work: bool = False) -> Dict[str, int]:
-    """{kernel: launches so far} of the nine kernels, and with `work` the
+    """{kernel: launches so far} of the ten kernels, and with `work` the
     WORK_COUNTERS' counts too."""
     table = {**LAUNCH_COUNTERS, **WORK_COUNTERS} if work else LAUNCH_COUNTERS
     return {k: getattr(_module(mod), attr) for k, (mod, attr) in table.items()}
@@ -100,7 +102,7 @@ def device_ms(events: List) -> float:
 
 
 def kernel_events(events: List) -> Dict[str, int]:
-    """{__global__ function: launches the device ran} of the nine kernels
+    """{__global__ function: launches the device ran} of the ten kernels
     among events, by name."""
     return {sym: sum(e.count for e in events
                      if re.search(rf"\b{sym}\b", e.key))

@@ -136,6 +136,11 @@ SIGNATURES = {
     "nerf_adam_table_bytes": (_I, []),
     "nerf_adam_block_elems": (_I, []),
     "nerf_adam": (_I, [_P, _I, _P]),
+    # relu_bgrad.cu: the blocks of rows x cols at vec; then grad, its row
+    # stride, y, g, partial, db, rows, cols, vec, blocks, stream
+    "nerf_relu_bgrad_blocks": (_I, [ctypes.c_longlong, _I, _I]),
+    "nerf_relu_bgrad": (_I, [_P, ctypes.c_longlong] + [_P] * 4
+                        + [ctypes.c_longlong, _I, _I, _I, _P]),
 }
 
 # C types of the entries' arguments and results, as c_entries spells them.

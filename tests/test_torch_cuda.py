@@ -1370,7 +1370,8 @@ def _mip_trainer(dev, cell, seed):
 def test_mip360_replayed_steps_equal_eager_steps(dev):
     """20 replayed graph steps of mip-NeRF 360 at published widths (batch
     1024) leave the state, and give the metrics, that 20 eager steps do,
-    bit for bit; one capture, one adam launch a step."""
+    bit for bit; one capture, one adam launch and 17 relu_bgrad launch
+    pairs a step."""
     cell = _mip_cell(65536, 1024)
     finals = []
     for eager in (True, False):
@@ -1378,7 +1379,8 @@ def test_mip360_replayed_steps_equal_eager_steps(dev):
         state, m = tr.run_steps(state, 7, 20, eager=eager)
         finals.append((tr, state, m))
     (_, se, me), (tr, sg, mg) = finals
-    assert tr.captures == 1 and tr._graph.launches == {"adam": 1}
+    assert tr.captures == 1 and tr._graph.launches == {"adam": 1,
+                                                       "relu_bgrad": 17}
     for a, b in zip(_state_leaves(se.params, se.opt_state),
                     _state_leaves(sg.params, sg.opt_state)):
         assert torch.equal(a, b)
@@ -1424,6 +1426,110 @@ def test_mip360_replayed_step_marks_in_order(dev):
     assert any("norm" in n.lower() for n in phases["clip"])
     assert not any("adam_kernel" in n for p, ns in phases.items()
                    if p != "optimizer" for n in ns)
+
+
+# mip-NeRF 360's ReLU layers at the cell's shapes (16,384 rays: the NeRF
+# trunk's 524,288 x 1024, layer 4's gradient a 1024-column view of 1096,
+# the view layer's x 128, the proposal MLP's 1,048,576 x 256 a level and
+# 2,097,152 x 256 both), and inputs that leave the 16-byte path: an odd
+# width, a row stride of 1100 and a view one value past a 16-byte word
+# ("off": the columns 1 .. 1024 of 1096-wide rows)
+RELU_SHAPES = [(524288, 1024, None), (524288, 1024, 1096),
+               (524288, 128, None), (1048576, 256, None),
+               (2097152, 256, None), (4099, 100, None)]
+RELU_ELEMENTWISE = [(4099, 100, None), (524288, 1024, 1100),
+                    (524288, 1024, "off")]
+RELU_DB_TOL = 1e-5       # |db - float64 sum| over the column's sum |g|
+
+
+def _relu_inputs(P, N, width, dev, seed=0):
+    """bf16 y (ReLU outputs with -0.0 and NaN planted) and grad [P, N] of
+    mean 1, so that a column's |sum g| is near its sum |g| and db's
+    rounding shows against the latter; grad a view of the first N columns
+    of [P, width] where width is given, of the columns 1 .. N of [P, 1096]
+    where it is "off"."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.relu(torch.randn((P, N), generator=gen, device=dev)
+                   ).to(torch.bfloat16)
+    y[0::7, 1::3] = -0.0
+    y[2::11, 2::5] = float("nan")
+    cols = 1096 if width == "off" else width or N
+    full = (torch.randn((P, cols), generator=gen, device=dev) + 1
+            ).to(torch.bfloat16)
+    if width == "off":
+        return full[:, 1:N + 1], y
+    return (full[:, :N] if width else full), y
+
+
+def _db_err(db, want):
+    """The largest |db - float64 column sum| over the column's sum |g|."""
+    return ((db.double() - want.double().sum(0)).abs()
+            / want.double().abs().sum(0).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("P,N,width", RELU_SHAPES + RELU_ELEMENTWISE[1:])
+def test_relu_bgrad_matches_threshold_backward(dev, P, N, width):
+    """g bit for bit threshold_backward's, db within 1e-5 x sum |g| of a
+    float64 column sum, per column, a bar that db rounded to bf16 fails;
+    the grad view read where it lies."""
+    from nerf_pl_tpu_torch.ops import relu_bgrad as RB
+    grad, y = _relu_inputs(P, N, width, dev)
+    n0 = RB.relu_bgrad_launches
+    g, db = RB.relu_bgrad(grad, y)
+    torch.cuda.synchronize()
+    assert RB.relu_bgrad_launches == n0 + 1
+    want = torch.ops.aten.threshold_backward(grad, y, 0)
+    assert g.is_contiguous() and db.dtype == torch.float32
+    assert torch.equal(g.view(torch.int16), want.view(torch.int16))
+    assert _db_err(db, want) <= RELU_DB_TOL, _db_err(db, want)
+    assert _db_err(db.to(torch.bfloat16).float(), want) > RELU_DB_TOL
+
+
+@pytest.mark.parametrize("P,N,width", RELU_SHAPES + RELU_ELEMENTWISE[1:])
+def test_relu_bgrad_is_deterministic(dev, P, N, width):
+    from nerf_pl_tpu_torch.ops import relu_bgrad as RB
+    grad, y = _relu_inputs(P, N, width, dev, seed=1)
+    g1, db1 = RB.relu_bgrad(grad, y)
+    g2, db2 = RB.relu_bgrad(grad, y)
+    assert torch.equal(g1.view(torch.int16), g2.view(torch.int16))
+    assert torch.equal(db1.view(torch.int32), db2.view(torch.int32))
+
+
+@pytest.mark.parametrize("P,N,width", RELU_ELEMENTWISE)
+def test_relu_bgrad_refuses_the_vector_path_where_it_does_not_fit(
+        dev, P, N, width):
+    """An odd width, a row stride or an address that is not whole 16-byte
+    words: the wrapper launches the element-wise kernel (relu_bgrad_kernel
+    <1>) and never the 16-byte one, with g and db as the test above holds
+    them."""
+    from nerf_pl_tpu_torch.ops import relu_bgrad as RB
+    grad, y = _relu_inputs(P, N, width, dev, seed=2)
+    assert not RB.fits_vector(grad, y)
+    (g, db), dev_spans, _, _ = _profiled(lambda: RB.relu_bgrad(grad, y))
+    names = [n for n, _, _ in dev_spans if "relu_bgrad_kernel" in n]
+    assert len(names) == 1 and "<1>" in names[0], names
+    want = torch.ops.aten.threshold_backward(grad, y, 0)
+    assert torch.equal(g.view(torch.int16), want.view(torch.int16))
+    assert _db_err(db, want) <= RELU_DB_TOL
+
+
+def test_mip360_eager_step_launches_relu_bgrad_17_times(dev):
+    """One eager mip-NeRF 360 step at published widths: 17 relu_bgrad
+    launch pairs (8 NeRF trunk layers, the view layer, 4 proposal layers
+    at both levels), each running both kernels, and no
+    threshold_backward."""
+    from nerf_pl_tpu_torch.ops import relu_bgrad as RB
+    cell = _mip_cell(65536, 1024)
+    tr, state = _mip_trainer(dev, cell, 5)
+    n0 = RB.relu_bgrad_launches
+    (state, m), dev_spans, host, _ = _profiled(
+        lambda: tr.run_steps(state, 5, 1, eager=True))
+    assert RB.relu_bgrad_launches == n0 + 17
+    assert torch.isfinite(m["loss"]).all()
+    names = [n for n, _, _ in dev_spans]
+    assert sum("relu_bgrad_kernel" in n for n in names) == 17
+    assert sum("relu_bgrad_sum_kernel" in n for n in names) == 17
+    assert not any("threshold_backward" in n for n, _, _ in host)
 
 
 @pytest.mark.parametrize("inplace", [False, True])
